@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of gcn_song_embeddings_tpu for NVIDIA Hopper.
+
+The package mirrors the JAX package's module paths (``config``,
+``data.graph``, ``ops.ppr``, ``models.pinsage``, ``serve`` ...) so each
+counterpart is easy to find.  It imports ``torch`` and never ``jax``, and
+nothing of the JAX package: what it needs from there it carries as its own
+copy.
+
+The two ops that the TPU build wrote as Pallas kernels are hand-written
+CUDA C++ kernels here (``csrc/``), each beside a plain PyTorch version of
+the same function:
+
+* ``ops.walk_kernel.restart_walks`` -- the restart-walk hop (K1);
+* ``ops.agg.conv_aggregate`` -- the fused neighbor gather + Q-MLP +
+  importance-weighted mean (K2).
+
+A wrapper takes its plain version only for tensors on the CPU; for a CUDA
+tensor it launches its kernel or raises.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"`` (see ``utils.device``).
+"""

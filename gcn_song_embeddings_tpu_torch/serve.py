@@ -1,0 +1,497 @@
+"""Embedding and hybrid kNN serving over HTTP, on the GPU.
+
+Endpoints (as in the JAX package's serve.py):
+    GET /healthz                          -> {"status": "ok", ...}
+    GET /knn?track=<id>&k=10              -> ranked neighbors w/ metadata
+    GET /knn?index=<row>&k=10             -> same, by integer row
+    GET /knn?tracks=<id,id,...>&k=10      -> batched (also indices=)
+    GET /embed?track=<id>                 -> the raw (unit) embedding
+
+``EmbeddingIndex`` keeps L2-normalized rows on the device; a batch of
+queries is one f32 product (TF32 off) and an exact ``torch.topk``.
+``HybridIndex`` serves the walk-head + embedding-tail ranker: in
+live-walk mode every batch runs restart walks over the (co-listen
+augmented) graph through kernel K1, in cached-head mode it reads the head
+from the precomputed neighborhoods artifact.  ``ThreadingHTTPServer``
+handles sockets on many threads, but all device work funnels through one
+``QueryBatcher`` thread that coalesces concurrent queries into one batch.
+
+Exact ``torch.topk`` replaces the TPU's ``approx_max_k``: the scores are
+identical; order among equal scores may differ.  Still to come with later
+slices of the port: int8 tables (``--int8``), online adds and removals,
+and catalog-sharded serving (``--sharded``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import threading
+from concurrent.futures import Future
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+from gcn_song_embeddings_tpu_torch.data.device import (
+    DeviceGraph,
+    augment_with_colisten,
+)
+from gcn_song_embeddings_tpu_torch.ops.knn import exact_f32
+from gcn_song_embeddings_tpu_torch.ops.merge import merge_topk
+from gcn_song_embeddings_tpu_torch.ops.ppr import (
+    effective_chains,
+    visit_counts_topt,
+)
+from gcn_song_embeddings_tpu_torch.ops.walk_kernel import restart_walks
+from gcn_song_embeddings_tpu_torch.ops.walks import (
+    chain_origins,
+    draw_uniforms,
+    fused_walk_tables,
+)
+from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
+
+_INT8_SLICE = ("int8 serving (--int8, kernel K4) arrives with the int8 "
+               "serving slice of the port")
+_ONLINE_SLICE = ("online adds/removals arrive with the online-update "
+                 "slice of the port")
+
+
+def hybrid_topk_batch(tables, unit: torch.Tensor, rows: torch.Tensor,
+                      uniforms: torch.Tensor, n_hops: int, alpha: float,
+                      k: int, n_chains: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B] query rows -> hybrid top-k (weights [B, k], nodes [B, k]):
+    restart walks (K1 on the GPU) -> visit-count top-k head, cosine top-k
+    tail with the query itself masked, then the ordered merge."""
+    trace = restart_walks(tables, rows, n_hops, alpha, uniforms, n_chains)
+    head_w, head_n = visit_counts_topt(trace, rows, k)
+    return _merge_with_tail(head_w, head_n, unit, rows, k)
+
+
+def hybrid_topk_batch_cached(nbhd_w: torch.Tensor, nbhd_n: torch.Tensor,
+                             unit: torch.Tensor, rows: torch.Tensor, k: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hybrid top-k with the head read from the precomputed
+    neighborhoods artifact: two row gathers, no walk, deterministic."""
+    r = rows.long()
+    return _merge_with_tail(nbhd_w[r], nbhd_n[r], unit, rows, k)
+
+
+def _merge_with_tail(head_w, head_n, unit, rows, k):
+    r = rows.long()
+    with exact_f32():
+        sims = unit[r] @ unit.t()
+    sims[torch.arange(r.shape[0], device=r.device), r] = float("-inf")
+    tail_w, tail_n = torch.topk(sims, k, dim=1)
+    return merge_topk(head_w, head_n, tail_w, tail_n)
+
+
+class TrackResolverMixin:
+    """Query-param resolution + result formatting shared by the serving
+    indexes: needs ``n``, ``track_ids``, ``row_of`` and ``tracks_meta``."""
+
+    def _format_item(self, score: float, idx: int) -> dict:
+        tid = self.track_ids[int(idx)]
+        item = {"track": tid, "index": int(idx),
+                "score": round(float(score), 6)}
+        meta = self.tracks_meta.get(tid)
+        if meta:
+            item["name"] = meta.get("name")
+            item["artist"] = meta.get("artist")
+        return item
+
+    def resolve(self, params: dict) -> int:
+        if "index" in params:
+            row = int(params["index"][0])
+            if not 0 <= row < self.n:
+                raise KeyError(f"index {row} out of range")
+            return row
+        tid = params["track"][0]
+        if tid not in self.row_of:
+            raise KeyError(f"unknown track {tid!r}")
+        return self.row_of[tid]
+
+    def resolve_many(self, params: dict) -> list[int]:
+        """Comma-separated ``tracks=`` / ``indices=`` query params -> rows."""
+        if "indices" in params:
+            rows = [int(x) for x in params["indices"][0].split(",") if x]
+            for row in rows:
+                if not 0 <= row < self.n:
+                    raise KeyError(f"index {row} out of range")
+        else:
+            rows = []
+            for tid in params["tracks"][0].split(","):
+                if tid not in self.row_of:
+                    raise KeyError(f"unknown track {tid!r}")
+                rows.append(self.row_of[tid])
+        if not rows:
+            raise ValueError("empty query list")
+        return rows
+
+
+class EmbeddingIndex(TrackResolverMixin):
+    """Device-resident exact-f32 cosine kNN index over track embeddings.
+
+    Every batched query computes the top-(k_cap + 1) list, so one request
+    asking for k <= k_cap costs the same as any other."""
+
+    def __init__(self, embeddings: np.ndarray,
+                 track_ids: Optional[list[str]] = None,
+                 tracks_meta: Optional[dict] = None,
+                 quantized: bool = False, k_cap: int = 128,
+                 device: str | torch.device | None = None):
+        if quantized:
+            raise NotImplementedError(_INT8_SLICE)
+        self.device = resolve_device(device)
+        emb = np.asarray(embeddings, dtype=np.float32)
+        unit = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True),
+                                1e-12)
+        self.unit_host = unit          # /embed reads it without the device
+        self.unit = torch.as_tensor(unit, device=self.device)
+        self.n, self.dim = emb.shape
+        self.k_cap = max(min(k_cap, self.n - 1), 1)
+        self.track_ids = list(track_ids) if track_ids else [
+            str(i) for i in range(self.n)]
+        self.row_of = {tid: i for i, tid in enumerate(self.track_ids)}
+        self.tracks_meta = dict(tracks_meta) if tracks_meta else {}
+
+    @classmethod
+    def from_run(cls, emb_path: str, graph=None,
+                 device: str | torch.device | None = None
+                 ) -> "EmbeddingIndex":
+        emb = np.load(emb_path)
+        if graph is not None:
+            return cls(emb, graph.track_ids, graph.tracks, device=device)
+        return cls(emb, device=device)
+
+    def add_tracks(self, embeddings, track_ids=None, tracks_meta=None):
+        raise NotImplementedError(_ONLINE_SLICE)
+
+    def remove_tracks(self, tracks):
+        raise NotImplementedError(_ONLINE_SLICE)
+
+    def compact(self) -> None:
+        raise NotImplementedError(_ONLINE_SLICE)
+
+    def knn(self, row: int, k: int = 10) -> list[dict]:
+        return self.knn_rows(np.asarray([row]), k)[0]
+
+    def _format(self, w: np.ndarray, n: np.ndarray, row: int, k: int
+                ) -> list[dict]:
+        # filter self BY ID: with duplicate embeddings the duplicate can
+        # take slot 0 and the query itself slot 1
+        keep = n != row
+        return [self._format_item(score, idx)
+                for score, idx in zip(w[keep][:k], n[keep][:k])]
+
+    def _check_rows(self, rows: np.ndarray) -> np.ndarray:
+        rows = np.asarray(rows)
+        if rows.size and (rows.min() < 0 or rows.max() >= self.n):
+            raise IndexError(f"query rows outside [0, {self.n})")
+        return rows.astype(np.int32)
+
+    def _topk_rows(self, rows: torch.Tensor):
+        r = rows.long()
+        with exact_f32():
+            sims = self.unit[r] @ self.unit.t()
+        return torch.topk(sims, min(self.k_cap + 1, self.n), dim=1)
+
+    def knn_rows(self, rows: np.ndarray, k: int = 10) -> list[list[dict]]:
+        """Batched kNN: one device call for all query rows."""
+        rows = self._check_rows(rows)
+        if rows.size == 0:
+            return []
+        if self.n <= 1:
+            return [[] for _ in rows]
+        k = max(min(k, self.k_cap, self.n - 1), 1)
+        w, n = self._topk_rows(torch.as_tensor(rows, device=self.device))
+        w, n = w.cpu().numpy(), n.cpu().numpy()
+        return [self._format(w[i], n[i], int(rows[i]), k)
+                for i in range(rows.size)]
+
+    def embed(self, row: int) -> np.ndarray:
+        return np.asarray(self.unit_host[row])
+
+
+class HybridIndex(EmbeddingIndex):
+    """Device-resident hybrid (walk-head + embedding-tail) kNN index.
+
+    Live-walk mode: pass ``device_graph`` (a ``DeviceGraph``) and
+    optionally ``train_pairs`` with ``colisten_copies`` >= 1 to add the
+    co-listen pseudo-collections first; every batch walks ``n_hops`` hops
+    per query through K1, its uniforms drawn from a generator seeded with
+    ``seed``.  Cached-head mode: pass ``nbhds=(weights, nodes)``, the
+    precomputed neighborhoods artifact."""
+
+    def __init__(self, embeddings: np.ndarray, device_graph=None,
+                 train_pairs: Optional[np.ndarray] = None,
+                 colisten_copies: int = 1,
+                 n_hops: int = 1000, alpha: float = 0.85,
+                 parallel_chains: int = 1, seed: int = 0,
+                 track_ids: Optional[list[str]] = None,
+                 tracks_meta: Optional[dict] = None,
+                 quantized: bool = False, k_cap: int = 128,
+                 nbhds: Optional[tuple] = None,
+                 device: str | torch.device | None = None):
+        super().__init__(embeddings, track_ids, tracks_meta,
+                         quantized=quantized, k_cap=k_cap, device=device)
+        self.tables = None
+        if nbhds is not None:
+            self.nbhd_w = torch.as_tensor(np.asarray(nbhds[0], np.float32),
+                                          device=self.device)
+            self.nbhd_n = torch.as_tensor(np.asarray(nbhds[1], np.int32),
+                                          device=self.device)
+            return
+        if device_graph is None:
+            raise ValueError("HybridIndex needs device_graph (query-time "
+                             "walks) or nbhds (precomputed head)")
+        g = device_graph
+        g = DeviceGraph(*(t.to(self.device) for t in (
+            g.i2c_indptr, g.i2c_indices, g.c2i_indptr, g.c2i_indices)))
+        if train_pairs is not None and colisten_copies > 0:
+            g = augment_with_colisten(g, np.asarray(train_pairs),
+                                      colisten_copies)
+        self.tables = fused_walk_tables(g)
+        self.n_hops = n_hops
+        self.alpha = alpha
+        self.n_chains = effective_chains(n_hops, parallel_chains)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+
+    def _topk_rows(self, rows: torch.Tensor):
+        if self.tables is None:
+            return hybrid_topk_batch_cached(self.nbhd_w, self.nbhd_n,
+                                            self.unit, rows, self.k_cap)
+        origins, hops = chain_origins(rows, self.n_hops, self.n_chains)
+        uniforms = draw_uniforms(hops, origins.shape[0], self._gen)
+        return hybrid_topk_batch(self.tables, self.unit, rows, uniforms,
+                                 self.n_hops, self.alpha, self.k_cap,
+                                 self.n_chains)
+
+
+class QueryBatcher:
+    """Serializes + coalesces device queries behind ONE dispatcher thread.
+
+    Request threads enqueue (rows, k) items and block on a Future; the
+    dispatcher drains whatever is queued (up to ``max_batch`` rows), issues
+    one batched ``knn_rows`` call and fulfils the futures, so concurrent
+    clients ride one device batch."""
+
+    def __init__(self, index: EmbeddingIndex, max_batch: int = 64):
+        self.index = index
+        self.max_batch = max_batch
+        self._q: queue.Queue = queue.Queue()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="knn-dispatch")
+        self._thread.start()
+
+    def stop(self, timeout: float | None = 10.0) -> None:
+        self._q.put(None)
+        self._thread.join(timeout)
+
+    def knn(self, row: int, k: int) -> list[dict]:
+        return self.knn_many([row], k)[0]
+
+    def knn_many(self, rows, k: int) -> list[list[dict]]:
+        fut: Future = Future()
+        self._q.put((list(rows), k, fut))
+        return fut.result()
+
+    def _loop(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            batch = [item]
+            n_rows = len(item[0])
+            stop = False
+            while n_rows < self.max_batch:
+                try:
+                    nxt = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    stop = True
+                    break
+                batch.append(nxt)
+                n_rows += len(nxt[0])
+            all_rows = [r for rows, _, _ in batch for r in rows]
+            kmax = max(k for _, k, _ in batch)
+            try:
+                results = self.index.knn_rows(np.asarray(all_rows), kmax)
+            except Exception as e:  # noqa: BLE001 -- every waiter gets it
+                for _, _, fut in batch:
+                    fut.set_exception(e)
+            else:
+                off = 0
+                for rows, k, fut in batch:
+                    fut.set_result([nbrs[:k] for nbrs in
+                                    results[off: off + len(rows)]])
+                    off += len(rows)
+            if stop:
+                return
+
+
+def make_handler(index: EmbeddingIndex, batcher: QueryBatcher | None = None):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):  # quiet
+            pass
+
+        def _json(self, code: int, payload) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 (http.server API)
+            url = urlparse(self.path)
+            params = parse_qs(url.query)
+            try:
+                if url.path == "/healthz":
+                    self._json(200, {"status": "ok", "tracks": index.n,
+                                     "dim": index.dim})
+                elif url.path == "/knn":
+                    k = min(int(params.get("k", ["10"])[0]), index.n - 1)
+                    if "tracks" in params or "indices" in params:
+                        rows = index.resolve_many(params)
+                        nbrs = (batcher.knn_many(rows, k) if batcher
+                                else index.knn_rows(np.asarray(rows), k))
+                        self._json(200, {
+                            "queries": [index.track_ids[r] for r in rows],
+                            "neighbors": nbrs})
+                    else:
+                        row = index.resolve(params)
+                        nbrs = (batcher.knn(row, k) if batcher
+                                else index.knn(row, k))
+                        self._json(200, {"query": index.track_ids[row],
+                                         "neighbors": nbrs})
+                elif url.path == "/embed":
+                    row = index.resolve(params)
+                    self._json(200, {"track": index.track_ids[row],
+                                     "embedding": index.embed(row).tolist()})
+                else:
+                    self._json(404, {"error": f"no route {url.path}"})
+            except (KeyError, ValueError, IndexError) as e:
+                self._json(400, {"error": str(e)})
+
+    return Handler
+
+
+def serve(index: EmbeddingIndex, host: str = "127.0.0.1", port: int = 8800,
+          batched: bool = True) -> ThreadingHTTPServer:
+    """Start the HTTP server (returns it; run ``.serve_forever()`` in a
+    thread, then ``.shutdown()`` and ``.server_close()``, which also stops
+    the batcher).  ``port=0`` picks a free port
+    (``server.server_address[1]``)."""
+    batcher = QueryBatcher(index) if batched else None
+    server = ThreadingHTTPServer((host, port), make_handler(index, batcher))
+    server.batcher = batcher
+    if batcher is not None:
+        orig_close = server.server_close
+
+        def close_all():
+            batcher.stop()
+            orig_close()
+
+        server.server_close = close_all
+    return server
+
+
+def cached_head_artifacts(dataset_dir: str, colisten: int,
+                          device: torch.device):
+    """The cached-head hybrid's inputs for a dataset dir: the graph, the
+    train positives, and the neighborhoods artifact swept (or loaded from
+    its cache) over the co-listen augmented graph."""
+    from gcn_song_embeddings_tpu_torch.config import WalkConfig
+    from gcn_song_embeddings_tpu_torch.data.device import (
+        apply_colisten_config,
+    )
+    from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
+    from gcn_song_embeddings_tpu_torch.ops.ppr import (
+        precompute_neighborhoods,
+    )
+
+    graph = SongGraph(dataset_dir)
+    train_pos, _ = graph.load_positives_split(
+        os.path.join(dataset_dir, "positives.json"))
+    wcfg = WalkConfig(colisten_copies=colisten)
+    dg, nb_path = apply_colisten_config(
+        DeviceGraph.from_graph(graph, device), train_pos, wcfg,
+        os.path.join(dataset_dir, "neighborhoods.npz"))
+    nbhds = precompute_neighborhoods(dg, wcfg, nb_path, verbose=True)
+    return graph, train_pos, nbhds
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
+
+    ap = argparse.ArgumentParser(prog="gcn_song_embeddings_tpu_torch.serve")
+    ap.add_argument("--emb", required=True, help="path to emb.npy")
+    ap.add_argument("--dataset", default=None,
+                    help="dataset dir for track metadata")
+    ap.add_argument("--port", type=int, default=8800)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' on request)")
+    ap.add_argument("--hybrid", action="store_true",
+                    help="serve the walk-head + embedding-tail ranker "
+                         "(requires --dataset)")
+    ap.add_argument("--colisten", type=int, default=1,
+                    help="colisten copies for the hybrid walk graph")
+    ap.add_argument("--hops", type=int, default=1000,
+                    help="hybrid walk hops per query")
+    ap.add_argument("--chains", type=int, default=1,
+                    help="split the hybrid hop budget across this many "
+                         "lockstep chains")
+    ap.add_argument("--cached-head", action="store_true",
+                    help="hybrid walk head from the precomputed "
+                         "neighborhoods artifact (swept first if absent)")
+    ap.add_argument("--int8", action="store_true", help=_INT8_SLICE)
+    ap.add_argument("--sharded", action="store_true",
+                    help="catalog-sharded serving arrives with a later "
+                         "slice of the port")
+    args = ap.parse_args(argv)
+    if args.int8:
+        raise NotImplementedError(_INT8_SLICE)
+    if args.sharded:
+        raise NotImplementedError("--sharded serving arrives with the "
+                                  "sharded-serving slice of the port")
+    device = resolve_device(args.device)
+    graph = SongGraph(args.dataset) if args.dataset else None
+    if args.hybrid:
+        if graph is None:
+            ap.error("--hybrid requires --dataset (the graph to walk)")
+        if args.cached_head:
+            graph, _, nbhds = cached_head_artifacts(args.dataset,
+                                                    args.colisten, device)
+            index = HybridIndex(np.load(args.emb), nbhds=nbhds,
+                                track_ids=graph.track_ids,
+                                tracks_meta=graph.tracks, device=device)
+        else:
+            train_pos, _ = graph.load_positives_split(
+                os.path.join(args.dataset, "positives.json"))
+            index = HybridIndex(
+                np.load(args.emb), DeviceGraph.from_graph(graph, device),
+                train_pairs=train_pos, colisten_copies=args.colisten,
+                n_hops=args.hops, parallel_chains=args.chains,
+                track_ids=graph.track_ids, tracks_meta=graph.tracks,
+                device=device)
+    else:
+        index = EmbeddingIndex.from_run(args.emb, graph, device=device)
+    print(f"serving {index.n} tracks on :{args.port} ({device})")
+    server = serve(index, port=args.port)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

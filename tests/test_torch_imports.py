@@ -1,0 +1,93 @@
+"""Import hygiene of the PyTorch port and its no-fallback device rule.
+
+The port package, its CLI and chip_smoke.py must import with JAX and the
+JAX package blocked.  This test process has JAX loaded already (conftest),
+so the checks run in subprocesses with ``sys.modules[...] = None``.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "gcn_song_embeddings_tpu_torch")
+BLOCK = ("import sys\n"
+         "sys.modules['jax'] = None\n"
+         "sys.modules['gcn_song_embeddings_tpu'] = None\n")
+NO_CUDA = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+
+
+def _python(code: str, cwd: str = REPO, timeout: int = 300):
+    return subprocess.run([sys.executable, "-c", BLOCK + code], cwd=cwd,
+                          capture_output=True, text=True, timeout=timeout,
+                          env=NO_CUDA)
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    banned = re.compile(
+        r"^\s*(from|import)\s+(jax|gcn_song_embeddings_tpu)(\.|\s|$)",
+        re.MULTILINE)
+    with open(path, encoding="utf-8") as f:
+        hits = banned.findall(f.read())
+    assert not hits, f"{path} imports {hits}"
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    res = _python(
+        "import importlib, pkgutil\n"
+        "import gcn_song_embeddings_tpu_torch as P\n"
+        "names = [m.name for m in pkgutil.walk_packages(P.__path__, "
+        "P.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "assert sys.modules['jax'] is None\n"
+        "print(len(names))\n")
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 15
+
+
+def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
+    res = _python(
+        "import numpy as np\n"
+        "from gcn_song_embeddings_tpu_torch import cli, serve\n"
+        "from gcn_song_embeddings_tpu_torch.utils.device import "
+        "resolve_device\n"
+        "calls = [lambda: resolve_device(None),\n"
+        "         lambda: serve.EmbeddingIndex(np.eye(4, dtype='f4')),\n"
+        "         lambda: cli.embed_dataset('nowhere'),\n"
+        "         lambda: serve.main(['--emb', 'x.npy'])]\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('ran without a device')\n"
+        "print(resolve_device('cpu'))\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    for cwd, script in ((REPO, "chip_smoke.py"),
+                        (str(tmp_path), str(tmp_path / "chip_smoke.py"))):
+        if cwd != REPO:
+            shutil.copy(os.path.join(REPO, "chip_smoke.py"), script)
+        res = subprocess.run([sys.executable, script], cwd=cwd,
+                             capture_output=True, text=True, timeout=300,
+                             env=NO_CUDA)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
