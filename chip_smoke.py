@@ -15,10 +15,26 @@
    ``emb.npy`` -> HTTP serving of the hybrid ranker, live-walk (K1 per
    batch) and cached-head, answering single and batched queries.  Fails
    unless every kernel was launched.
-4. Holds each kernel against its plain PyTorch version on the card at the
-   path's shapes (K1 bit-identical, K2 within 1e-4 absolute), and times
-   kernel, plain version and a library yardstick with CUDA events.
-5. Checks the outputs: finite embeddings of the expected shape that match
+4. Drives the training path with the counters set to 0 again: ``cli
+   train`` of the same full-width model on the same dataset and cached
+   sweep, 2 epochs x 25 batches of 128 triples in chunks of 20 (so a
+   chunk crosses the epoch boundary), frontier forward (kernel K3, with
+   the aggregation's backward), then ``emb.npy`` (K2) served through the
+   cached-head hybrid.  Fails unless K2, K3 and the backward ran, the 50
+   metric rows are finite, the loss fell, the rate stepped x0.95 at batch
+   25 and a second trainer resumes at epoch 2 with the same embeddings.
+5. Three-step checks from the seeded init on the same batches:
+   ``fullgraph_forward`` on (K2 forward + backward at N=100k) against off
+   (K3), every parameter at rtol 1e-4 / atol 1e-5; the card against the
+   CPU (the plain versions), losses, G1_w and embeddings as
+   tests/test_trainer.py holds them.  Then the train step's wall at B=128
+   and a ``torch.profiler`` pass over it (device busy share, launches).
+6. Holds each kernel against its plain PyTorch version on the card at the
+   paths' shapes (K1 bit-identical, K2 and K3 within 1e-4 absolute; the
+   aggregation's backward within GRAD_RTOL of float64 autograd, beside
+   the f32 plain version's own error), and times kernel, plain version
+   and a library yardstick with CUDA events.
+7. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
 
@@ -43,6 +59,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_FP32_FLOPS = 67e12   # f32 outside the tensor cores (data sheet, SXM)
 H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s (data sheet, SXM)
 K2_ATOL = 1e-4  # f32 sums of Din products in another order: ~1e-6 expected
+# the aggregation's backward: the relative Frobenius error of each
+# gradient against autograd through the plain version in float64.  One
+# entry of pre within f32 rounding of 0 takes the other leaky_relu slope
+# than in float64 and moves dWq by ~2e-4 of its norm at the train step's
+# shapes; the backward and the plain version reach pre through products
+# of other row counts (cuBLAS picks its kernel by shape), so either may
+# carry such an entry (measured on the card: 1e-7 to 2.6e-4 for both)
+GRAD_RTOL = 1e-3
+TRAJ = {"rtol": 1e-4, "atol": 1e-5}  # tests/test_trainer.py's 3-step bar
+TRAIN_EPOCHS, TRAIN_BATCHES, TRAIN_CHUNK = 2, 25, 20
 
 # the README's 100k scale: ~1M directed playlist edges
 N_TRACKS, N_COLLECTIONS, TRACKS_PER_COLLECTION = 100_000, 25_000, 20
@@ -228,7 +254,433 @@ def run_main_path(dev, work: str, n_tracks: int = N_TRACKS,
     return SimpleNamespace(
         ds=ds, cfg=cfg, graph=graph, dg=dg, nb_w=nb_w, nb_n=nb_n,
         params=params, feats=feats, nbw_d=nbw_d, nbn_d=nbn_d, emb=emb,
-        rows=rows, cached=cached, walls=walls)
+        rows=rows, cached=cached, train_pos=train_pos, walls=walls)
+
+
+def train_config(work: str):
+    """``RunConfig.recommended()`` at full width, cut to 2 epochs x 25
+    batches in chunks of 20, written where ``cli train --config`` reads
+    it."""
+    import dataclasses
+
+    from gcn_song_embeddings_tpu_torch.config import RunConfig
+
+    cfg = RunConfig.recommended("smoke")
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, epochs=TRAIN_EPOCHS, batches_per_epoch=TRAIN_BATCHES,
+        checkpoint_every_batches=TRAIN_CHUNK))
+    path = os.path.join(work, "train_config.json")
+    with open(path, "w") as f:
+        f.write(cfg.to_json())
+    return cfg, path
+
+
+def run_train_path(dev, st, work: str):
+    """The training path, as a user runs it: ``cli train`` on the main
+    path's dataset (its cached sweep is reused), then the trained
+    ``emb.npy`` served through the cached-head hybrid.  Returns its
+    state."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import cli
+    from gcn_song_embeddings_tpu_torch import serve as serve_mod
+
+    cfg, cfg_path = train_config(work)
+    runs = os.path.join(work, "runs")
+    t = time.perf_counter()
+    cli.main(["train", "--dataset", st.ds, "--run-dir", runs,
+              "--run-name", cfg.run_name, "--config", cfg_path,
+              "--device", str(dev)])
+    sync(torch, dev)
+    walls = {"train_s": time.perf_counter() - t}
+    run_dir = os.path.join(runs, cfg.run_name)
+    emb_path = os.path.join(run_dir, "emb.npy")
+    index = serve_mod.HybridIndex(
+        np.load(emb_path), nbhds=(st.nb_w, st.nb_n),
+        track_ids=st.graph.track_ids, tracks_meta=st.graph.tracks,
+        device=dev)
+    walls["trained_cached"] = serve_queries(serve_mod.serve, index,
+                                            st.graph, st.rows)
+    sync(torch, dev)
+    return SimpleNamespace(cfg=cfg, run_dir=run_dir, emb=np.load(emb_path),
+                           n_items=st.graph.n_items, walls=walls)
+
+
+def check_training_run(tr_st) -> None:
+    """The run's output and metrics: finite embeddings of every track, 50
+    finite metric rows, a falling loss, the rate stepping x0.95 at the
+    epoch boundary."""
+    import numpy as np
+
+    with open(os.path.join(tr_st.run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    total = TRAIN_EPOCHS * TRAIN_BATCHES
+    if tr_st.emb.shape != (tr_st.n_items, tr_st.cfg.model.out_dim) or not (
+            np.isfinite(tr_st.emb).all()):
+        raise AssertionError(f"trained embeddings: shape {tr_st.emb.shape}, "
+                             f"finite {np.isfinite(tr_st.emb).all()}")
+    if len(rows) != total:
+        raise AssertionError(f"metrics.jsonl has {len(rows)} rows, "
+                             f"expected {total}")
+    loss = np.array([r["Train Loss"] for r in rows])
+    gnorm = np.array([r["Gradient Norm"] for r in rows])
+    rate = np.array([r["Learning Rate"] for r in rows])
+    if not (np.isfinite(loss).all() and np.isfinite(gnorm).all()):
+        raise AssertionError("non-finite loss or gradient norm")
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    log(f"train: loss first 10 {first:.5f} -> last 10 {last:.5f}, grad "
+        f"norm {gnorm[0]:.4g} -> {gnorm[-1]:.4g}, rate {rate[0]:.6g} -> "
+        f"{rate[-1]:.6g}")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: {first} -> {last}")
+    lr = tr_st.cfg.train.lr
+    if not (np.allclose(rate[:TRAIN_BATCHES], lr, rtol=1e-6)
+            and np.allclose(rate[TRAIN_BATCHES:], lr * tr_st.cfg.train.decay,
+                            rtol=1e-6)):
+        raise AssertionError(f"rate does not step at batch "
+                             f"{TRAIN_BATCHES}: {rate.tolist()}")
+    if [r["epoch"] for r in rows] != [e for e in range(TRAIN_EPOCHS)
+                                      for _ in range(TRAIN_BATCHES)]:
+        raise AssertionError("metrics rows carry the wrong epochs")
+
+
+def three_step_checks(torch, trainer) -> dict:
+    """3 steps from the trainer's seeded init on the same batches.
+
+    Full-graph forward (K2 + backward) against the frontier forward (K3)
+    on the card: every parameter at rtol 1e-4 / atol 1e-5.  The card
+    against the CPU's plain versions: the per-step losses at rtol 1e-4,
+    G1_w at rtol 1e-4 / atol 1e-5 and the embeddings of 64 nodes at rtol
+    1e-3 / atol 1e-4 (tests/test_trainer.py's comparison); every leaf's
+    difference is logged.  The two devices round the recomputed
+    ``pre = h[nb] Wq^T + bq`` differently, so entries of ``pre`` within an
+    ulp of 0 take the other leaky_relu slope, and Adam's normalisation
+    turns those gradient differences into visible ones in the deepest
+    layer's Wq and bq; the count of such entries at step 1 is logged.
+    Returns the largest differences."""
+    import copy
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.models.pinsage import (
+        init_pinsage,
+        pinsage_forward,
+    )
+    from gcn_song_embeddings_tpu_torch.ops import agg
+    from gcn_song_embeddings_tpu_torch.ops.ppr import block_generator
+    from gcn_song_embeddings_tpu_torch.train.trainer import (
+        TrainTables,
+        make_optimizer,
+        train_step,
+    )
+
+    tcfg, mcfg = trainer.cfg.train, trainer.cfg.model
+    gen = block_generator(12345, 0, trainer.device)
+    batches = [trainer.sample(gen) for _ in range(3)]
+    # the trainer's own init (train.seed), as tests/test_trainer.py starts
+    # both of its runs
+    seeded = torch.Generator(device=trainer.device)
+    seeded.manual_seed(tcfg.seed)
+    init = init_pinsage(seeded, mcfg.n_layers, mcfg.in_dim, mcfg.hidden_dim,
+                        mcfg.out_dim, mcfg.bias_init)
+    probe = torch.arange(0, trainer.n, trainer.n // 64)[:64]
+
+    def run(params, tables, batches, fullgraph):
+        opt = make_optimizer(params, tcfg)
+        losses = [float(train_step(params, opt, b, tables, tcfg, mcfg,
+                                   fullgraph)[0]) for b in batches]
+        with torch.inference_mode():
+            emb = pinsage_forward(params, tables.features, tables.nbhd_w,
+                                  tables.nbhd_n,
+                                  probe.to(tables.features.device),
+                                  mcfg.n_layers, mcfg.T).cpu().numpy()
+        leaves = {name: p.detach().cpu().numpy()
+                  for name, p in params.leaves()}
+        return losses, leaves, emb
+
+    before = agg.backward_launches["stream"]
+    on = run(copy.deepcopy(init), trainer.tables, batches, True)
+    sync(torch, trainer.device)
+    out = {"k2_backward_launches": agg.backward_launches["stream"] - before}
+    if out["k2_backward_launches"] == 0:
+        raise AssertionError("the full-graph steps never ran K2's backward")
+    off = run(copy.deepcopy(init), trainer.tables, batches, False)
+    cpu_tables = TrainTables(*(t.cpu() for t in trainer.tables))
+    cpu = run(copy.deepcopy(init).cpu(), cpu_tables,
+              [b.cpu() for b in batches], False)
+    for name, a, b, held in (("fullgraph_on_vs_off", on, off, None),
+                             ("gpu_vs_cpu", off, cpu, ("G1_w",))):
+        worst = {leaf: float(np.abs(a[1][leaf] - b[1][leaf]).max())
+                 for leaf in a[1]}
+        log(f"three steps, {name}: losses {a[0]} vs {b[0]}; max |diff| per "
+            f"leaf {worst}")
+        np.testing.assert_allclose(a[0], b[0], rtol=TRAJ["rtol"],
+                                   err_msg=f"{name}: losses")
+        for leaf in held or a[1]:
+            np.testing.assert_allclose(a[1][leaf], b[1][leaf], **TRAJ,
+                                       err_msg=f"{name}: {leaf}")
+        np.testing.assert_allclose(a[2], b[2], rtol=1e-3, atol=1e-4,
+                                   err_msg=f"{name}: embeddings")
+        out[name] = worst
+        log(f"three steps, {name}: held, max |diff| "
+            f"{max(worst.values()):.3g}")
+
+    # entries of the deepest conv's pre whose sign the two devices'
+    # rounding disagrees on, at step 1
+    layer, table, ids, _, _ = step_conv_inputs(torch, trainer,
+                                               batches[0])[0]
+    Wq, bq = init.layers[0].Wq.detach(), init.layers[0].bq.detach()
+    with torch.no_grad():
+        rows = table[ids.reshape(-1).long()]
+        pre_gpu = torch.addmm(bq, rows, Wq.t()) >= 0
+        pre_cpu = torch.addmm(bq.cpu(), rows.cpu(), Wq.t().cpu()) >= 0
+    out["leaky_slope_flips_step1"] = int((pre_gpu.cpu() != pre_cpu).sum())
+    log(f"three steps: {out['leaky_slope_flips_step1']} of "
+        f"{pre_cpu.numel()} entries of the deepest conv's pre change sign "
+        f"between the card's and the CPU's rounding at step 1")
+    return out
+
+
+def step_conv_inputs(torch, trainer, batch):
+    """The two aggregations of one frontier train step on ``batch``, with
+    the step's own tables: (layer, table, ids, weights) for the deepest
+    conv (3B(T+1) nodes over the gathered feature rows) and the top conv
+    (3B nodes over the deepest conv's output)."""
+    from gcn_song_embeddings_tpu_torch.models.pinsage import conv_from_table
+
+    mcfg, tables = trainer.cfg.model, trainer.tables
+    T = mcfg.T
+    nodes = torch.cat([batch[:, 0], batch[:, 1], batch[:, 2]]).long()
+    f1 = torch.cat([nodes, tables.nbhd_n[nodes, :T].reshape(-1).long()])
+    f2 = torch.cat([f1, tables.nbhd_n[f1, :T].reshape(-1).long()])
+
+    def ids(m):
+        return (m + torch.arange(m * T, dtype=torch.int32,
+                                 device=nodes.device)).reshape(m, T)
+
+    table0 = tables.features[f2]
+    w0 = tables.nbhd_w[f1, :T].contiguous()
+    w1 = tables.nbhd_w[nodes, :T].contiguous()
+    layer0, layer1 = trainer.params.layers[0], trainer.params.layers[1]
+    with torch.no_grad():
+        table1 = conv_from_table(layer0, table0[:len(f1)], table0,
+                                 ids(len(f1)), w0, mode="dma")
+    return [(layer0, table0, ids(len(f1)), w0, False),
+            (layer1, table1, ids(len(nodes)), w1, True)]
+
+
+def agg_work(torch, nb_idx, nb_wt, din: int, hdim: int, n_rows: int,
+             backward: bool = False, need_dh: bool = False):
+    """(operations, bytes) the aggregation needs on this data: each
+    distinct weighted id projected once (+bq, leaky_relu), each weighted
+    entry's multiply-add, one divide per output; inputs read once, output
+    written once.  The backward recomputes the projection of the distinct
+    rows, forms dWq (and dh) from them, and reads the forward's inputs
+    plus the incoming gradient."""
+    b, t = nb_idx.shape
+    live = nb_wt != 0
+    distinct = int(nb_idx[live].unique().numel())
+    entries = int(live.sum())
+    if not backward:
+        flops = (2.0 * distinct * (din + 1) * hdim + 2.0 * entries * hdim
+                 + b * hdim)
+        nbytes = 4.0 * (distinct * din + 2 * b * t + hdim * din + hdim
+                        + b * hdim)
+        return flops, nbytes, distinct, entries
+    products = 3 if need_dh else 2
+    flops = (products * 2.0 * distinct * din * hdim
+             + 4.0 * entries * hdim)
+    nbytes = 4.0 * (distinct * din + 2 * b * t + hdim * din + hdim
+                    + b * hdim + hdim * din + hdim
+                    + (n_rows * din if need_dh else 0))
+    return flops, nbytes, distinct, entries
+
+
+def bound(flops: float, nbytes: float):
+    ops_ms = flops / H100_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / H100_HBM_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh):
+    """(relative Frobenius errors, the plain version's own errors, ms,
+    plain ms) of the aggregation's backward at one shape, the errors per
+    gradient against autograd through the plain version in float64, with
+    the inputs that need a gradient in the train step (Wq and bq; h too
+    where it is an activation)."""
+    def leaves(dtype):
+        # copies: the table may be an inference-mode tensor
+        h = table.detach().to(dtype, copy=True).requires_grad_(need_dh)
+        Wq = layer.Wq.detach().to(dtype, copy=True).requires_grad_()
+        bq = layer.bq.detach().to(dtype, copy=True).requires_grad_()
+        return h, Wq, bq, ((h, Wq, bq) if need_dh else (Wq, bq))
+
+    gen = torch.Generator(device=table.device)
+    gen.manual_seed(7)
+    cot = torch.randn((ids.shape[0], layer.Wq.shape[0]),
+                      device=table.device, generator=gen)
+    h, Wq, bq, inputs = leaves(torch.float64)
+    ref = torch.autograd.grad(
+        agg.conv_aggregate_plain(h, ids, wts.double(), Wq, bq), inputs,
+        cot.double())
+    h, Wq, bq, inputs = leaves(torch.float32)
+    out = agg.conv_aggregate(h, ids, wts, Wq, bq, mode=mode)
+    plain = agg.conv_aggregate_plain(h, ids, wts, Wq, bq)
+    got = torch.autograd.grad(out, inputs, cot, retain_graph=True)
+    want = torch.autograd.grad(plain, inputs, cot, retain_graph=True)
+
+    def error(grads):
+        return [float(torch.linalg.vector_norm(g.double() - r)
+                      / torch.linalg.vector_norm(r))
+                for g, r in zip(grads, ref)]
+
+    err, plain_err = error(got), error(want)
+    del ref, got, want
+    ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, inputs, cot, retain_graph=True), reps=5)
+    plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        plain, inputs, cot, retain_graph=True), reps=3)
+    return err, plain_err, ms, plain_ms
+
+
+def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
+    """Hold the aggregation of ``mode`` against its plain version at each
+    (layer, table, ids, weights, need_dh) of ``shapes`` and time it:
+    forward (kernel, plain, gather + einsum yardstick; max |diff| within
+    K2_ATOL) and backward (ConvAggregate's and autograd through the plain
+    version, both held against float64 autograd), summed over the shapes,
+    with the work each needs on this data."""
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0, "err": 0.0, "bwd_ms": 0.0, "bwd_plain_ms": 0.0,
+           "bwd_flops": 0.0, "bwd_bytes": 0.0, "bwd_err": 0.0,
+           "bwd_plain_err": 0.0}
+    kernel = agg.MODES[mode]
+    for layer, h, ids, wts, need_dh in shapes:
+        Wq, bq = layer.Wq.detach(), layer.bq.detach()
+        n, din = h.shape
+        hdim = Wq.shape[0]
+        with torch.inference_mode():
+            got = agg.conv_aggregate(h, ids, wts, Wq, bq, mode=mode)
+            want = agg.conv_aggregate_plain(h, ids, wts, Wq, bq)
+            err = float((got - want).abs().max())
+            log(f"{kernel} B={ids.shape[0]} T={ids.shape[1]} Din={din} "
+                f"H={hdim} (table {n} rows): max |diff| {err:.3g}")
+            if not err <= K2_ATOL:
+                raise AssertionError(f"{kernel} differs from the plain "
+                                     f"version by {err} > {K2_ATOL}")
+            out["err"] = max(out["err"], err)
+            out["ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
+                h, ids, wts, Wq, bq, mode=mode), reps=5)
+            out["plain_ms"] += cuda_ms(torch, lambda: agg.conv_aggregate_plain(
+                h, ids, wts, Wq, bq), reps=3)
+            out["library_ms"] += cuda_ms(torch, lambda: torch.einsum(
+                "btd,hd->bth", h[ids.long()], Wq), reps=3)
+        flops, nbytes, distinct, entries = agg_work(torch, ids, wts, din,
+                                                    hdim, n)
+        out["flops"] += flops
+        out["bytes"] += nbytes
+        log(f"{kernel} work: {distinct} distinct weighted ids of "
+            f"{ids.numel()} entries ({entries} weighted)")
+        if not with_backward:
+            continue
+        errs, plain_errs, ms, plain_ms = backward_timing(
+            torch, agg, mode, layer, h, ids, wts, need_dh)
+        names = ("dh", "dWq", "dbq") if need_dh else ("dWq", "dbq")
+        log(f"{kernel} backward vs float64 autograd, relative Frobenius "
+            f"error: " + ", ".join(
+                f"{g} {e:.3g} (f32 plain {p:.3g})"
+                for g, e, p in zip(names, errs, plain_errs)))
+        if not max(errs) <= GRAD_RTOL:
+            raise AssertionError(f"{kernel} backward error {max(errs)} > "
+                                 f"{GRAD_RTOL}")
+        out["bwd_err"] = max(out["bwd_err"], *errs)
+        out["bwd_plain_err"] = max(out["bwd_plain_err"], *plain_errs)
+        out["bwd_ms"] += ms
+        out["bwd_plain_ms"] += plain_ms
+        flops, nbytes, _, _ = agg_work(torch, ids, wts, din, hdim, n,
+                                       backward=True, need_dh=need_dh)
+        out["bwd_flops"] += flops
+        out["bwd_bytes"] += nbytes
+    return out
+
+
+def kernel_row(name, source, replaces, launches_by_path, bwd_launches, m,
+               shape) -> dict:
+    """One entry of the ``kernels`` line, with the backward's numbers
+    under ``backward``."""
+    bound_ms, bound_by = bound(m["flops"], m["bytes"])
+    bwd_bound_ms, bwd_bound_by = bound(m["bwd_flops"], m["bwd_bytes"])
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path, "max_abs_err": m["err"],
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": m["library_ms"],
+        "backward": {
+            "route": "plain PyTorch (agg.ConvAggregate.backward)",
+            "launches_on_train_path": bwd_launches,
+            "rel_err_vs_float64": m["bwd_err"],
+            "plain_rel_err_vs_float64": m["bwd_plain_err"],
+            "ms": m["bwd_ms"],
+            "plain_ms": m["bwd_plain_ms"], "bound_ms": bwd_bound_ms,
+            "bound_by": bwd_bound_by, "library_ms": None},
+        "shape": shape,
+    }
+
+
+def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5):
+    """Frontier train steps at B=128 from a copy of the trainer's params,
+    after two warm-up steps: the synchronized wall per step over ``reps``
+    steps, then ``torch.profiler`` over ``profiled`` more: device busy time
+    per step, the idle share of the profiled wall (the profiler's own host
+    cost is in it), device launches per step and the kernels that take the
+    most device time.  Returns (ms per step, profile)."""
+    import copy
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gcn_song_embeddings_tpu_torch.ops.ppr import block_generator
+    from gcn_song_embeddings_tpu_torch.train.trainer import (
+        make_optimizer,
+        train_step,
+    )
+
+    tcfg, mcfg = trainer.cfg.train, trainer.cfg.model
+    params = copy.deepcopy(trainer.params)
+    opt = make_optimizer(params, tcfg)
+    gen = block_generator(999, 0, trainer.device)
+    batches = [trainer.sample(gen) for _ in range(2 + reps + profiled)]
+
+    def run(batches) -> float:
+        t = time.perf_counter()
+        for b in batches:
+            train_step(params, opt, b, trainer.tables, tcfg, mcfg, False)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / len(batches)
+
+    run(batches[:2])
+    step_ms = run(batches[2:2 + reps])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms = run(batches[2 + reps:])
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total", 0.0) / 1e3 / profiled
+
+    busy = sum(dev_ms(e) for e in device)
+    top = sorted(device, key=dev_ms, reverse=True)[:8]
+    return step_ms, {
+        "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+        "idle_share": 1.0 - busy / wall_ms,
+        "device_launches_per_step": sum(e.count for e in device) / profiled,
+        "top_kernels_ms_per_step": {e.key[:80]: dev_ms(e) for e in top}}
 
 
 def main() -> int:
@@ -242,11 +694,12 @@ def main() -> int:
     import numpy as np
 
     from gcn_song_embeddings_tpu_torch import cli
+    from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
     from gcn_song_embeddings_tpu_torch.models.pinsage import (
         conv_from_table,
         pinsage_forward,
     )
-    from gcn_song_embeddings_tpu_torch.ops import agg, cuda_build
+    from gcn_song_embeddings_tpu_torch.ops import agg, cuda_build, dma_agg
     from gcn_song_embeddings_tpu_torch.ops import walk_kernel
     from gcn_song_embeddings_tpu_torch.ops.ppr import (
         block_generator,
@@ -257,6 +710,7 @@ def main() -> int:
         fused_walk_tables,
         walks_from_fused_tables,
     )
+    from gcn_song_embeddings_tpu_torch.train.trainer import PinSageTrainer
 
     dev = torch.device("cuda")
     log(card_line())
@@ -276,20 +730,63 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "bytes stack frame" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    kernels = {"walk": walk_kernel, "agg": agg}
+    kernels = {"walk": walk_kernel, "agg": agg, "dma_agg": dma_agg}
+
+    def reset_counts():
+        for mod in kernels.values():
+            mod.launches = 0
+        for mode in agg.backward_launches:
+            agg.backward_launches[mode] = 0
+
+    def read_counts(need):
+        counts = {name: mod.launches for name, mod in kernels.items()}
+        counts.update({f"agg_backward_{mode}": n
+                       for mode, n in agg.backward_launches.items()})
+        missing = [name for name in need if counts[name] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the path: "
+                                 f"{missing}")
+        return counts
 
     work = os.path.join(REPO, "build", "chip_smoke")
-    for mod in kernels.values():
-        mod.launches = 0
+    reset_counts()
     st = run_main_path(dev, work)
-    launches = {name: mod.launches for name, mod in kernels.items()}
+    launches = read_counts(("walk", "agg"))
     log(f"launches on the main path: {launches}")
-    log(json.dumps({"phase_walls": st.walls}))
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+
+    # ---- the training path ---------------------------------------------
+    reset_counts()
+    tr_st = run_train_path(dev, st, work)
+    train_launches = read_counts(("agg", "dma_agg", "agg_backward_dma"))
+    log(f"launches on the training path: {train_launches}")
+    check_training_run(tr_st)
     graph, cfg, mcfg = st.graph, st.cfg, st.cfg.model
+    trainer = PinSageTrainer(
+        DeviceGraph.from_graph(graph, dev), graph.n_items, graph.features,
+        st.train_pos, cfg=tr_st.cfg,
+        base_run_dir=os.path.dirname(tr_st.run_dir),
+        nbhds_path=graph.nbhds_path, log=False, load_save=True,
+        verbose=False)
+    if (trainer.e, trainer.b, trainer.opt.count) != (
+            TRAIN_EPOCHS, 0, TRAIN_EPOCHS * TRAIN_BATCHES):
+        raise AssertionError(f"resume: epoch {trainer.e}, batch "
+                             f"{trainer.b}, count {trainer.opt.count}")
+    resume_err = float(np.abs(trainer.embed() - tr_st.emb).max())
+    probe = np.arange(0, graph.n_items, 1571)
+    frontier_err = float(np.abs(trainer.embed(ids=probe)
+                                - tr_st.emb[probe]).max())
+    log(f"resumed trainer (epoch {trainer.e}): embed_all vs the run's "
+        f"emb.npy max |diff| {resume_err:.3g}; frontier embed (K3) of "
+        f"{len(probe)} rows vs emb.npy (K2) max |diff| {frontier_err:.3g}")
+    if not (resume_err <= 1e-6 and frontier_err <= 1e-4):
+        raise AssertionError(f"resumed embeddings differ: {resume_err}, "
+                             f"{frontier_err}")
+    steps = three_step_checks(torch, trainer)
+    st.walls.update(tr_st.walls)
+    st.walls["train_step_ms"], step_profile = time_train_steps(torch,
+                                                                trainer)
+    log(json.dumps({"phase_walls": st.walls}))
+    log(json.dumps({"train_step_profile": step_profile}))
     emb, nb_w, nb_n, params = st.emb, st.nb_w, st.nb_n, st.params
     feats, nbw_d, nbn_d, dg = st.feats, st.nbw_d, st.nbn_d, st.dg
     rows, cached, ds = st.rows, st.cached, st.ds
@@ -367,58 +864,41 @@ def main() -> int:
         "shape": f"B={b} H={hops} alpha={alpha}",
     })
 
-    # K2 at both conv layers' shapes of embed_all
+    # K2 at both conv layers' shapes of embed_all (its backward at the
+    # same shapes: the train step's full-graph forward), K3 at both
+    # aggregations of a frontier train step (K2 timed there too)
     nb_idx = nbn_d[:, :mcfg.T].to(torch.int32).contiguous()
     nb_wt = nbw_d[:, :mcfg.T].contiguous()
     with torch.inference_mode():
         h1 = conv_from_table(params.layers[0], feats, feats, nb_idx, nb_wt)
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
-          "bytes": 0.0, "err": 0.0}
-    with torch.inference_mode():
-        for layer, h in ((params.layers[0], feats), (params.layers[1], h1)):
-            Wq, bq = layer.Wq.detach(), layer.bq.detach()
-            got = agg.conv_aggregate(h, nb_idx, nb_wt, Wq, bq)
-            want = agg.conv_aggregate_plain(h, nb_idx, nb_wt, Wq, bq)
-            err = float((got - want).abs().max())
-            n, din = h.shape
-            hdim = Wq.shape[0]
-            log(f"K2 N={n} T={mcfg.T} Din={din} H={hdim}: max |diff| "
-                f"{err:.3g}")
-            if not err <= K2_ATOL:
-                raise AssertionError(f"K2 differs from the plain version "
-                                     f"by {err} > {K2_ATOL}")
-            k2["err"] = max(k2["err"], err)
-            k2["ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
-                h, nb_idx, nb_wt, Wq, bq), reps=5)
-            k2["plain_ms"] += cuda_ms(torch, lambda: agg.conv_aggregate_plain(
-                h, nb_idx, nb_wt, Wq, bq), reps=3)
-            k2["library_ms"] += cuda_ms(torch, lambda: torch.einsum(
-                "btd,hd->bth", h[nb_idx.long()], Wq), reps=3)
-            # the function's own work on this run's table: each distinct
-            # id of a weighted entry projected once (+bq, leaky_relu), each
-            # weighted entry's multiply-add, one divide per output
-            live = nb_wt != 0
-            distinct = int(nb_idx[live].unique().numel())
-            entries = int(live.sum())
-            k2["flops"] += (2.0 * distinct * (din + 1) * hdim
-                            + 2.0 * entries * hdim + n * hdim)
-            k2["bytes"] += 4.0 * (distinct * din + 2 * n * mcfg.T
-                                  + hdim * din + hdim + n * hdim)
-            log(f"K2 work: {distinct} distinct weighted ids of {n * mcfg.T} "
-                f"entries ({entries} weighted)")
-    results.append({
-        "name": "K2 fused gather + Q-MLP + weighted mean (agg.conv_aggregate)",
-        "route": "cuda", "source": agg.SOURCE, "replaces": agg.REPLACES,
-        "launches": launches["agg"], "max_abs_err": k2["err"],
-        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-        "bound_ms": max(k2["flops"] / H100_FP32_FLOPS,
-                        k2["bytes"] / H100_HBM_BYTES) * 1e3,
-        "bound_by": ("operations" if k2["flops"] / H100_FP32_FLOPS
-                     >= k2["bytes"] / H100_HBM_BYTES else "bytes"),
-        "library_ms": k2["library_ms"],
-        "shape": (f"both embed_all layers, N={graph.n_items} T={mcfg.T}: "
-                  f"Din=512 and Din=128, H={mcfg.hidden_dim}"),
-    })
+    embed_shapes = [(params.layers[0], feats, nb_idx, nb_wt, False),
+                    (params.layers[1], h1, nb_idx, nb_wt, True)]
+    k2 = measure_aggregation(torch, agg, "stream", embed_shapes)
+    gen = block_generator(4242, 0, dev)
+    step_shapes = step_conv_inputs(torch, trainer, trainer.sample(gen))
+    k3 = measure_aggregation(torch, agg, "dma", step_shapes)
+    k2_at_step = measure_aggregation(torch, agg, "stream", step_shapes,
+                                     with_backward=False)
+    results.append(kernel_row(
+        "K2 fused gather + Q-MLP + weighted mean "
+        "(agg.conv_aggregate, mode stream)", agg.SOURCE, agg.REPLACES,
+        {"serve": launches["agg"], "train": train_launches["agg"]},
+        train_launches["agg_backward_stream"], k2,
+        f"both embed_all layers, N={graph.n_items} T={mcfg.T}: Din=512 and "
+        f"Din=128, H={mcfg.hidden_dim}; backward at the same shapes (the "
+        f"full-graph train step), launched "
+        f"{steps['k2_backward_launches']} times by the three-step check"))
+    row = kernel_row(
+        "K3 row-copy-pipelined gather + Q-MLP + weighted mean "
+        "(agg.conv_aggregate, mode dma)", dma_agg.SOURCE, dma_agg.REPLACES,
+        {"train": train_launches["dma_agg"]},
+        train_launches["agg_backward_dma"], k3,
+        f"both aggregations of a frontier train step at B=128: "
+        f"{step_shapes[0][2].shape[0]} nodes x T={mcfg.T}, Din=512 and "
+        f"{step_shapes[1][2].shape[0]} nodes x T={mcfg.T}, Din=128; "
+        f"H={mcfg.hidden_dim}")
+    row["k2_ms_same_shapes"] = k2_at_step["ms"]
+    results.append(row)
     shutil.rmtree(work, ignore_errors=True)
     log(card_line())
     log(json.dumps({"kernels": results}))

@@ -2,12 +2,20 @@
 
 Verbs:
   synth  -- write a synthetic dataset in the reference on-disk format
+  train  -- PinSage training on one device (co-listen augmentation, PPR
+            sweep, sampler, max-margin loss, Adam, chunked checkpoints
+            with resume), then the embeddings of every track to
+            <run-dir>/<run-name>/emb.npy
   embed  -- PPR neighborhood sweep + full-catalog PinSage embedding
-            (``RunConfig.recommended()``), params from a JAX trainer
-            checkpoint or a seeded init, written to one emb.npy
+            (``RunConfig.recommended()``), params from a trainer
+            checkpoint (either package's) or a seeded init, written to
+            one emb.npy
 
 Usage:
   python -m gcn_song_embeddings_tpu_torch.cli synth --dataset DIR
+  python -m gcn_song_embeddings_tpu_torch.cli train --dataset DIR \
+      [--run-name NAME] [--run-dir ./runs] [--config cfg.json] \
+      [--set train.lr=0.001 ...] [--no-resume] [--device cuda]
   python -m gcn_song_embeddings_tpu_torch.cli embed --dataset DIR \
       --out emb.npy [--checkpoint state.npz] [--seed 0] [--device cuda]
 
@@ -17,6 +25,7 @@ Serve the result with ``python -m gcn_song_embeddings_tpu_torch.serve``.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -32,6 +41,59 @@ def cmd_synth(args) -> None:
                            n_positives=args.n_positives,
                            feature_dim=args.feature_dim, seed=args.seed)
     print(f"synthetic dataset written to {args.dataset}")
+
+
+def positives_path(dataset: str) -> str:
+    """The dataset's positives file, searched as the JAX CLI does."""
+    for name in ("positives_lfm.json", "positives.json"):
+        p = os.path.join(dataset, name)
+        if os.path.isfile(p):
+            return p
+    raise FileNotFoundError(f"no positives file found in {dataset}")
+
+
+def run_config(run_name: str, config: str | None, overrides: list[str]):
+    """``RunConfig()`` (or the ``config`` JSON file) named ``run_name``,
+    with ``KEY=JSON`` overrides applied."""
+    from gcn_song_embeddings_tpu_torch.config import (
+        RunConfig,
+        config_with_overrides,
+    )
+
+    cfg = RunConfig(run_name=run_name)
+    if config:
+        if not os.path.isfile(config):
+            raise FileNotFoundError(f"--config {config!r} not found")
+        with open(config) as f:
+            cfg = RunConfig.from_json(f.read()).replace(run_name=run_name)
+    values = {}
+    for kv in overrides or []:
+        key, _, value = kv.partition("=")
+        values[key] = json.loads(value)
+    return config_with_overrides(cfg, values)
+
+
+def cmd_train(args) -> None:
+    from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
+    from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
+    from gcn_song_embeddings_tpu_torch.train.trainer import PinSageTrainer
+    from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = run_config(args.run_name, args.config, args.set)
+    graph = SongGraph(args.dataset,
+                      features_file=os.path.join(args.dataset,
+                                                 "features.npy"))
+    if graph.features is None:
+        raise SystemExit(f"no features.npy in {args.dataset}")
+    train_pos, _ = graph.load_positives_split(positives_path(args.dataset))
+    trainer = PinSageTrainer(DeviceGraph.from_graph(graph, dev),
+                             graph.n_items, graph.features, train_pos,
+                             cfg=cfg, base_run_dir=args.run_dir,
+                             nbhds_path=graph.nbhds_path, log=True,
+                             load_save=not args.no_resume)
+    trainer.train()
+    print(f"embeddings -> {trainer.save_embeddings()}")
 
 
 def embed_dataset(dataset: str, checkpoint: str | None = None,
@@ -109,12 +171,25 @@ def main(argv=None) -> None:
     sp.add_argument("--seed", type=int, default=0)
     sp.set_defaults(func=cmd_synth)
 
+    sp = sub.add_parser("train")
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--run-name", default="pinsage_tpu")
+    sp.add_argument("--run-dir", default="./runs")
+    sp.add_argument("--config", default=None, help="RunConfig json file")
+    sp.add_argument("--set", action="append", metavar="KEY=JSON",
+                    help="config override, e.g. --set train.lr=0.001")
+    sp.add_argument("--no-resume", action="store_true")
+    sp.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' on request)")
+    sp.set_defaults(func=cmd_train)
+
     sp = sub.add_parser("embed")
     sp.add_argument("--dataset", required=True)
     sp.add_argument("--out", required=True, help="path of the emb.npy")
     sp.add_argument("--checkpoint", default=None,
-                    help="JAX trainer checkpoint (state.npz); default: "
-                         "seeded random init at full width")
+                    help="trainer checkpoint (state.npz, written by "
+                         "either package); default: seeded random init "
+                         "at full width")
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' on request)")

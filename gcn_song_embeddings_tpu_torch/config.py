@@ -56,7 +56,7 @@ class PinSageConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Trainer knobs (the trainer itself arrives with a later slice)."""
+    """Trainer knobs (``train.trainer.PinSageTrainer``)."""
 
     lr: float = 1e-4
     decay: float = 0.95
@@ -71,8 +71,8 @@ class TrainConfig:
     exact_batch_sampling: bool = False
     seed: int = 0
     checkpoint_every_batches: int = 2500
-    dtype: str = "float32"
-    fullgraph_forward: str = "auto"
+    dtype: str = "float32"       # the port trains in float32 only so far
+    fullgraph_forward: str = "auto"  # "auto" | "on" | "off"
 
 
 @dataclass(frozen=True)
@@ -111,3 +111,23 @@ class RunConfig:
             model=PinSageConfig(T=10),
             train=TrainConfig(lr=1e-3, margin=0.1),
         )
+
+
+def config_with_overrides(base: RunConfig, overrides: dict[str, Any]
+                          ) -> RunConfig:
+    """Apply dotted-path overrides like {"train.lr": 1e-3, "model.T": 5}."""
+    sections: dict[str, dict[str, Any]] = {}
+    top: dict[str, Any] = {}
+    for key, value in overrides.items():
+        if "." in key:
+            section, name = key.split(".", 1)
+            sections.setdefault(section, {})[name] = value
+        else:
+            top[key] = value
+    new = base
+    for section, vals in sections.items():
+        cur = getattr(new, section)
+        new = new.replace(**{section: dataclasses.replace(cur, **vals)})
+    if top:
+        new = new.replace(**top)
+    return new

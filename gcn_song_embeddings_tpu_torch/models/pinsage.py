@@ -9,16 +9,19 @@ pinsage.py:
       out  = out / ||out||_2
   head(x) = G2 @ leaky_relu(G1 @ x + b1)          (G2 has no bias)
 
-The aggregation goes through ``ops.agg.conv_aggregate``: kernel K2 on
-the GPU, its plain version on the CPU.  The dense products of the W half
-and the head stay ``torch.matmul``.  Layer 0 consumes raw features; every
-layer outputs ``out_dim``.
+The aggregation goes through ``ops.agg.conv_aggregate``, differentiable
+on both devices: on the GPU the frontier forward (the train step, and
+embedding a node set) runs kernel K3 and the full-catalog sweep runs K2;
+on the CPU both run their plain version.  The dense products of the W
+half and the head stay ``torch.matmul``.  Layer 0 consumes raw features;
+every layer outputs ``out_dim``.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -47,6 +50,16 @@ class PinSageParams(nn.Module):
         self.G1_w = nn.Parameter(G1_w)
         self.G1_b = nn.Parameter(G1_b)
         self.G2_w = nn.Parameter(G2_w)
+
+    def leaves(self) -> list[tuple[str, nn.Parameter]]:
+        """(name, parameter) in the JAX package's leaf order, named as its
+        key paths below ``['params']``: ``layers[0].Wq``, ``layers[0].bq``,
+        ..., ``G1_w``, ``G1_b``, ``G2_w``.  (``parameters()`` lists the
+        head first.)"""
+        out = [(f"layers[{i}].{f}", getattr(layer, f))
+               for i, layer in enumerate(self.layers)
+               for f in ("Wq", "bq", "Ww", "bw")]
+        return out + [(f, getattr(self, f)) for f in ("G1_w", "G1_b", "G2_w")]
 
 
 def _xavier_uniform(shape: tuple[int, int], generator: torch.Generator
@@ -79,12 +92,45 @@ def init_pinsage(generator: torch.Generator, n_layers: int, in_dim: int,
                          torch.full((out_dim,), bias_init, device=dev), g2)
 
 
+def pack_nbhds(nbhd_weights: torch.Tensor, nbhd_nodes: torch.Tensor,
+               T: int) -> torch.Tensor:
+    """The top-T (weights, nodes) columns as ONE [N, 2T] int32 table, the
+    f32 weights bit-cast to int32, so each frontier level costs a single
+    row gather (the JAX package's layout)."""
+    w = nbhd_weights[:, :T].to(torch.float32).contiguous().view(torch.int32)
+    return torch.cat([w, nbhd_nodes[:, :T].to(torch.int32)], dim=1)
+
+
+def unpack_nbhd_rows(rows: torch.Tensor, T: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of ``pack_nbhds`` for gathered rows [m, 2T] -> (w [m, T]
+    f32, nodes [m, T] int32)."""
+    return rows[:, :T].contiguous().view(torch.float32), rows[:, T:]
+
+
+def pack_nbhds_np(nbhd_weights, nbhd_nodes, T: int) -> np.ndarray:
+    """NumPy twin of ``pack_nbhds`` (same [N, 2T] bit-cast layout)."""
+    w = np.ascontiguousarray(
+        np.asarray(nbhd_weights)[:, :T], dtype=np.float32).view(np.int32)
+    return np.concatenate(
+        [w, np.asarray(nbhd_nodes)[:, :T].astype(np.int32)], axis=1)
+
+
+def packed_nbhd_gather(packed: torch.Tensor, T: int):
+    """``gather_nbhds(ids)`` over a ``pack_nbhds`` table."""
+    def gather_nbhds(ids):
+        return unpack_nbhd_rows(packed[ids.long()], T)
+    return gather_nbhds
+
+
 def conv_from_table(p: ConvParams, h_self: torch.Tensor,
                     table: torch.Tensor, nb_nodes: torch.Tensor,
-                    nb_w: torch.Tensor) -> torch.Tensor:
+                    nb_w: torch.Tensor, mode: str = "stream"
+                    ) -> torch.Tensor:
     """One conv layer whose neighbors are rows ``nb_nodes`` [B, T] of
-    ``table``: the aggregation never materializes them on the GPU (K2)."""
-    agg = conv_aggregate(table, nb_nodes, nb_w, p.Wq, p.bq)
+    ``table``: the aggregation never materializes them on the GPU (K2 for
+    mode "stream", K3 for "dma")."""
+    agg = conv_aggregate(table, nb_nodes, nb_w, p.Wq, p.bq, mode)
     d = h_self.shape[1]
     # split-W product: [a, b] @ M^T == a @ M[:, :d]^T + b @ M[:, d:]^T,
     # without materializing the [B, Din + hidden] concat
@@ -121,7 +167,9 @@ def forward_with_gather(params: PinSageParams, gather_features,
     ``gather_features(ids) -> [m, in_dim]`` and ``gather_nbhds(ids) ->
     (weights [m, T], nodes [m, T])``.  Frontier l+1 is frontier l followed
     by its neighbors (no dedup: static size B*(T+1)^l), so layer l's self
-    rows are h[:m] and its neighbor rows are h[m:]."""
+    rows are h[:m] and its neighbor rows are h[m:].  The aggregation runs
+    K3 on the GPU: gathered row batches of this size are what it was
+    written for."""
     frontiers = [nodeset.to(torch.int32)]
     nb_per_level = []
     for _ in range(n_layers):
@@ -137,7 +185,7 @@ def forward_with_gather(params: PinSageParams, gather_features,
                                device=h.device).reshape(m, T)
         # the deepest frontier uses layers[0]
         h = conv_from_table(params.layers[n_layers - 1 - l], h[:m], h, ids,
-                            nb_per_level[l])
+                            nb_per_level[l], mode="dma")
     return head_apply(params, h)
 
 
@@ -146,13 +194,11 @@ def pinsage_forward(params: PinSageParams, features: torch.Tensor,
                     nodeset: torch.Tensor, n_layers: int, T: int
                     ) -> torch.Tensor:
     """Embed ``nodeset`` rows [B] -> [B, out_dim] through the frontier
-    path, neighborhoods read from the precomputed top-T tables."""
-    def gather_nbhds(ids):
-        ids = ids.long()
-        return nbhd_weights[ids, :T], nbhd_nodes[ids, :T]
-
-    return forward_with_gather(params, lambda ids: features[ids.long()],
-                               gather_nbhds, nodeset, n_layers, T)
+    path, neighborhoods read from the packed top-T table."""
+    return forward_with_gather(
+        params, lambda ids: features[ids.long()],
+        packed_nbhd_gather(pack_nbhds(nbhd_weights, nbhd_nodes, T), T),
+        nodeset, n_layers, T)
 
 
 def fullgraph_embeddings(params: PinSageParams, features: torch.Tensor,
@@ -178,12 +224,52 @@ def fullgraph_embeddings(params: PinSageParams, features: torch.Tensor,
     return h
 
 
+def pinsage_forward_fullgraph(params: PinSageParams, features: torch.Tensor,
+                              nbhd_weights: torch.Tensor,
+                              nbhd_nodes: torch.Tensor, nodeset: torch.Tensor,
+                              n_layers: int, T: int) -> torch.Tensor:
+    """``pinsage_forward`` computed through a full-catalog sweep (same
+    math; cheaper once ``nodeset``'s frontier outgrows the catalog)."""
+    h = fullgraph_embeddings(params, features, nbhd_weights, nbhd_nodes,
+                             n_layers, T)
+    return head_apply(params, h[nodeset.long()])
+
+
+def fullgraph_wins(batch_rows: int, n_items: int, n_layers: int,
+                   T: int) -> bool:
+    """Feature-row cost model behind ``train.fullgraph_forward="auto"``:
+    the frontier forward gathers batch_rows*(T+1)^L feature rows, the
+    full-graph sweep touches N*(T+1) rows per layer (the JAX package's
+    rule, which matched its measured winner at every batch size)."""
+    frontier_rows = batch_rows * (T + 1) ** n_layers
+    return frontier_rows > n_items * (T + 1) * n_layers
+
+
 def embed_all(params: PinSageParams, features: torch.Tensor,
               nbhd_weights: torch.Tensor, nbhd_nodes: torch.Tensor,
-              n_items: int, n_layers: int, T: int) -> torch.Tensor:
-    """Embed every item -> [n_items, out_dim]: the full-catalog conv sweep
-    (the JAX package's ``strategy="fullgraph"``), then the head."""
+              n_items: int, n_layers: int, T: int, batch_size: int = 1024,
+              strategy: str = "fullgraph") -> torch.Tensor:
+    """Embed every item -> [n_items, out_dim].
+
+    strategy="fullgraph" (default): the full-catalog conv sweep (K2 on the
+    GPU), then the head.  strategy="blocks": the frontier forward (K3 on
+    the GPU) over consecutive blocks of ``batch_size`` items, ids wrapping
+    modulo the catalog as in the JAX package (whose ``blocks_per_call``
+    groups blocks per device dispatch; eager PyTorch launches block by
+    block)."""
+    if strategy not in ("fullgraph", "blocks"):
+        raise ValueError(f"strategy must be 'fullgraph' or 'blocks', got "
+                         f"{strategy!r}")
     with torch.inference_mode():
-        h = fullgraph_embeddings(params, features, nbhd_weights, nbhd_nodes,
-                                 n_layers, T)
-        return head_apply(params, h)[:n_items]
+        if strategy == "fullgraph":
+            h = fullgraph_embeddings(params, features, nbhd_weights,
+                                     nbhd_nodes, n_layers, T)
+            return head_apply(params, h)[:n_items]
+        offsets = torch.arange(batch_size, device=features.device)
+        gather_nbhds = packed_nbhd_gather(
+            pack_nbhds(nbhd_weights, nbhd_nodes, T), T)
+        return torch.cat([
+            forward_with_gather(params, lambda ids: features[ids.long()],
+                                gather_nbhds, (start + offsets) % n_items,
+                                n_layers, T)
+            for start in range(0, n_items, batch_size)])[:n_items]

@@ -1,6 +1,8 @@
-"""Port's aggregation (K2's plain version) vs the JAX package's XLA path
-and its Pallas kernel in interpret mode, at the JAX suite's tolerance."""
+"""Port's aggregation (the plain version of K2 and K3) and its backward
+vs the JAX package's XLA path, its autodiff and its Pallas kernels in
+interpret mode, at the JAX suite's tolerance."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,9 +10,10 @@ import torch
 
 from gcn_song_embeddings_tpu.ops.pallas_agg import (
     conv_aggregate as j_conv_aggregate,
+    dma_gather_aggregate,
     fused_gather_aggregate,
 )
-from gcn_song_embeddings_tpu_torch.ops import agg
+from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
 
 ATOL = 2e-5  # tests/test_pallas_agg.py
 
@@ -51,3 +54,69 @@ def test_plain_aggregate_at_slice_width():
     got = agg.conv_aggregate_plain(*(torch.from_numpy(a) for a in arrays))
     want = j_conv_aggregate(*(jnp.asarray(a) for a in arrays))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("b,zero_row", [(600, None), (130, 3)])
+def test_dma_mode_matches_jax_dma_kernel(b, zero_row):
+    """K3's contract at tests/test_pallas_agg.py's shapes: b=600 is three
+    256-node tiles on the TPU, b=130 a padded one with a zero-weight row.
+    On the CPU the "dma" mode runs the plain version."""
+    arrays = _problem(b, zero_row=zero_row)
+    before = (agg.launches, dma_agg.launches)
+    got = agg.conv_aggregate(*(torch.from_numpy(a) for a in arrays),
+                             mode="dma").numpy()
+    assert (agg.launches, dma_agg.launches) == before
+    assert got.shape == (b, 128)
+    want = dma_gather_aggregate(*(jnp.asarray(a) for a in arrays),
+                                interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+    if zero_row is not None:
+        np.testing.assert_array_equal(got[zero_row], 0.0)
+
+
+def test_unknown_mode_is_refused():
+    arrays = [torch.from_numpy(a) for a in _problem(5)]
+    with pytest.raises(ValueError, match="mode"):
+        agg.conv_aggregate(*arrays, mode="pallas")
+
+
+def test_backward_gradcheck_float64():
+    """ConvAggregate's hand-written backward against finite differences,
+    in float64 with the plain forward (CPU tensors)."""
+    rng = np.random.default_rng(5)
+    n, b, t, din, hdim = 12, 5, 3, 4, 3
+    h = torch.tensor(rng.normal(size=(n, din)), requires_grad=True)
+    nb = torch.tensor(rng.integers(0, n, (b, t)), dtype=torch.int32)
+    w = torch.tensor(rng.random((b, t)))
+    w[2] = 0.0                                # all-zero neighborhood
+    Wq = torch.tensor(rng.normal(size=(hdim, din)), requires_grad=True)
+    bq = torch.tensor(rng.normal(size=hdim) * 0.1, requires_grad=True)
+    for mode in ("stream", "dma"):
+        assert torch.autograd.gradcheck(
+            lambda h, Wq, bq: agg.ConvAggregate.apply(h, nb, w, Wq, bq,
+                                                      mode),
+            (h, Wq, bq))
+
+
+@pytest.mark.parametrize("b,t,din,hdim,zero_row", [
+    (65, 3, 256, 128, 3), (40, 10, 128, 512, None)])
+def test_backward_matches_jax_vjp(b, t, din, hdim, zero_row):
+    """dh, dWq and dbq of ConvAggregate vs jax.vjp of the JAX package's
+    XLA aggregation (its train-step gradient), atol 2e-5."""
+    arrays = _problem(b, t=t, n=300, din=din, h=hdim, seed=6,
+                      zero_row=zero_row)
+    cot = np.random.default_rng(7).normal(size=(b, hdim)).astype(np.float32)
+    h, nb, w, Wq, bq = (torch.from_numpy(a) for a in arrays)
+    h, Wq, bq = (x.requires_grad_() for x in (h, Wq, bq))
+    out = agg.ConvAggregate.apply(h, nb, w, Wq, bq, "dma")
+    got = torch.autograd.grad(out, (h, Wq, bq), torch.from_numpy(cot))
+    jh, jnb, jw, jWq, jbq = (jnp.asarray(a) for a in arrays)
+    _, vjp = jax.vjp(lambda h, Wq, bq: j_conv_aggregate(h, jnb, jw, Wq, bq),
+                     jh, jWq, jbq)
+    for g, want in zip(got, vjp(jnp.asarray(cot))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=ATOL)
+    # and the plain version's own autograd gives the same gradient
+    ref = torch.autograd.grad(agg.conv_aggregate_plain(h, nb, w, Wq, bq),
+                              (h, Wq, bq), torch.from_numpy(cot))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=ATOL)

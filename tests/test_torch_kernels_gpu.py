@@ -1,4 +1,5 @@
-"""CUDA kernels K1 and K2 against their plain PyTorch versions, on the GPU.
+"""CUDA kernels K1, K2 and K3 against their plain PyTorch versions, and
+the aggregation's backward against plain autograd, on the GPU.
 
 Marked ``gpu``: they skip (with a reason) where no CUDA device is
 present, deciding inside a fixture.  They import nothing of JAX, so they
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
-from gcn_song_embeddings_tpu_torch.ops import agg, walk_kernel
+from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg, walk_kernel
 from gcn_song_embeddings_tpu_torch.ops.walks import (
     draw_uniforms,
     fused_walk_tables,
@@ -22,6 +23,7 @@ from gcn_song_embeddings_tpu_torch.ops.walks import (
 pytestmark = pytest.mark.gpu
 
 AGG_ATOL = 1e-4  # f32, another summation order than the einsum path
+GRAD_RTOL = 1e-3  # chip_smoke.py's bar for the aggregation's backward
 
 
 @pytest.fixture
@@ -64,19 +66,25 @@ def test_walk_kernel_bit_identical(cuda, alpha, b, hops, chains):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("b,t,n,din,h", [
-    (300, 3, 1000, 256, 128), (65, 3, 1000, 256, 128),
-    (1000, 10, 5000, 512, 512), (777, 10, 5000, 128, 512),
-    (50, 7, 200, 36, 100)])
-def test_agg_kernel_matches_plain(cuda, b, t, n, din, h):
-    rng = np.random.default_rng(b)
-    args = [torch.as_tensor(a, device=cuda) for a in (
+def _agg_args(device, b, t, n, din, h, seed=None):
+    rng = np.random.default_rng(b if seed is None else seed)
+    args = [torch.as_tensor(a, device=device) for a in (
         rng.normal(size=(n, din)).astype(np.float32),
         rng.integers(0, n, (b, t)).astype(np.int32),
         rng.random((b, t)).astype(np.float32),
         (rng.normal(size=(h, din)) * 0.05).astype(np.float32),
         np.full(h, 0.3, np.float32))]
-    args[2][3] = 0.0                      # all-zero neighborhood guard
+    if b > 3:
+        args[2][3] = 0.0                  # all-zero neighborhood guard
+    return args
+
+
+@pytest.mark.parametrize("b,t,n,din,h", [
+    (300, 3, 1000, 256, 128), (65, 3, 1000, 256, 128),
+    (1000, 10, 5000, 512, 512), (777, 10, 5000, 128, 512),
+    (50, 7, 200, 36, 100)])
+def test_agg_kernel_matches_plain(cuda, b, t, n, din, h):
+    args = _agg_args(cuda, b, t, n, din, h)
     before = agg.launches
     got = agg.conv_aggregate(*args)
     want = agg.conv_aggregate_plain(*args)
@@ -84,6 +92,77 @@ def test_agg_kernel_matches_plain(cuda, b, t, n, din, h):
     assert agg.launches == before + 1
     assert got.shape == (b, h)
     assert float((got - want).abs().max()) <= AGG_ATOL
+
+
+@pytest.mark.parametrize("b,t,n,din,h", [
+    (600, 3, 1000, 256, 128), (130, 3, 1000, 256, 128),
+    (50, 10, 200, 36, 100), (4224, 10, 46464, 512, 512),
+    (384, 10, 4224, 128, 512), (1, 64, 70, 4, 4)])
+def test_dma_agg_kernel_matches_plain(cuda, b, t, n, din, h):
+    """K3 at tests/test_pallas_agg.py's shapes (b=600: three TPU tiles;
+    b=130 with a zero-weight row), an odd width (Din 36, H 100, T=10:
+    one partial Din chunk and column tile) and the train step's two
+    frontier shapes."""
+    args = _agg_args(cuda, b, t, n, din, h)
+    before = (agg.launches, dma_agg.launches)
+    got = agg.conv_aggregate(*args, mode="dma")
+    want = agg.conv_aggregate_plain(*args)
+    torch.cuda.synchronize()
+    assert (agg.launches, dma_agg.launches) == (before[0], before[1] + 1)
+    assert got.shape == (b, h)
+    assert float((got - want).abs().max()) <= AGG_ATOL
+    if b > 3:
+        assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+@pytest.mark.parametrize("mode", ["stream", "dma"])
+def test_agg_backward_matches_plain_autograd(cuda, mode):
+    """dh, dWq, dbq through ConvAggregate vs autograd through the plain
+    version in float64, same inputs and cotangent: relative Frobenius
+    error within GRAD_RTOL (f32; an entry of pre within rounding of 0
+    may take the other leaky_relu slope, as chip_smoke.py explains)."""
+    args = _agg_args(cuda, 700, 10, 3000, 128, 512, seed=3)
+    cot = torch.randn((700, 512), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def grads(dtype, fn):
+        h, nb, w, Wq, bq = (a if a.dtype == torch.int32
+                            else a.to(dtype, copy=True) for a in args)
+        h, Wq, bq = (x.requires_grad_() for x in (h, Wq, bq))
+        out = fn(h, nb, w, Wq, bq)
+        return out, torch.autograd.grad(out, (h, Wq, bq), cot.to(dtype))
+
+    _, ref = grads(torch.float64, agg.conv_aggregate_plain)
+    before = agg.backward_launches[mode]
+    out, got = grads(torch.float32, lambda *a: agg.conv_aggregate(
+        *a, mode=mode))
+    torch.cuda.synchronize()
+    assert out.grad_fn is not None
+    assert agg.backward_launches[mode] == before + 1
+    for g, r in zip(got, ref):
+        err = torch.linalg.vector_norm(g.double() - r) / \
+            torch.linalg.vector_norm(r)
+        assert float(err) <= GRAD_RTOL
+
+
+def test_cuda_aggregate_carries_wq_gradient(cuda):
+    """A CUDA conv_aggregate with a Wq that requires grad returns a tensor
+    with a grad_fn, and Wq.grad equals the plain version's (the kernels
+    are launched through ctypes: without the autograd Function the result
+    was cut off from Wq and bq)."""
+    h, nb, w, Wq, bq = _agg_args(cuda, 90, 3, 400, 64, 64, seed=4)
+    Wq.requires_grad_()
+    for mode in ("stream", "dma"):
+        Wq.grad = None
+        out = agg.conv_aggregate(h, nb, w, Wq, bq, mode=mode)
+        assert out.grad_fn is not None
+        out.square().sum().backward()
+        got = Wq.grad.clone()
+        Wq.grad = None
+        agg.conv_aggregate_plain(h, nb, w, Wq, bq).square().sum().backward()
+        assert torch.allclose(got, Wq.grad, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="gradient"):
+        agg.conv_aggregate_cuda(h, nb, w, Wq, bq)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -97,12 +176,16 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         agg.conv_aggregate(h.double(), ids[:, :3], w[:, :3],
                            torch.zeros((6, 8), device=cuda).double(),
                            torch.zeros(6, device=cuda).double())
-    for din, hdim in ((37, 8), (8, 6)):   # float4 loads: multiples of 4
-        with pytest.raises(ValueError, match="multiples of 4"):
-            agg.conv_aggregate(torch.zeros((10, din), device=cuda),
-                               ids[:, :3], w[:, :3],
-                               torch.zeros((hdim, din), device=cuda),
-                               torch.zeros(hdim, device=cuda))
+    for mode in ("stream", "dma"):        # 16-byte loads and copies
+        for din, hdim in ((37, 8), (8, 6)):
+            with pytest.raises(ValueError, match="multiples of 4"):
+                agg.conv_aggregate(torch.zeros((10, din), device=cuda),
+                                   ids[:, :3], w[:, :3],
+                                   torch.zeros((hdim, din), device=cuda),
+                                   torch.zeros(hdim, device=cuda), mode=mode)
+    with pytest.raises(ValueError, match="T <="):
+        agg.conv_aggregate(h, ids, w, torch.zeros((8, 8), device=cuda),
+                           torch.zeros(8, device=cuda), mode="dma")
     tables = fused_walk_tables(_graph(cuda))
     with pytest.raises(ValueError, match="uniforms"):
         walk_kernel.restart_walks(tables, ids[0, :4], 5, 0.5,

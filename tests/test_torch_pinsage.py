@@ -184,3 +184,41 @@ def test_cli_synth_and_seeded_embed(tmp_path):
     # the sweep's cache is reused and the seeded init repeats
     again = cli.embed_dataset(ds, device="cpu")
     np.testing.assert_array_equal(again, emb)
+
+
+def test_packed_tables_fullgraph_rule_and_blocks_match_jax():
+    """pack_nbhds (and its numpy twin, and the unpacking gather),
+    fullgraph_wins, pinsage_forward_fullgraph and embed_all's "blocks"
+    strategy against the JAX package's."""
+    n = 90
+    jparams = _jax_params(5)
+    port = params_from_numpy(_numpy_tree(jparams))
+    feats = np.random.default_rng(5).normal(size=(n, IN)).astype(np.float32)
+    w, nodes = _nbhds(n, T + 2, seed=5)
+    tf, tw, tn = (torch.from_numpy(a) for a in (feats, w, nodes))
+    jf, jw, jn = (jnp.asarray(a) for a in (feats, w, nodes))
+    want = np.asarray(jp.pack_nbhds(jw, jn, T))
+    np.testing.assert_array_equal(tp.pack_nbhds(tw, tn, T).numpy(), want)
+    np.testing.assert_array_equal(tp.pack_nbhds_np(w, nodes, T), want)
+    ids = torch.tensor([4, 5, 89, 4])
+    got_w, got_n = tp.packed_nbhd_gather(tp.pack_nbhds(tw, tn, T), T)(ids)
+    np.testing.assert_array_equal(got_w.numpy(), w[ids.numpy(), :T])
+    np.testing.assert_array_equal(got_n.numpy(), nodes[ids.numpy(), :T])
+    for rows, items, layers, t in ((384, 100_000, 2, 10), (12288, 20_000, 2,
+                                                          3), (3, 5, 1, 1)):
+        assert tp.fullgraph_wins(rows, items, layers, t) == jp.fullgraph_wins(
+            rows, items, layers, t)
+    nodeset = np.asarray([0, 5, 17, 89, 17], np.int32)
+    with torch.inference_mode():
+        full = tp.pinsage_forward_fullgraph(port, tf, tw, tn,
+                                            torch.from_numpy(nodeset), L, T)
+    np.testing.assert_allclose(full.numpy(), np.asarray(
+        jp.pinsage_forward_fullgraph(jparams, jf, jw, jn,
+                                     jnp.asarray(nodeset), L, T)), atol=ATOL)
+    blocks = tp.embed_all(port, tf, tw, tn, n, L, T, batch_size=32,
+                          strategy="blocks")
+    np.testing.assert_allclose(blocks.numpy(), np.asarray(jp.embed_all(
+        jparams, jf, jw, jn, n, L, T, batch_size=32, blocks_per_call=2,
+        strategy="blocks")), atol=ATOL)
+    with pytest.raises(ValueError, match="strategy"):
+        tp.embed_all(port, tf, tw, tn, n, L, T, strategy="scan")
