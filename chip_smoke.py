@@ -29,12 +29,23 @@
    CPU (the plain versions), losses, G1_w and embeddings as
    tests/test_trainer.py holds them.  Then the train step's wall at B=128
    and a ``torch.profiler`` pass over it (device busy share, launches).
-6. Holds each kernel against its plain PyTorch version on the card at the
-   paths' shapes (K1 bit-identical, K2 and K3 within 1e-4 absolute; the
-   aggregation's backward within GRAD_RTOL of float64 autograd, beside
-   the f32 plain version's own error), and times kernel, plain version
-   and a library yardstick with CUDA events.
-7. Checks the outputs: finite embeddings of the expected shape that match
+6. Drives the int8 serving path on the trained ``emb.npy`` with the
+   counters set to 0 again: the int8 ``EmbeddingIndex`` and the int8
+   cached-head and live-walk (K1) ``HybridIndex`` answer single and batched
+   HTTP requests; 16 tracks are added and 4 removed through ``POST /add``
+   and ``/remove`` (the added ones found through their own embeddings,
+   the removed ones gone, ``compact()`` leaving the answers unchanged);
+   the served table is quantized with stochastic rounding (kernel K4).
+   Then int8 scores on the card are held bit-equal to the CPU's, the
+   int8-vs-f32 top-10 overlap and the device bytes of both tables are
+   printed, and K4 is held to its plain version (``torch.equal``) and to
+   the stochastic quantizer's contract (tests/test_quantize.py:40-48).
+7. Holds each kernel against its plain PyTorch version on the card at the
+   paths' shapes (K1 and K4 bit-identical, K2 and K3 within 1e-4
+   absolute; the aggregation's backward within GRAD_RTOL of float64
+   autograd, beside the f32 plain version's own error), and times kernel,
+   plain version and a library yardstick with CUDA events.
+8. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
 
@@ -53,6 +64,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -74,6 +86,7 @@ TRAIN_EPOCHS, TRAIN_BATCHES, TRAIN_CHUNK = 2, 25, 20
 N_TRACKS, N_COLLECTIONS, TRACKS_PER_COLLECTION = 100_000, 25_000, 20
 N_POSITIVES, FEATURE_DIM = 200_000, 512
 SERVE_HOPS, QUERY_K = 1000, 10
+N_ADDED, N_REMOVED, QUANT_SEED = 16, 4, 3
 
 
 def log(*parts) -> None:
@@ -107,6 +120,12 @@ def get_json(url: str):
         return r.status, json.loads(r.read())
 
 
+def post_json(url: str, payload):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode())
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
 def check_neighbors(nbrs, query_row: int, k: int) -> None:
     ids = [n["index"] for n in nbrs]
     if len(ids) != k or len(set(ids)) != k or query_row in ids:
@@ -115,9 +134,11 @@ def check_neighbors(nbrs, query_row: int, k: int) -> None:
         raise AssertionError("non-float scores")
 
 
-def serve_queries(serve, index, graph, rows) -> dict:
+def serve_queries(serve, index, graph, rows, updates=None) -> dict:
     """Serve ``index`` on 127.0.0.1 in a thread, answer single and batched
-    requests, check each response's shape; returns request walls (ms)."""
+    requests, check each response's shape, then run ``updates(base_url,
+    walls)`` against the same server if given; returns request walls
+    (ms)."""
     server = serve(index, host="127.0.0.1", port=0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -144,6 +165,8 @@ def serve_queries(serve, index, graph, rows) -> dict:
             raise AssertionError(f"knn tracks=: {code}")
         for row, nbrs in zip(rows, res["neighbors"]):
             check_neighbors(nbrs, row, QUERY_K)
+        if updates is not None:
+            updates(base, walls)
     finally:
         server.shutdown()
         server.server_close()
@@ -151,6 +174,288 @@ def serve_queries(serve, index, graph, rows) -> dict:
     if thread.is_alive():
         raise RuntimeError("HTTP server thread did not stop")
     return walls
+
+
+def online_updates(index, graph, rows, twins):
+    """``POST /add`` of the ``twins`` embeddings (pairs of near-equal
+    random vectors, 16 new tracks) and ``POST /remove`` of the 4 queries'
+    current top neighbors, on a served int8 ``EmbeddingIndex``; then
+    ``compact()``.  Checks that each added track is found through its own
+    embedding (``/embed`` returns it, its twin is its top neighbor at
+    cosine ~1), that the removed tracks are gone, and that ``compact()``
+    leaves the catalog queries' answers unchanged (ids and scores) and
+    each added track's twin first.  Returns the function the server
+    runs."""
+    import numpy as np
+
+    new_ids = [f"added_{i}" for i in range(len(twins))]
+    pair = [i ^ 1 for i in range(len(twins))]
+
+    def timed(walls, name, fn):
+        t = time.perf_counter()
+        out = fn()
+        walls[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    def answers(base, tids):
+        out = {}
+        for tid in tids:
+            code, res = get_json(f"{base}/knn?track={tid}&k={QUERY_K}")
+            if code != 200:
+                raise AssertionError(f"knn track={tid}: {code}")
+            out[tid] = res["neighbors"]
+        return out
+
+    def run(base, walls):
+        code, res = timed(walls, "add_ms", lambda: post_json(
+            f"{base}/add", {"tracks": [
+                {"track": tid, "embedding": v.tolist(), "name": tid}
+                for tid, v in zip(new_ids, twins)]}))
+        if code != 200 or res["rows"] != list(range(graph.n_items,
+                                                    graph.n_items
+                                                    + len(twins))):
+            raise AssertionError(f"add: {code} {res}")
+        for i, tid in enumerate(new_ids):
+            _, emb = get_json(f"{base}/embed?track={tid}")
+            unit = twins[i] / np.linalg.norm(twins[i])
+            if not np.allclose(emb["embedding"], unit, atol=1e-6):
+                raise AssertionError(f"/embed of {tid} is not its own")
+        before = timed(walls, "added_knn_ms", lambda: answers(base,
+                                                              new_ids))
+        for i, tid in enumerate(new_ids):
+            top = before[tid][0]
+            if top["track"] != new_ids[pair[i]] or top["score"] < 0.999:
+                raise AssertionError(f"{tid}: top neighbor {top}, not its "
+                                     f"twin {new_ids[pair[i]]}")
+        query_tids = [graph.track_ids[r] for r in rows]
+        gone = [next(o["track"] for o in nbrs if o["track"] not in query_tids)
+                for nbrs in answers(base, query_tids).values()]
+        code, res = timed(walls, "remove_ms", lambda: post_json(
+            f"{base}/remove", {"tracks": gone}))
+        _, health = get_json(f"{base}/healthz")
+        if code != 200 or health["removed"] != len(set(gone)):
+            raise AssertionError(f"remove: {code} {res} {health}")
+        for tid in gone:
+            try:
+                get_json(f"{base}/knn?track={tid}&k={QUERY_K}")
+            except urllib.error.HTTPError as e:
+                if e.code != 400:
+                    raise
+            else:
+                raise AssertionError(f"removed {tid} still resolves")
+        after_remove = answers(base, query_tids + new_ids)
+        for tid, nbrs in after_remove.items():
+            if len(nbrs) != QUERY_K or set(gone) & {n["track"]
+                                                    for n in nbrs}:
+                raise AssertionError(f"{tid}: a removed track is served")
+        t = time.perf_counter()
+        index.compact()
+        walls["compact_s"] = time.perf_counter() - t
+        after_compact = answers(base, query_tids + new_ids)
+        for tid in query_tids:
+            if after_compact[tid] != after_remove[tid]:
+                raise AssertionError(f"{tid}: compact() changed the answer")
+        # an added track's own list holds other added tracks, scored in
+        # exact f32 before compact() and in int8 after it, so entries with
+        # near-equal scores may change places; its twin stays first
+        moved = 0
+        for i, tid in enumerate(new_ids):
+            ids = [n["track"] for n in after_remove[tid]]
+            now = [n["track"] for n in after_compact[tid]]
+            if now[0] != new_ids[pair[i]]:
+                raise AssertionError(f"{tid}: after compact() its top "
+                                     f"neighbor is {now[0]}")
+            moved += ids != now
+        walls["added_lists_reordered_by_compact"] = moved
+        log(f"int8 online updates: {len(new_ids)} added (each twin's top "
+            f"neighbor, cosine >= 0.999), {len(gone)} removed; compact() "
+            f"in {walls['compact_s']:.3f} s left the {len(query_tids)} "
+            f"catalog queries' answers unchanged and every twin first "
+            f"({moved} of the added tracks' lists reordered)")
+
+    return run
+
+
+def run_int8_path(dev, st, tr_st) -> dict:
+    """The int8 serving path, as a user runs it, on the trained
+    ``emb.npy``: the int8 ``EmbeddingIndex`` (with adds, removals and
+    compact through HTTP), the int8 cached-head and live-walk (K1)
+    ``HybridIndex`` answering HTTP requests, and the served table
+    quantized with stochastic rounding (K4).  Returns its walls and what
+    the checks after it need."""
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import serve as serve_mod
+    from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
+    from gcn_song_embeddings_tpu_torch.ops.quant_kernel import (
+        quantize_rows_stochastic,
+    )
+
+    graph, emb, rows = st.graph, tr_st.emb, st.rows
+    meta = dict(track_ids=graph.track_ids, tracks_meta=graph.tracks)
+    walls = {}
+    sync(torch, dev)
+    t = time.perf_counter()
+    index = serve_mod.EmbeddingIndex(emb, quantized=True, device=dev,
+                                     **meta)
+    sync(torch, dev)
+    walls["index_build_s"] = time.perf_counter() - t
+    rng = np.random.default_rng(5)
+    twins = np.repeat(rng.normal(size=(N_ADDED // 2, emb.shape[1])), 2,
+                      axis=0).astype(np.float32)
+    twins += 1e-3 * rng.normal(size=twins.shape).astype(np.float32)
+    walls["embedding"] = serve_queries(
+        serve_mod.serve, index, graph, rows,
+        updates=online_updates(index, graph, rows, twins))
+    cached = serve_mod.HybridIndex(emb, nbhds=(st.nb_w, st.nb_n),
+                                   quantized=True, device=dev, **meta)
+    walls["cached"] = serve_queries(serve_mod.serve, cached, graph, rows)
+    t = time.perf_counter()
+    live = serve_mod.HybridIndex(
+        emb, DeviceGraph.from_graph(graph, dev), train_pairs=st.train_pos,
+        colisten_copies=st.cfg.walk.colisten_copies, n_hops=SERVE_HOPS,
+        quantized=True, device=dev, **meta)
+    walls["live_index_build_s"] = time.perf_counter() - t
+    walls["live"] = serve_queries(serve_mod.serve, live, graph, rows)
+    # the served table, quantized with stochastic rounding (K4)
+    table = torch.as_tensor(cached.unit_host, device=dev)
+    sync(torch, dev)
+    t = time.perf_counter()
+    stochastic = quantize_rows_stochastic(table, seed=QUANT_SEED)
+    sync(torch, dev)
+    walls["stochastic_quantize_ms"] = (time.perf_counter() - t) * 1e3
+    return {"walls": walls, "cached": cached, "table": table,
+            "stochastic": stochastic}
+
+
+def check_int8(torch, st, tr_st, it) -> dict:
+    """The int8 path's outputs on the card: scores of 64 query rows
+    bit-equal to the CPU's on the same table (ids equal up to ties), the
+    device bytes of the int8 and f32 tables, and the int8-vs-f32 top-10
+    overlap over 256 rows on the served table and on a random one of the
+    same shape."""
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch import serve as serve_mod
+    from gcn_song_embeddings_tpu_torch.ops.quantize import int8_scores
+
+    cached, dev = it["cached"], it["table"].device
+    values, scales = cached.q_values, cached.q_scales
+    n = cached.n
+    rows = np.arange(0, n, n // 64)[:64]
+    q = torch.as_tensor(cached.unit_host[rows])
+    got = int8_scores(values, scales, q.to(dev))[:, :n]
+    want = int8_scores(values.cpu(), scales.cpu(), q)[:, :n]
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"int8 scores on the card differ from the "
+                             f"CPU's in {int((got.cpu() != want).sum())} "
+                             f"entries")
+    gw, gn = torch.topk(got, QUERY_K, dim=1)
+    ww, wn = torch.topk(want, QUERY_K, dim=1)
+    if not torch.equal(gw.cpu(), ww):
+        raise AssertionError("int8 top-k scores differ between card and CPU")
+    for i in range(len(rows)):
+        for score in ww[i].unique()[1:]:          # the lowest may be cut
+            if set(gn[i][gw[i] == score].tolist()) != set(
+                    wn[i][ww[i] == score].tolist()):
+                raise AssertionError(f"int8 top-k ids of row {rows[i]} "
+                                     f"differ beyond ties")
+    log(f"int8 scores of {len(rows)} rows x {n} tracks: card == CPU bit "
+        f"for bit; top-{QUERY_K} ids equal up to ties")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    int8_index = serve_mod.EmbeddingIndex(tr_st.emb, quantized=True,
+                                          device=dev)
+    torch.cuda.synchronize()
+    int8_bytes = torch.cuda.memory_allocated() - base
+    f32_index = serve_mod.EmbeddingIndex(tr_st.emb, device=dev)
+    torch.cuda.synchronize()
+    f32_bytes = torch.cuda.memory_allocated() - base - int8_bytes
+    log(f"int8 index: {int8_bytes} device bytes vs f32 {f32_bytes} "
+        f"({f32_bytes / int8_bytes:.2f}x)")
+    out = {"int8_scores_bit_equal_rows": len(rows),
+           "int8_device_bytes": int8_bytes, "f32_device_bytes": f32_bytes}
+    # the overlap on the served embeddings, and on a random unit table of
+    # the same shape: int8 resolves cosines ~1e-3 apart, not ~1e-6
+    random = np.random.default_rng(9).normal(
+        size=tr_st.emb.shape).astype(np.float32)
+    for name, pair in (("trained", (int8_index, f32_index)),
+                       ("random", tuple(serve_mod.EmbeddingIndex(
+                           random, quantized=q, device=dev)
+                           for q in (True, False)))):
+        out[f"top10_{name}"] = top10_overlap(pair, n)
+        log(f"int8 vs f32 top-{QUERY_K} on the {name} table: "
+            f"{out[f'top10_{name}']}")
+    return out
+
+
+def top10_overlap(indexes, n: int) -> dict:
+    """The int8 index's top-10 against the f32 index's over 256 rows, with
+    the f32 lists' mean 1st and 10th cosines and the mean gap from the
+    10th to the 11th, the margin int8 rounding has to keep."""
+    import numpy as np
+
+    rows = np.arange(0, n, n // 256)[:256]
+    a, b = (ix.knn_rows(rows, QUERY_K + 1) for ix in indexes)
+    return {
+        "overlap": float(np.mean([
+            len({o["index"] for o in x[:QUERY_K]}
+                & {o["index"] for o in y[:QUERY_K]}) / QUERY_K
+            for x, y in zip(a, b)])),
+        "f32_cos_1st": float(np.mean([y[0]["score"] for y in b])),
+        "f32_cos_10th": float(np.mean([y[QUERY_K - 1]["score"] for y in b])),
+        "f32_gap_10th_11th": float(np.mean([
+            y[QUERY_K - 1]["score"] - y[QUERY_K]["score"] for y in b])),
+    }
+
+
+def measure_k4(torch, quant_kernel, table, stochastic, launches) -> dict:
+    """K4 on the served table: ``torch.equal`` to its plain version
+    (values and scales), the contract of tests/test_quantize.py:40-48
+    (scales of ``quantize_rows`` at rtol 1e-6, at most one level from
+    it, mean dequantization error below 1e-4), and its times."""
+    from gcn_song_embeddings_tpu_torch.ops.quantize import quantize_rows
+
+    values, scales = stochastic
+    pv, ps = quant_kernel.quantize_rows_stochastic_plain(table, QUANT_SEED)
+    if not (torch.equal(values, pv) and torch.equal(scales, ps)):
+        raise AssertionError(f"K4 differs from its plain version: "
+                             f"{int((values != pv).sum())} values, "
+                             f"{int((scales != ps).sum())} scales")
+    dv, ds = quantize_rows(table)
+    if not torch.allclose(scales, ds, rtol=1e-6, atol=0):
+        raise AssertionError("K4 scales differ from quantize_rows'")
+    moved = (values.int() - dv.int()).abs()
+    bias = float((values.float() * scales[:, None] - table).mean())
+    if int(moved.max()) > 1 or not abs(bias) < 1e-4:
+        raise AssertionError(f"K4 contract: max level move "
+                             f"{int(moved.max())}, mean error {bias}")
+    n, d = table.shape
+    share = float((moved != 0).float().mean())
+    log(f"K4 at {n} x {d} (seed {QUANT_SEED}): == plain version; scales == "
+        f"quantize_rows' ({bool(torch.equal(scales, ds))}); "
+        f"{share:.4f} of the levels moved one step from round-to-nearest; "
+        f"mean dequantization error {bias:.3g}")
+    nbytes = 4.0 * n * d + 1.0 * n * d + 4.0 * n
+    return {
+        "name": "K4 stochastic int8 row quantizer "
+                "(quant_kernel.quantize_rows_stochastic)",
+        "route": "cuda", "source": quant_kernel.SOURCE,
+        "replaces": quant_kernel.REPLACES,
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": float(max(int((values.int() - pv.int()).abs().max()),
+                                 float((scales - ps).abs().max()))),
+        "ms": cuda_ms(torch, lambda: quant_kernel.quantize_rows_cuda(
+            table, QUANT_SEED), reps=50),
+        "plain_ms": cuda_ms(torch, lambda: quant_kernel.
+                            quantize_rows_stochastic_plain(table, QUANT_SEED),
+                            reps=5),
+        "bound_ms": nbytes / H100_HBM_BYTES * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "levels_moved_share": share, "mean_dequant_error": bias,
+        "shape": f"the served unit table, N={n} d={d}, seed {QUANT_SEED}",
+    }
 
 
 def sync(torch, dev) -> None:
@@ -700,7 +1005,7 @@ def main() -> int:
         pinsage_forward,
     )
     from gcn_song_embeddings_tpu_torch.ops import agg, cuda_build, dma_agg
-    from gcn_song_embeddings_tpu_torch.ops import walk_kernel
+    from gcn_song_embeddings_tpu_torch.ops import quant_kernel, walk_kernel
     from gcn_song_embeddings_tpu_torch.ops.ppr import (
         block_generator,
         precompute_neighborhoods,
@@ -730,7 +1035,8 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "bytes stack frame" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    kernels = {"walk": walk_kernel, "agg": agg, "dma_agg": dma_agg}
+    kernels = {"walk": walk_kernel, "agg": agg, "dma_agg": dma_agg,
+               "quant": quant_kernel}
 
     def reset_counts():
         for mod in kernels.values():
@@ -785,8 +1091,17 @@ def main() -> int:
     st.walls.update(tr_st.walls)
     st.walls["train_step_ms"], step_profile = time_train_steps(torch,
                                                                 trainer)
+
+    # ---- the int8 serving path, on the trained embeddings --------------
+    reset_counts()
+    it = run_int8_path(dev, st, tr_st)
+    int8_launches = read_counts(("walk", "quant"))
+    log(f"launches on the int8 path: {int8_launches}")
+    st.walls["int8"] = it["walls"]
+    int8_checks = check_int8(torch, st, tr_st, it)
     log(json.dumps({"phase_walls": st.walls}))
     log(json.dumps({"train_step_profile": step_profile}))
+    log(json.dumps({"int8_checks": int8_checks}))
     emb, nb_w, nb_n, params = st.emb, st.nb_w, st.nb_n, st.params
     feats, nbw_d, nbn_d, dg = st.feats, st.nbw_d, st.nbn_d, st.dg
     rows, cached, ds = st.rows, st.cached, st.ds
@@ -853,7 +1168,10 @@ def main() -> int:
     results.append({
         "name": "K1 restart-walk hop (walk_kernel.restart_walks)",
         "route": "cuda", "source": walk_kernel.SOURCE,
-        "replaces": walk_kernel.REPLACES, "launches": launches["walk"],
+        "replaces": walk_kernel.REPLACES,
+        "launches": launches["walk"] + int8_launches["walk"],
+        "launches_by_path": {"serve": launches["walk"],
+                             "int8": int8_launches["walk"]},
         "max_abs_err": float(k1_err),
         "ms": cuda_ms(torch, lambda: walk_kernel.walk_hops_cuda(
             tables, nodeset, uniforms, alpha), reps=20),
@@ -899,6 +1217,9 @@ def main() -> int:
         f"H={mcfg.hidden_dim}")
     row["k2_ms_same_shapes"] = k2_at_step["ms"]
     results.append(row)
+    results.append(measure_k4(torch, quant_kernel, it["table"],
+                              it["stochastic"],
+                              {"int8": int8_launches["quant"]}))
     shutil.rmtree(work, ignore_errors=True)
     log(card_line())
     log(json.dumps({"kernels": results}))

@@ -6,13 +6,16 @@ counterpart is easy to find.  It imports ``torch`` and never ``jax``, and
 nothing of the JAX package: what it needs from there it carries as its own
 copy.
 
-The two ops that the TPU build wrote as Pallas kernels are hand-written
-CUDA C++ kernels here (``csrc/``), each beside a plain PyTorch version of
-the same function:
+The four Pallas kernels of the TPU build are hand-written CUDA C++
+kernels here (``csrc/``), each beside a plain PyTorch version of the same
+function:
 
 * ``ops.walk_kernel.restart_walks`` -- the restart-walk hop (K1);
 * ``ops.agg.conv_aggregate`` -- the fused neighbor gather + Q-MLP +
-  importance-weighted mean (K2).
+  importance-weighted mean (K2, and with ``mode="dma"`` its row-copy
+  pipelined variant K3);
+* ``ops.quant_kernel.quantize_rows_stochastic`` -- the stochastic int8
+  row quantizer (K4).
 
 A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises.  Entry points run on ``cuda``

@@ -59,7 +59,8 @@ def test_every_port_module_imports_with_jax_blocked():
     names = set(res.stdout.split())
     assert len(names) >= 20
     prefix = "gcn_song_embeddings_tpu_torch."
-    for module in ("ops.dma_agg", "train.adam", "train.loss",
+    for module in ("ops.dma_agg", "ops.quantize", "ops.quant_kernel",
+                   "train.adam", "train.loss",
                    "train.sampler", "train.trainer"):
         assert prefix + module in names
 

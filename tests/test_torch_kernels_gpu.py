@@ -1,5 +1,6 @@
-"""CUDA kernels K1, K2 and K3 against their plain PyTorch versions, and
-the aggregation's backward against plain autograd, on the GPU.
+"""CUDA kernels K1, K2, K3 and K4 against their plain PyTorch versions,
+the aggregation's backward against plain autograd, and the int8 scores on
+the GPU against the CPU's.
 
 Marked ``gpu``: they skip (with a reason) where no CUDA device is
 present, deciding inside a fixture.  They import nothing of JAX, so they
@@ -13,7 +14,17 @@ import pytest
 import torch
 
 from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
-from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg, walk_kernel
+from gcn_song_embeddings_tpu_torch.ops import (
+    agg,
+    dma_agg,
+    quant_kernel,
+    walk_kernel,
+)
+from gcn_song_embeddings_tpu_torch.ops.quantize import (
+    int8_scores,
+    pad_table,
+    quantize_rows,
+)
 from gcn_song_embeddings_tpu_torch.ops.walks import (
     draw_uniforms,
     fused_walk_tables,
@@ -190,3 +201,59 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="uniforms"):
         walk_kernel.restart_walks(tables, ids[0, :4], 5, 0.5,
                                   torch.zeros((5, 3, 3), device=cuda))
+
+
+def _unit(n, d, seed):
+    e = np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+    return e / np.linalg.norm(e, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("n,d", [(300, 64), (100_000, 128), (1001, 128)])
+def test_quant_kernel_bit_identical(cuda, n, d):
+    """K4 equals its plain version bit for bit (the random bits are a hash
+    of seed, row and column in both), at tests/test_quantize.py's shape,
+    the served table's and a ragged row count, with a zero row."""
+    emb = torch.as_tensor(_unit(n, d, n), device=cuda)
+    emb[1] = 0.0
+    before = quant_kernel.launches
+    got = quant_kernel.quantize_rows_stochastic(emb, seed=3)
+    want = quant_kernel.quantize_rows_stochastic_plain(emb, seed=3)
+    torch.cuda.synchronize()
+    assert quant_kernel.launches == before + 1
+    assert got[0].dtype == torch.int8 and got[0].shape == (n, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(got[1][1]) == 1.0 and not got[0][1].any()
+    assert torch.equal(got[1], quantize_rows(emb)[1])
+
+
+def test_quant_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        quant_kernel.quantize_rows_stochastic(
+            torch.zeros((10, 130), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        quant_kernel.quantize_rows_stochastic(
+            torch.zeros((10, 128), device=cuda, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_int8_scores_on_the_card_equal_the_cpu(cuda, b):
+    """int8 scores on CUDA (torch._int_mm, the batch padded to 32 rows)
+    bit-equal to the CPU's, on a ragged table padded on the fly and on the
+    same table padded once as the serving index holds it."""
+    unit = torch.as_tensor(_unit(1001, 128, 7))
+    values, scales = quantize_rows(unit)
+    query = unit[:b] + 0.01
+    want = int8_scores(values, scales, query)
+    got = int8_scores(values.to(cuda), scales.to(cuda), query.to(cuda))
+    pv, ps = pad_table(values.to(cuda), scales.to(cuda))
+    padded = int8_scores(pv, ps, query.to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (b, 1001) and padded.shape == (b, 1008)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(padded[:, :1001].cpu(), want)
+    assert not padded[:, 1001:].any()
+    # the second operand's two layouts: the port passes the column-major
+    # view values.t(); a row-major copy of it gives the same sums
+    q8 = torch.randint(-127, 128, (32, 128), dtype=torch.int8, device=cuda)
+    assert torch.equal(torch._int_mm(q8, pv.t()),
+                       torch._int_mm(q8, pv.t().contiguous()))
