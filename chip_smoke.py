@@ -42,9 +42,16 @@
    the stochastic quantizer's contract (tests/test_quantize.py:40-48).
 7. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes (K1 and K4 bit-identical, K2 and K3 within 1e-4
-   absolute; the aggregation's backward within GRAD_RTOL of float64
-   autograd, beside the f32 plain version's own error), and times kernel,
-   plain version and a library yardstick with CUDA events.
+   absolute, K2's Wq split, projection and gather-mean each against its
+   own plain version; the aggregation's backward within GRAD_RTOL of
+   float64 autograd, beside the f32 plain version's own error), logs
+   K2's and K3's max error against float64 beside the plain version's,
+   and times kernel, plain version and a library yardstick with CUDA
+   events, back to back on the device (K2 also against a project-once
+   library composition); each kernel's ``host_ms`` is its time per call
+   as the host issues them, its wrapper included.  K2's
+   and K3's bounds count their products on the TF32 tensor cores in
+   three passes (3xTF32); ``bound_f32_simt_ms`` keeps the f32 one.
 8. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
@@ -69,6 +76,7 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_FP32_FLOPS = 67e12   # f32 outside the tensor cores (data sheet, SXM)
+H100_TF32_FLOPS = 495e12  # TF32 tensor cores, dense (data sheet, SXM)
 H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s (data sheet, SXM)
 K2_ATOL = 1e-4  # f32 sums of Din products in another order: ~1e-6 expected
 # the aggregation's backward: the relative Frobenius error of each
@@ -100,13 +108,22 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+def cuda_ms(torch, fn, reps: int, warmup: int = 2,
+            queued: bool = True) -> float:
+    """Mean time of ``fn`` over ``reps`` back-to-back calls, by CUDA
+    events.  ``queued``: a sleep kernel (~30 ms) holds the stream while
+    the calls are queued, so the events time them back to back on the
+    device and not the host's rate of issuing them.  Without it the time
+    is per call as the host issues them, the wrapper's host work
+    included: the ``host_ms`` of a kernel row, where a wrapper that
+    outlasts its kernel shows."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -448,6 +465,8 @@ def measure_k4(torch, quant_kernel, table, stochastic, launches) -> dict:
                                  float((scales - ps).abs().max()))),
         "ms": cuda_ms(torch, lambda: quant_kernel.quantize_rows_cuda(
             table, QUANT_SEED), reps=50),
+        "host_ms": cuda_ms(torch, lambda: quant_kernel.quantize_rows_cuda(
+            table, QUANT_SEED), reps=50, queued=False),
         "plain_ms": cuda_ms(torch, lambda: quant_kernel.
                             quantize_rows_stochastic_plain(table, QUANT_SEED),
                             reps=5),
@@ -804,11 +823,77 @@ def agg_work(torch, nb_idx, nb_wt, din: int, hdim: int, n_rows: int,
     return flops, nbytes, distinct, entries
 
 
-def bound(flops: float, nbytes: float):
-    ops_ms = flops / H100_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, products: float = 0.0):
+    """(ms, what bounds it): the larger of the bytes over HBM's rate and
+    the operations over the peak rate of their type: ``products`` (of
+    ``flops``) on the TF32 tensor cores, three passes each (3xTF32), the
+    rest as f32 outside them."""
+    ops_ms = (3.0 * products / H100_TF32_FLOPS
+              + (flops - products) / H100_FP32_FLOPS) * 1e3
     bytes_ms = nbytes / H100_HBM_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
+
+
+def float64_error(torch, agg, h, ids, wts, Wq, bq, got, plain):
+    """Max |error| of the kernel's and the plain f32 version's outputs
+    against the aggregation in float64 (each table row projected once,
+    the T weighted rows summed one at a time, so no [B, T, H] tensor)."""
+    proj = agg.project_table_plain(h.double(), Wq.double(), bq.double())
+    w64 = wts.double()
+    ref = torch.zeros(got.shape, dtype=torch.float64, device=got.device)
+    for t in range(ids.shape[1]):
+        ref += w64[:, t, None] * proj[ids[:, t].long()]
+    del proj
+    w_sum = w64.sum(dim=1, keepdim=True)
+    ref /= torch.where(w_sum == 0.0, torch.ones_like(w_sum), w_sum)
+    return (float((got.double() - ref).abs().max()),
+            float((plain.double() - ref).abs().max()))
+
+
+def k2_parts(torch, agg, h, ids, wts, Wq, bq, got) -> dict:
+    """K2's three kernels, each held against its plain version and timed
+    beside it: the Wq split (bit for bit), the projection and the
+    gather-mean (max |diff|; the gather against ``gather_mean_plain`` of
+    the kernel's own projection)."""
+    hdim = Wq.shape[0]
+    big, small = agg.split_wq(Wq)
+    want = [agg.tile_wq_plain(x) for x in agg.tf32_split(Wq)]
+    if not (torch.equal(big.view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(small.view(torch.int32),
+                            want[1].view(torch.int32))):
+        raise AssertionError("the Wq split kernel differs from tf32_split")
+    proj = agg.project_table(h, big, small, bq)
+    rows = agg.slabs_to_rows(proj, hdim)
+    proj_err = float((rows - agg.project_table_plain(h, Wq, bq))
+                     .abs().max())
+    out = torch.empty_like(got)
+    mean = agg.gather_mean(proj, ids, wts, out)
+    mean_err = float((mean - agg.gather_mean_plain(rows, ids, wts))
+                     .abs().max())
+    if not (proj_err <= K2_ATOL and mean_err <= K2_ATOL
+            and torch.equal(mean, got)):
+        raise AssertionError(f"K2 parts: projection {proj_err}, "
+                             f"gather-mean {mean_err}")
+    return {
+        "split": {"max_abs_err": 0.0,
+                  "ms": cuda_ms(torch, lambda: agg.split_wq(Wq), reps=10),
+                  "plain_ms": cuda_ms(torch, lambda: [
+                      agg.tile_wq_plain(x) for x in agg.tf32_split(Wq)],
+                      reps=3)},
+        "project": {"max_abs_err": proj_err,
+                    "ms": cuda_ms(torch, lambda: agg.project_table(
+                        h, big, small, bq), reps=5),
+                    "plain_ms": cuda_ms(torch, lambda: agg.
+                                        project_table_plain(h, Wq, bq),
+                                        reps=3)},
+        "gather_mean": {"max_abs_err": mean_err,
+                        "ms": cuda_ms(torch, lambda: agg.gather_mean(
+                            proj, ids, wts, out), reps=5),
+                        "plain_ms": cuda_ms(torch, lambda: agg.
+                                            gather_mean_plain(rows, ids,
+                                                              wts), reps=3)},
+    }
 
 
 def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh):
@@ -858,11 +943,20 @@ def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
     forward (kernel, plain, gather + einsum yardstick; max |diff| within
     K2_ATOL) and backward (ConvAggregate's and autograd through the plain
     version, both held against float64 autograd), summed over the shapes,
-    with the work each needs on this data."""
-    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
-           "bytes": 0.0, "err": 0.0, "bwd_ms": 0.0, "bwd_plain_ms": 0.0,
+    with the work each needs on this data, and each output's max error
+    against float64.  Mode "stream" also times the project-once library
+    yardstick and holds K2's three kernels to their plain versions
+    (``parts``)."""
+    import torch.nn.functional as F
+
+    out = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+           "products": 0.0, "bytes": 0.0, "err": 0.0, "err64": 0.0,
+           "plain_err64": 0.0, "bwd_ms": 0.0, "bwd_plain_ms": 0.0,
            "bwd_flops": 0.0, "bwd_bytes": 0.0, "bwd_err": 0.0,
            "bwd_plain_err": 0.0}
+    if mode == "stream":
+        out["library_project_once_ms"] = 0.0
+        out["parts"] = {}
     kernel = agg.MODES[mode]
     for layer, h, ids, wts, need_dh in shapes:
         Wq, bq = layer.Wq.detach(), layer.bq.detach()
@@ -878,15 +972,39 @@ def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
                 raise AssertionError(f"{kernel} differs from the plain "
                                      f"version by {err} > {K2_ATOL}")
             out["err"] = max(out["err"], err)
+            err64, plain_err64 = float64_error(torch, agg, h, ids, wts, Wq,
+                                               bq, got, want)
+            log(f"{kernel} max |error| against float64: kernel "
+                f"{err64:.3g}, plain f32 version {plain_err64:.3g}")
+            out["err64"] = max(out["err64"], err64)
+            out["plain_err64"] = max(out["plain_err64"], plain_err64)
+            del got, want
             out["ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
                 h, ids, wts, Wq, bq, mode=mode), reps=5)
+            out["host_ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
+                h, ids, wts, Wq, bq, mode=mode), reps=5, queued=False)
             out["plain_ms"] += cuda_ms(torch, lambda: agg.conv_aggregate_plain(
                 h, ids, wts, Wq, bq), reps=3)
             out["library_ms"] += cuda_ms(torch, lambda: torch.einsum(
                 "btd,hd->bth", h[ids.long()], Wq), reps=3)
+            if mode == "stream":
+                out["library_project_once_ms"] += cuda_ms(
+                    torch, lambda: project_once_library(torch, F, h, ids, wts,
+                                                        Wq, bq), reps=3)
+                got = agg.conv_aggregate(h, ids, wts, Wq, bq, mode=mode)
+                for name, part in k2_parts(torch, agg, h, ids, wts, Wq, bq,
+                                           got).items():
+                    acc = out["parts"].setdefault(
+                        name, {"max_abs_err": 0.0, "ms": 0.0,
+                               "plain_ms": 0.0})
+                    acc["max_abs_err"] = max(acc["max_abs_err"],
+                                             part["max_abs_err"])
+                    acc["ms"] += part["ms"]
+                    acc["plain_ms"] += part["plain_ms"]
         flops, nbytes, distinct, entries = agg_work(torch, ids, wts, din,
                                                     hdim, n)
         out["flops"] += flops
+        out["products"] += 2.0 * distinct * din * hdim
         out["bytes"] += nbytes
         log(f"{kernel} work: {distinct} distinct weighted ids of "
             f"{ids.numel()} entries ({entries} weighted)")
@@ -913,18 +1031,37 @@ def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
     return out
 
 
+def project_once_library(torch, F, h, ids, wts, Wq, bq):
+    """K2's function from library calls, the table projected once:
+    ``torch.addmm`` + leaky_relu, then a gather and the weighted mean."""
+    proj = F.leaky_relu(torch.addmm(bq, h, Wq.t()), 0.01)
+    w_sum = wts.sum(dim=1, keepdim=True)
+    denom = torch.where(w_sum == 0.0, torch.ones_like(w_sum), w_sum)
+    return torch.einsum("bt,bth->bh", wts,
+                        proj[ids.long()]) / denom
+
+
 def kernel_row(name, source, replaces, launches_by_path, bwd_launches, m,
                shape) -> dict:
     """One entry of the ``kernels`` line, with the backward's numbers
-    under ``backward``."""
-    bound_ms, bound_by = bound(m["flops"], m["bytes"])
+    under ``backward``.  ``bound_ms`` counts the products on the TF32
+    tensor cores in three passes; ``bound_f32_simt_ms`` is the bound
+    with every operation as f32 outside them."""
+    bound_ms, bound_by = bound(m["flops"], m["bytes"], m["products"])
+    simt_ms, _ = bound(m["flops"], m["bytes"])
     bwd_bound_ms, bwd_bound_by = bound(m["bwd_flops"], m["bwd_bytes"])
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": sum(launches_by_path.values()),
         "launches_by_path": launches_by_path, "max_abs_err": m["err"],
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
+        "ms": m["ms"], "host_ms": m["host_ms"], "plain_ms": m["plain_ms"],
+        "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": m["library_ms"],
+        "bound_f32_simt_ms": simt_ms,
+        **({"library_project_once_ms": m["library_project_once_ms"]}
+           if "library_project_once_ms" in m else {}),
+        "max_abs_err_vs_float64": m["err64"],
+        "plain_max_abs_err_vs_float64": m["plain_err64"],
         "backward": {
             "route": "plain PyTorch (agg.ConvAggregate.backward)",
             "launches_on_train_path": bwd_launches,
@@ -934,6 +1071,7 @@ def kernel_row(name, source, replaces, launches_by_path, bwd_launches, m,
             "plain_ms": m["bwd_plain_ms"], "bound_ms": bwd_bound_ms,
             "bound_by": bwd_bound_by, "library_ms": None},
         "shape": shape,
+        **({"parts": m["parts"]} if "parts" in m else {}),
     }
 
 
@@ -1041,13 +1179,16 @@ def main() -> int:
     def reset_counts():
         for mod in kernels.values():
             mod.launches = 0
-        for mode in agg.backward_launches:
-            agg.backward_launches[mode] = 0
+        for counts in (agg.backward_launches, agg.kernel_launches):
+            for key in counts:
+                counts[key] = 0
 
     def read_counts(need):
         counts = {name: mod.launches for name, mod in kernels.items()}
         counts.update({f"agg_backward_{mode}": n
                        for mode, n in agg.backward_launches.items()})
+        counts.update({f"agg_{name}": n
+                       for name, n in agg.kernel_launches.items()})
         missing = [name for name in need if counts[name] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the path: "
@@ -1057,13 +1198,15 @@ def main() -> int:
     work = os.path.join(REPO, "build", "chip_smoke")
     reset_counts()
     st = run_main_path(dev, work)
-    launches = read_counts(("walk", "agg"))
+    launches = read_counts(("walk", "agg", "agg_split", "agg_project",
+                            "agg_gather_mean"))
     log(f"launches on the main path: {launches}")
 
     # ---- the training path ---------------------------------------------
     reset_counts()
     tr_st = run_train_path(dev, st, work)
-    train_launches = read_counts(("agg", "dma_agg", "agg_backward_dma"))
+    train_launches = read_counts(("agg", "dma_agg", "agg_backward_dma",
+                                  "agg_split"))
     log(f"launches on the training path: {train_launches}")
     check_training_run(tr_st)
     graph, cfg, mcfg = st.graph, st.cfg, st.cfg.model
@@ -1175,6 +1318,8 @@ def main() -> int:
         "max_abs_err": float(k1_err),
         "ms": cuda_ms(torch, lambda: walk_kernel.walk_hops_cuda(
             tables, nodeset, uniforms, alpha), reps=20),
+        "host_ms": cuda_ms(torch, lambda: walk_kernel.walk_hops_cuda(
+            tables, nodeset, uniforms, alpha), reps=20, queued=False),
         "plain_ms": cuda_ms(torch, lambda: walks_from_fused_tables(
             tables, nodeset, hops, alpha, uniforms), reps=3, warmup=1),
         "bound_ms": k1_bytes / H100_HBM_BYTES * 1e3, "bound_by": "bytes",
@@ -1197,17 +1342,23 @@ def main() -> int:
     k3 = measure_aggregation(torch, agg, "dma", step_shapes)
     k2_at_step = measure_aggregation(torch, agg, "stream", step_shapes,
                                      with_backward=False)
-    results.append(kernel_row(
-        "K2 fused gather + Q-MLP + weighted mean "
+    row = kernel_row(
+        "K2 3xTF32 Q-MLP of every table row, then gather + weighted mean "
         "(agg.conv_aggregate, mode stream)", agg.SOURCE, agg.REPLACES,
         {"serve": launches["agg"], "train": train_launches["agg"]},
         train_launches["agg_backward_stream"], k2,
         f"both embed_all layers, N={graph.n_items} T={mcfg.T}: Din=512 and "
         f"Din=128, H={mcfg.hidden_dim}; backward at the same shapes (the "
         f"full-graph train step), launched "
-        f"{steps['k2_backward_launches']} times by the three-step check"))
+        f"{steps['k2_backward_launches']} times by the three-step check")
+    row["header"] = agg.HEADER
+    for name, part in row["parts"].items():
+        # the split also runs for every K3 call of the training path
+        part["launches_by_path"] = {"serve": launches[f"agg_{name}"],
+                                    "train": train_launches[f"agg_{name}"]}
+    results.append(row)
     row = kernel_row(
-        "K3 row-copy-pipelined gather + Q-MLP + weighted mean "
+        "K3 fused 3xTF32 gather + Q-MLP + weighted mean "
         "(agg.conv_aggregate, mode dma)", dma_agg.SOURCE, dma_agg.REPLACES,
         {"train": train_launches["dma_agg"]},
         train_launches["agg_backward_dma"], k3,
@@ -1216,6 +1367,7 @@ def main() -> int:
         f"{step_shapes[1][2].shape[0]} nodes x T={mcfg.T}, Din=128; "
         f"H={mcfg.hidden_dim}")
     row["k2_ms_same_shapes"] = k2_at_step["ms"]
+    row["k2_host_ms_same_shapes"] = k2_at_step["host_ms"]
     results.append(row)
     results.append(measure_k4(torch, quant_kernel, it["table"],
                               it["stochastic"],

@@ -11,9 +11,10 @@ kernels here (``csrc/``), each beside a plain PyTorch version of the same
 function:
 
 * ``ops.walk_kernel.restart_walks`` -- the restart-walk hop (K1);
-* ``ops.agg.conv_aggregate`` -- the fused neighbor gather + Q-MLP +
-  importance-weighted mean (K2, and with ``mode="dma"`` its row-copy
-  pipelined variant K3);
+* ``ops.agg.conv_aggregate`` -- the neighbor gather + Q-MLP +
+  importance-weighted mean (K2: every table row projected once, then
+  gathered; with ``mode="dma"`` K3, fused over the gathered rows; both
+  on the 3xTF32 tensor-core core ``csrc/agg_tc.cuh``);
 * ``ops.quant_kernel.quantize_rows_stochastic`` -- the stochastic int8
   row quantizer (K4).
 

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``.  Builds
 happen at first use, into ``build/torch_kernels/`` beside the package,
-and the library name carries a hash of the source and flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing is
+and the library name carries a hash of the source, the ``csrc/`` headers
+it includes and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused.  Nothing is
 downloaded: the sources in the checkout are the only input.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,9 +38,22 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> dict[Path, bytes]:
+    """``path`` and every ``csrc/`` file it includes, transitively."""
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for inc in _INCLUDE.findall(seen[path]):
+            _sources(CSRC / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    parts = _sources(CSRC / f"{name}.cu", {})
+    digest = hashlib.sha256(b"".join(parts[p] for p in sorted(parts))
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -89,12 +104,12 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
                            f"{err} ({text})")
 
 
-def bind(name: str, argtypes: list) -> ctypes.CDLL:
+def bind(name: str, argtypes: list, entry: str = "launch") -> ctypes.CDLL:
     """Load ``csrc/<name>.cu`` and declare its C entry points: the
-    ``<name>_launch(...)`` signature given here, returning the launch's
+    ``<name>_<entry>(...)`` signature given here, returning the launch's
     ``cudaGetLastError()``, and ``<name>_error_string(int)``."""
     lib = library(name)
-    launch = getattr(lib, f"{name}_launch")
+    launch = getattr(lib, f"{name}_{entry}")
     if launch.argtypes is None:
         launch.argtypes = argtypes
         launch.restype = ctypes.c_int

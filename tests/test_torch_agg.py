@@ -14,6 +14,7 @@ from gcn_song_embeddings_tpu.ops.pallas_agg import (
     fused_gather_aggregate,
 )
 from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
+import torch_agg_entry_cases as entry_cases
 
 ATOL = 2e-5  # tests/test_pallas_agg.py
 
@@ -80,6 +81,17 @@ def test_unknown_mode_is_refused():
         agg.conv_aggregate(*arrays, mode="pallas")
 
 
+@pytest.mark.parametrize("call,match", [c[1:] for c in entry_cases.CASES],
+                         ids=[c[0] for c in entry_cases.CASES])
+def test_kernel_entries_refuse_what_they_cannot_take(call, match):
+    """K2's kernel entries check their tensors as conv_aggregate_cuda
+    does, and refuse CPU tensors rather than pass their pointers on."""
+    before = dict(agg.kernel_launches)
+    with pytest.raises(ValueError, match=match):
+        call(entry_cases.tensors("cpu"))
+    assert agg.kernel_launches == before
+
+
 def test_backward_gradcheck_float64():
     """ConvAggregate's hand-written backward against finite differences,
     in float64 with the plain forward (CPU tensors)."""
@@ -120,3 +132,86 @@ def test_backward_matches_jax_vjp(b, t, din, hdim, zero_row):
                               (h, Wq, bq), torch.from_numpy(cot))
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), r.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("b,t,din,hdim,zero_row", [
+    (65, 3, 256, 128, 3), (40, 10, 512, 512, None)])
+def test_k2_two_phase_plain_matches_jax_paths(b, t, din, hdim, zero_row):
+    """K2's plain phases, the table projected once (``project_table_plain``)
+    and then gathered (``gather_mean_plain``), against the JAX package's
+    Pallas kernel in interpret mode and its XLA path: leaky_relu acts per
+    projected row before the weighting, so the composition is the same
+    function."""
+    arrays = _problem(b, t=t, n=300, din=din, h=hdim, seed=8,
+                      zero_row=zero_row)
+    h, nb, w, Wq, bq = (torch.from_numpy(a) for a in arrays)
+    proj = agg.project_table_plain(h, Wq, bq)
+    assert proj.shape == (300, hdim)
+    got = agg.gather_mean_plain(proj, nb, w).numpy()
+    jax_args = [jnp.asarray(a) for a in arrays]
+    np.testing.assert_allclose(
+        got, np.asarray(fused_gather_aggregate(*jax_args, interpret=True)),
+        atol=ATOL)
+    np.testing.assert_allclose(
+        got, np.asarray(j_conv_aggregate(*jax_args)), atol=ATOL)
+    if zero_row is not None:
+        np.testing.assert_array_equal(got[zero_row], 0.0)
+
+
+def _xavier(hdim, din, seed):
+    rng = np.random.default_rng(seed)
+    limit = np.sqrt(6.0 / (hdim + din))
+    return rng.uniform(-limit, limit, (hdim, din)).astype(np.float32)
+
+
+def test_tf32_split_parts_are_tf32_and_sum_back():
+    """big and small keep 10 mantissa bits (the low 13 bits are 0, what
+    cvt.rna.tf32.f32 leaves), and big + small gives x back within 2^-22
+    of |x|."""
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(300, 77)).astype(np.float32) * 10.0 ** np.arange(-3, 4)
+        .repeat(11)[None, :77].astype(np.float32))
+    big, small = agg.tf32_split(x)
+    for part in (big, small):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    rel = ((big.double() + small.double() - x.double()).abs()
+           / x.double().abs())
+    assert float(rel.max()) <= 2.0 ** -22
+    # ties round away from zero, as cvt.rna does
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert agg.tf32_round(tie).tolist() == [1.0 + 2.0 ** -10,
+                                            -(1.0 + 2.0 ** -10)]
+
+
+def test_three_tf32_passes_are_f32_accurate_and_one_is_not():
+    """The 3xTF32 product (small x big + big x small + big x big, each
+    product exact in f32, sums in f32) against float64 at Din = H = 512,
+    Gaussian rows and Xavier Wq: within 1e-5.  A single TF32 pass errs
+    above 1e-4 -- why K2 and K3 take three."""
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.normal(size=(1000, 512)).astype(np.float32))
+    b = torch.from_numpy(_xavier(512, 512, 3))
+    want = a.double() @ b.double().t()
+    (ab, as_), (bb, bs) = agg.tf32_split(a), agg.tf32_split(b)
+    three = as_ @ bb.t() + ab @ bs.t() + ab @ bb.t()
+    one = ab @ bb.t()
+    assert float((three.double() - want).abs().max()) <= 1e-5
+    assert float((one.double() - want).abs().max()) > 1e-4
+
+
+def test_wq_tile_layout_is_the_swizzled_one():
+    """``tile_wq_plain``: element (n, k) of Wq sits in tile (n // 128,
+    k // 32), row n % 128, 16-byte chunk (k % 32 // 4) ^ (n % 8), zeros
+    past H and Din; ``slabs_to_rows`` undoes the projection's slabs."""
+    x = torch.arange(100 * 36, dtype=torch.float32).reshape(100, 36) + 1
+    t = agg.tile_wq_plain(x)
+    assert t.shape == (1, 2, 128, 32)
+    n, k = torch.meshgrid(torch.arange(100), torch.arange(36),
+                          indexing="ij")
+    chunk = (k % 32 // 4) ^ (n % 8)
+    assert torch.equal(t[n // 128, k // 32, n % 128, chunk * 4 + k % 4], x)
+    assert int((t != 0).sum()) == x.numel()
+    slabs = torch.arange(3 * 5 * 64, dtype=torch.float32).reshape(3, 5, 64)
+    rows = agg.slabs_to_rows(slabs, 150)
+    assert rows.shape == (5, 150)
+    assert torch.equal(rows[2, 70], slabs[1, 2, 6])

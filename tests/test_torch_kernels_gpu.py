@@ -30,6 +30,7 @@ from gcn_song_embeddings_tpu_torch.ops.walks import (
     fused_walk_tables,
     walks_from_fused_tables,
 )
+import torch_agg_entry_cases as entry_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -127,6 +128,86 @@ def test_dma_agg_kernel_matches_plain(cuda, b, t, n, din, h):
 
 
 @pytest.mark.parametrize("mode", ["stream", "dma"])
+@pytest.mark.parametrize("b,t,n,din,h", [
+    (1, 10, 50, 64, 128), (12, 10, 200, 64, 128), (13, 10, 200, 64, 128),
+    (19, 10, 200, 64, 128), (20, 10, 191, 64, 128), (192, 1, 192, 64, 128),
+    (193, 1, 193, 64, 128), (300, 1, 400, 64, 128), (64, 3, 400, 64, 128),
+    (65, 3, 400, 64, 128), (5, 64, 400, 64, 128), (50, 10, 200, 36, 100),
+    (9, 3, 20, 4, 4)])
+def test_agg_tile_edges_match_plain(cuda, mode, b, t, n, din, h):
+    """Both tensor-core kernels at the edges of their tiles: a K3 node
+    tile holds floor(192 / T) nodes (19 at T = 10, so B = 19 and 20 end
+    on and past one; 192 and 193 at T = 1, 64 and 65 at T = 3, 3 at T =
+    64), K2's projection 192 table rows (N = 191, 192, 193); Din 36 and 4
+    end inside a 32-float k chunk, H 100 and 4 inside a 128-column tile.
+    A zero-weight row where B > 3."""
+    args = _agg_args(cuda, b, t, n, din, h)
+    got = agg.conv_aggregate(*args, mode=mode)
+    want = agg.conv_aggregate_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h)
+    assert float((got - want).abs().max()) <= AGG_ATOL
+    if b > 3:
+        assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+@pytest.mark.parametrize("b,t,n", [(400, 10, 300), (40, 10, 5000)])
+def test_k2_table_smaller_and_larger_than_its_gathers(cuda, b, t, n):
+    """K2 projects all N table rows, then gathers B*T of them: N < B*T
+    (rows reused across nodes) and N > B*T (rows never gathered), each
+    phase against its plain version and the whole against the plain
+    aggregation."""
+    h, nb, w, Wq, bq = _agg_args(cuda, b, t, n, 128, 256)
+    before = dict(agg.kernel_launches), agg.launches
+    got = agg.conv_aggregate(h, nb, w, Wq, bq)
+    big, small = agg.split_wq(Wq)
+    proj = agg.project_table(h, big, small, bq)
+    rows = agg.slabs_to_rows(proj, 256)
+    mean = agg.gather_mean(proj, nb, w, torch.empty_like(got))
+    torch.cuda.synchronize()
+    assert agg.launches == before[1] + 1
+    assert {k: agg.kernel_launches[k] - before[0][k]
+            for k in before[0]} == {"split": 2, "project": 2,
+                                    "gather_mean": 2}
+    assert proj.shape == (4, n, 64)
+    want_rows = agg.project_table_plain(h, Wq, bq)
+    assert float((rows - want_rows).abs().max()) <= AGG_ATOL
+    assert float((mean - agg.gather_mean_plain(rows, nb, w)).abs().max()) \
+        <= 1e-6
+    assert torch.equal(got, mean)
+    assert float((got - agg.conv_aggregate_plain(h, nb, w, Wq, bq))
+                 .abs().max()) <= AGG_ATOL
+
+
+@pytest.mark.parametrize("hdim,din", [(512, 512), (100, 36), (4, 4)])
+def test_wq_split_kernel_bit_identical(cuda, hdim, din):
+    """The Wq split kernel equals the tiled plain split bit for bit."""
+    Wq = torch.as_tensor(np.random.default_rng(hdim).normal(
+        size=(hdim, din)).astype(np.float32) * 0.05, device=cuda)
+    big, small = agg.split_wq(Wq)
+    want = [agg.tile_wq_plain(x) for x in agg.tf32_split(Wq)]
+    torch.cuda.synchronize()
+    assert torch.equal(big.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(small.view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["stream", "dma"])
+def test_agg_error_vs_float64_is_f32_class(cuda, mode):
+    """At Din = H = 512 the kernel's max error against float64 is at most
+    4x the plain f32 version's: three TF32 passes keep f32 accuracy (one
+    pass errs ~1e-3, hundreds of times more)."""
+    args = _agg_args(cuda, 1200, 10, 6000, 512, 512, seed=11)
+    ref = agg.conv_aggregate_plain(*(a if a.dtype == torch.int32
+                                     else a.double() for a in args))
+    got = agg.conv_aggregate(*args, mode=mode)
+    plain = agg.conv_aggregate_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got.double() - ref).abs().max())
+    plain_err = float((plain.double() - ref).abs().max())
+    assert err <= 4 * plain_err, (err, plain_err)
+
+
+@pytest.mark.parametrize("mode", ["stream", "dma"])
 def test_agg_backward_matches_plain_autograd(cuda, mode):
     """dh, dWq, dbq through ConvAggregate vs autograd through the plain
     version in float64, same inputs and cotangent: relative Frobenius
@@ -201,6 +282,27 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="uniforms"):
         walk_kernel.restart_walks(tables, ids[0, :4], 5, 0.5,
                                   torch.zeros((5, 3, 3), device=cuda))
+
+
+@pytest.mark.parametrize("call,match", [c[1:] for c in entry_cases.CASES],
+                         ids=[c[0] for c in entry_cases.CASES])
+def test_kernel_entries_refuse_what_they_cannot_take(cuda, call, match):
+    """K2's kernel entries launched one by one refuse CUDA inputs they
+    cannot take (wrong dtype, strides, shapes, devices, or a tensor that
+    needs a gradient) instead of launching on them."""
+    t = entry_cases.tensors(cuda)
+    before = dict(agg.kernel_launches)
+    with pytest.raises(ValueError, match=match):
+        call(t)
+    assert agg.kernel_launches == before
+    big, small = agg.split_wq(t.Wq)        # the well-formed calls launch
+    proj = agg.project_table(t.h, big, small, t.bq)
+    agg.gather_mean(proj, t.nb, t.w, t.out)
+    torch.cuda.synchronize()
+    assert torch.equal(big, t.big) and torch.equal(small, t.small)
+    assert float((t.out - agg.conv_aggregate_plain(t.h, t.nb, t.w, t.Wq,
+                                                   t.bq)).abs().max()) \
+        <= AGG_ATOL
 
 
 def _unit(n, d, seed):
