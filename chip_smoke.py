@@ -41,7 +41,9 @@
    printed, and K4 is held to its plain version (``torch.equal``) and to
    the stochastic quantizer's contract (tests/test_quantize.py:40-48).
 7. Holds each kernel against its plain PyTorch version on the card at the
-   paths' shapes (K1 and K4 bit-identical, K2 and K3 within 1e-4
+   paths' shapes (K1 at the sweep's, alpha 0.85 and 0, and at the
+   live-walk requests' B=1 and B=4, each timed with its own bound;
+   K1 and K4 bit-identical, K2 and K3 within 1e-4
    absolute, K2's Wq split, projection and gather-mean each against its
    own plain version; the aggregation's backward within GRAD_RTOL of
    float64 autograd, beside the f32 plain version's own error), logs
@@ -427,6 +429,55 @@ def top10_overlap(indexes, n: int) -> dict:
     }
 
 
+def measure_k1(torch, walk_kernel, tables, shapes, launches) -> dict:
+    """K1 at each of ``shapes`` ((name, origins, alpha, uniforms)):
+    ``torch.equal`` to its plain version, then its device time, its time
+    per call as the host launches it, its plain version's time and its
+    byte bound."""
+    from gcn_song_embeddings_tpu_torch.ops.walks import (
+        walks_from_fused_tables,
+    )
+
+    origin_ext, i2c_ext, c2i_ext = tables
+    rows, err = [], 0
+    for name, nodes, alpha, uniforms in shapes:
+        hops, b = uniforms.shape[:2]
+        got = walk_kernel.restart_walks(tables, nodes, hops, alpha, uniforms)
+        want = walks_from_fused_tables(tables, nodes, hops, alpha, uniforms)
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 trace differs from the plain walker "
+                                 f"at {name}: {int((got != want).sum())} "
+                                 f"entries")
+
+        def run():
+            return walk_kernel.walk_hops_cuda(tables, nodes, uniforms, alpha)
+
+        row = {"shape": name, "ms": cuda_ms(torch, run, reps=50),
+               "host_ms": cuda_ms(torch, run, reps=50, queued=False),
+               "plain_ms": cuda_ms(torch, lambda: walks_from_fused_tables(
+                   tables, nodes, hops, alpha, uniforms), reps=3, warmup=1)}
+        nbytes = (uniforms.numel() * 4 + hops * b * 4 + b * 4
+                  + min(origin_ext.numel() * 4, b * 8)
+                  + min(i2c_ext.numel() * 4, hops * b * 8)
+                  + min(c2i_ext.numel() * 4, hops * b * 12))
+        row["bound_ms"] = nbytes / H100_HBM_BYTES * 1e3
+        log(f"K1 at {name}: == plain walker; {json.dumps(row)}")
+        rows.append(row)
+    main = rows[0]
+    return {
+        "name": "K1 restart-walk hop (walk_kernel.restart_walks)",
+        "route": "cuda", "source": walk_kernel.SOURCE,
+        "replaces": walk_kernel.REPLACES,
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": float(err),
+        **{key: main[key] for key in ("ms", "host_ms", "plain_ms",
+                                      "bound_ms")},
+        "bound_by": "bytes", "library_ms": None,
+        "shape": main["shape"], "shapes": rows,
+    }
+
+
 def measure_k4(torch, quant_kernel, table, stochastic, launches) -> dict:
     """K4 on the served table: ``torch.equal`` to its plain version
     (values and scales), the contract of tests/test_quantize.py:40-48
@@ -508,6 +559,7 @@ def run_main_path(dev, work: str, n_tracks: int = N_TRACKS,
         embed_all,
         init_pinsage,
     )
+    from gcn_song_embeddings_tpu_torch.ops import walk_kernel
     from gcn_song_embeddings_tpu_torch.ops.ppr import (
         precompute_neighborhoods,
     )
@@ -539,6 +591,7 @@ def run_main_path(dev, work: str, n_tracks: int = N_TRACKS,
     t = time.perf_counter()
     nb_w, nb_n = precompute_neighborhoods(dg, cfg.walk, nb_path, seed=0)
     walls["sweep_s"] = time.perf_counter() - t
+    sweep_walk_launches = walk_kernel.launches
     log(f"sweep: {graph.n_items} origins x {cfg.walk.n_hops} hops over "
         f"{dg.n_edges} directed edges (co-listen augmented) in "
         f"{walls['sweep_s']:.3f} s")
@@ -578,7 +631,8 @@ def run_main_path(dev, work: str, n_tracks: int = N_TRACKS,
     return SimpleNamespace(
         ds=ds, cfg=cfg, graph=graph, dg=dg, nb_w=nb_w, nb_n=nb_n,
         params=params, feats=feats, nbw_d=nbw_d, nbn_d=nbn_d, emb=emb,
-        rows=rows, cached=cached, train_pos=train_pos, walls=walls)
+        rows=rows, cached=cached, train_pos=train_pos, walls=walls,
+        sweep_walk_launches=sweep_walk_launches)
 
 
 def train_config(work: str):
@@ -1151,7 +1205,6 @@ def main() -> int:
     from gcn_song_embeddings_tpu_torch.ops.walks import (
         draw_uniforms,
         fused_walk_tables,
-        walks_from_fused_tables,
     )
     from gcn_song_embeddings_tpu_torch.train.trainer import PinSageTrainer
 
@@ -1286,46 +1339,28 @@ def main() -> int:
     log(f"sweep without the cache write: {time.perf_counter() - t:.3f} s")
 
     # ---- kernels against their plain versions, at the path's shapes ----
-    results = []
-    tables = fused_walk_tables(dg)
-    b, hops = cfg.walk.batch_walkers, cfg.walk.n_hops
-    nodeset = torch.arange(b, dtype=torch.int32, device=dev)
-    uniforms = draw_uniforms(hops, b, block_generator(0, 0, dev))
-    k1_err = 0
-    for alpha in (cfg.walk.alpha, 0.0):
-        got = walk_kernel.restart_walks(tables, nodeset, hops, alpha,
-                                        uniforms)
-        want = walks_from_fused_tables(tables, nodeset, hops, alpha,
-                                       uniforms)
-        k1_err = max(k1_err, int((got.long() - want.long()).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 trace differs from the plain walker "
-                                 f"at alpha={alpha}: "
-                                 f"{int((got != want).sum())} entries")
-    alpha = cfg.walk.alpha
-    origin_ext, i2c_ext, c2i_ext = tables
-    k1_bytes = (uniforms.numel() * 4 + hops * b * 4 + b * 4
-                + min(origin_ext.numel() * 4, b * 8)
-                + min(i2c_ext.numel() * 4, hops * b * 8)
-                + min(c2i_ext.numel() * 4, hops * b * 12))
-    results.append({
-        "name": "K1 restart-walk hop (walk_kernel.restart_walks)",
-        "route": "cuda", "source": walk_kernel.SOURCE,
-        "replaces": walk_kernel.REPLACES,
-        "launches": launches["walk"] + int8_launches["walk"],
-        "launches_by_path": {"serve": launches["walk"],
-                             "int8": int8_launches["walk"]},
-        "max_abs_err": float(k1_err),
-        "ms": cuda_ms(torch, lambda: walk_kernel.walk_hops_cuda(
-            tables, nodeset, uniforms, alpha), reps=20),
-        "host_ms": cuda_ms(torch, lambda: walk_kernel.walk_hops_cuda(
-            tables, nodeset, uniforms, alpha), reps=20, queued=False),
-        "plain_ms": cuda_ms(torch, lambda: walks_from_fused_tables(
-            tables, nodeset, hops, alpha, uniforms), reps=3, warmup=1),
-        "bound_ms": k1_bytes / H100_HBM_BYTES * 1e3, "bound_by": "bytes",
-        "library_ms": None,
-        "shape": f"B={b} H={hops} alpha={alpha}",
-    })
+    # K1 at the sweep's shape (alpha 0.85 and 0) and at the live-walk
+    # requests' (one query and a batch of 4, SERVE_HOPS hops)
+    b, hops, alpha = cfg.walk.batch_walkers, cfg.walk.n_hops, cfg.walk.alpha
+    sweep_nodes = torch.arange(b, dtype=torch.int32, device=dev)
+    sweep_u = draw_uniforms(hops, b, block_generator(0, 0, dev))
+    live = [torch.tensor(rows[:n], dtype=torch.int32, device=dev)
+            for n in (1, len(rows))]
+    k1_shapes = [(f"sweep B={b} H={hops} alpha={alpha}", sweep_nodes, alpha,
+                  sweep_u),
+                 (f"sweep B={b} H={hops} alpha=0.0", sweep_nodes, 0.0,
+                  sweep_u)]
+    for i, nodes in enumerate(live):
+        k1_shapes.append((f"live-walk B={len(nodes)} H={SERVE_HOPS} "
+                          f"alpha={alpha}", nodes, alpha, draw_uniforms(
+                              SERVE_HOPS, len(nodes),
+                              block_generator(1, i, dev))))
+    sweep_launches = st.sweep_walk_launches
+    results = [measure_k1(
+        torch, walk_kernel, fused_walk_tables(dg), k1_shapes,
+        {"sweep": sweep_launches,
+         "live_walk": launches["walk"] - sweep_launches,
+         "int8_live_walk": int8_launches["walk"]})]
 
     # K2 at both conv layers' shapes of embed_all (its backward at the
     # same shapes: the train step's full-graph forward), K3 at both

@@ -35,7 +35,9 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
 def walk_hops_cuda(tables: Tables, origins: torch.Tensor,
                    uniforms: torch.Tensor, alpha: float) -> torch.Tensor:
     """Launch K1: trace [hops, B] int32 for walkers starting at ``origins``
-    [B] under ``uniforms`` [hops, B, 3] f32 (all on one CUDA device)."""
+    [B] under ``uniforms`` [hops, B, 3] f32 (all on one CUDA device).  One
+    thread per (hop, walker); the threads whose hop starts a restart
+    segment walk it, so the segments of every walker run in parallel."""
     global launches
     origin_ext, i2c_ext, c2i_ext = tables
     hops, b = uniforms.shape[0], origins.shape[0]
@@ -52,6 +54,10 @@ def walk_hops_cuda(tables: Tables, origins: torch.Tensor,
                              f"{list(t.shape)}")
     if not uniforms.is_contiguous():
         raise ValueError("uniforms must be contiguous")
+    for name, t in (("origin_ext", origin_ext), ("i2c_ext", i2c_ext)):
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned (K1 reads its "
+                             f"records as int2)")
     if max(i2c_ext.shape[0], c2i_ext.shape[0]) >= 2 ** 31:
         raise ValueError("edge tables past 2^31 rows: K1 indexes int32")
     trace = torch.empty((hops, b), dtype=torch.int32, device=dev)

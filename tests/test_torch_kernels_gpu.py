@@ -58,15 +58,22 @@ def _graph(device, n_items=300, n_cols=60, deg=4, seed=0):
                                    device)
 
 
-@pytest.mark.parametrize("alpha,b,hops,chains", [
-    (0.85, 7, 40, 1), (0.0, 7, 25, 1), (0.85, 4096, 500, 1),
-    (0.85, 33, 60, 2)])
-def test_walk_kernel_bit_identical(cuda, alpha, b, hops, chains):
+@pytest.mark.parametrize("alpha,b,hops,chains,ties", [
+    (0.85, 7, 40, 1, False), (0.0, 7, 25, 1, False),
+    (0.85, 4096, 500, 1, False), (0.85, 33, 60, 2, False),
+    (1.0, 7, 40, 1, False), (0.5, 33, 60, 1, False),
+    (0.15, 33, 200, 1, False),               # long restart segments
+    (0.85, 1, 1000, 1, False), (0.85, 4, 1000, 1, False),  # live-walk
+    (0.0, 4096, 500, 1, False), (0.85, 33, 60, 4, False),
+    (0.85, 64, 100, 1, True), (0.5, 64, 100, 1, True)])
+def test_walk_kernel_bit_identical(cuda, alpha, b, hops, chains, ties):
     tables = fused_walk_tables(_graph(cuda))
     nodeset = torch.randint(0, 300, (b,), dtype=torch.int32, device=cuda)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(b)
     uniforms = draw_uniforms(hops // chains, b * chains, gen)
+    if ties:   # the restart compare's boundary: u2 == f32(alpha) exactly
+        uniforms[::3, ::2, 2] = torch.tensor(alpha, dtype=torch.float32)
     before = walk_kernel.launches
     got = walk_kernel.restart_walks(tables, nodeset, hops, alpha, uniforms,
                                     chains)
@@ -282,6 +289,13 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="uniforms"):
         walk_kernel.restart_walks(tables, ids[0, :4], 5, 0.5,
                                   torch.zeros((5, 3, 3), device=cuda))
+    origin_ext, i2c_ext, c2i_ext = tables   # int2 records: 8-byte aligned
+    odd = torch.empty(i2c_ext.numel() + 1, dtype=torch.int32,
+                      device=cuda)[1:].view(-1, 2)
+    odd.copy_(i2c_ext)
+    with pytest.raises(ValueError, match="aligned"):
+        walk_kernel.restart_walks((origin_ext, odd, c2i_ext), ids[0, :4], 5,
+                                  0.5, torch.zeros((5, 4, 3), device=cuda))
 
 
 @pytest.mark.parametrize("call,match", [c[1:] for c in entry_cases.CASES],

@@ -95,6 +95,68 @@ def test_walks_bit_identical_to_jax(nodeset, hops, alpha, chains, graph_kw):
         np.testing.assert_array_equal(got, np.asarray(pallas))
 
 
+def _segment_walks(tables, origins, uniforms, alpha):
+    """numpy mirror of K1's schedule (``csrc/walk.cu``): the thread of
+    (hop h, walker w) starts a restart segment iff h == 0 or
+    u[h-1, w, 2] < f32(alpha), and walks it from the origin's extents up to
+    and including the next hop that restarts.  Returns the trace [H, B] and
+    how many times each entry was written."""
+    origin_ext, i2c_ext, c2i_ext = (t.numpy() for t in tables)
+    a = np.float32(alpha)
+    hops, b, _ = uniforms.shape
+    trace = np.full((hops, b), -1, np.int32)
+    writes = np.zeros((hops, b), np.int64)
+
+    def slot(u, deg):   # the f32 product truncated, clamped to deg - 1
+        return min(int(np.float32(u) * np.float32(deg)), max(deg - 1, 0))
+
+    for h in range(hops):
+        for w in range(b):
+            if h > 0 and not uniforms[h - 1, w, 2] < a:
+                continue
+            start, deg = origin_ext[origins[w]]
+            for k in range(h, hops):
+                u0, u1, u2 = uniforms[k, w]
+                col = i2c_ext[start + slot(u0, deg)]
+                row = c2i_ext[col[0] + slot(u1, col[1])]
+                trace[k, w] = row[0]
+                writes[k, w] += 1
+                if u2 < a:
+                    break
+                start, deg = row[1], row[2]
+    return trace, writes
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.15, 0.5, 0.85, 1.0])
+@pytest.mark.parametrize("nodeset,hops,chains,graph_kw", [
+    (list(range(24)), 40, 1, {}),
+    ([5, 0, 63, 17, 17, 2, 31], 30, 2,
+     dict(n_items=64, n_cols=16, deg=3, seed=3)),
+])
+def test_segment_schedule_covers_each_hop_once(alpha, nodeset, hops, chains,
+                                               graph_kw):
+    """K1's decomposition into restart segments writes every trace entry
+    exactly once and replays the hop loop (the port's and JAX's) bit for
+    bit under JAX's uniforms."""
+    arrays = _arrays(**graph_kw)
+    tables = fused_walk_tables(DeviceGraph.from_arrays(*arrays, device="cpu"))
+    key = jax.random.PRNGKey(11 + len(nodeset))
+    uniforms = np.array(jax.random.uniform(
+        key, (hops // chains, len(nodeset) * chains, 3)))
+    nodes = torch.tensor(nodeset, dtype=torch.int32)
+    origins = np.repeat(np.asarray(nodeset, np.int32), chains)
+    trace, writes = _segment_walks(tables, origins, uniforms, alpha)
+    np.testing.assert_array_equal(writes, 1)
+    got = trace.T.reshape(len(nodeset), hops)
+    want = walks_from_fused_tables(tables, nodes, hops, alpha,
+                                   torch.from_numpy(uniforms), chains)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(got, np.asarray(j_walks(
+        j_tables(JDeviceGraph.from_arrays(*arrays)),
+        jnp.asarray(nodeset, dtype=jnp.int32), hops, alpha, key,
+        n_chains=chains)))
+
+
 def test_uniform_slot_bit_identical_to_jax():
     rng = np.random.default_rng(0)
     u = np.concatenate([rng.random(5000, dtype=np.float32),
