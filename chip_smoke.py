@@ -29,7 +29,20 @@
    CPU (the plain versions), losses, G1_w and embeddings as
    tests/test_trainer.py holds them.  Then the train step's wall at B=128
    and a ``torch.profiler`` pass over it (device busy share, launches).
-6. Drives the int8 serving path on the trained ``emb.npy`` with the
+6. Drives the eval path with the counters set to 0 again: ``SongGraph``
+   through the native ``graph.json`` reader (its ``load_graph_s`` beside
+   the ``json`` module's time for the same file), then ``cli eval`` of
+   the Random, Features, PageRank, PageRankCo (query-time walks, kernel
+   K1) and trained PinSage rows at K=100 over the 100k catalog.  Fails
+   unless K1 ran, both CSVs hold finite rows and every kNN cache is
+   [100000, 100]; then ``rank_eval`` on the card over all test pairs must
+   give the PinSage row's hit@10 and hit@100 within 1e-3 of the CSV's,
+   the kNN ids of 256 PinSage queries on the card must equal a CPU f32
+   recompute up to ties within 1e-6, and ``embed_all`` at N=100k must
+   project once per layer (K2), at its default block and at
+   ``block_rows=32_768`` alike (same embeddings within 1e-5).  Prints an
+   ``eval_walls`` line.
+7. Drives the int8 serving path on the trained ``emb.npy`` with the
    counters set to 0 again: the int8 ``EmbeddingIndex`` and the int8
    cached-head and live-walk (K1) ``HybridIndex`` answer single and batched
    HTTP requests; 16 tracks are added and 4 removed through ``POST /add``
@@ -40,9 +53,10 @@
    int8-vs-f32 top-10 overlap and the device bytes of both tables are
    printed, and K4 is held to its plain version (``torch.equal``) and to
    the stochastic quantizer's contract (tests/test_quantize.py:40-48).
-7. Holds each kernel against its plain PyTorch version on the card at the
-   paths' shapes (K1 at the sweep's, alpha 0.85 and 0, and at the
-   live-walk requests' B=1 and B=4, each timed with its own bound;
+8. Holds each kernel against its plain PyTorch version on the card at the
+   paths' shapes (K1 at the sweep's, alpha 0.85 and 0, at the live-walk
+   requests' B=1 and B=4 and at eval's PageRank block of 1000, each
+   timed with its own bound;
    K1 and K4 bit-identical, K2 and K3 within 1e-4
    absolute, K2's Wq split, projection and gather-mean each against its
    own plain version; the aggregation's backward within GRAD_RTOL of
@@ -54,7 +68,7 @@
    as the host issues them, its wrapper included.  K2's
    and K3's bounds count their products on the TF32 tensor cores in
    three passes (3xTF32); ``bound_f32_simt_ms`` keeps the f32 one.
-8. Checks the outputs: finite embeddings of the expected shape that match
+9. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
 
@@ -1180,6 +1194,209 @@ def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5):
         "top_kernels_ms_per_step": {e.key[:80]: dev_ms(e) for e in top}}
 
 
+EVAL_K, EVAL_QUERIES = 100, 256
+EVAL_MODELS = ("Random", "Features", "PageRank", "PageRankCo")
+
+
+def run_eval_path(dev, st, tr_st, work: str):
+    """The eval path, as a user runs it: ``SongGraph`` through the native
+    ``graph.json`` reader (timed beside the ``json`` module's reading of
+    the same file), then ``cli eval`` of the Random, Features, PageRank,
+    PageRankCo and trained PinSage rows at K=100 (PageRank walks with
+    K1); then the parts of ``eval_s`` outside the rows' own times, timed
+    again on its caches (their reads and compressed writes, each table).
+    Returns its state."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch import cli
+    from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
+    from gcn_song_embeddings_tpu_torch.evals.harness import LazyKnnDict
+    from gcn_song_embeddings_tpu_torch.evals.tables import (
+        compute_beyond_accuracy_table,
+        compute_results_table,
+    )
+    from gcn_song_embeddings_tpu_torch.native import jsongraph
+
+    ds = st.ds
+    walls = {}
+    t = time.perf_counter()
+    graph = SongGraph(ds, features_file=os.path.join(ds, "features.npy"))
+    walls["load_graph_s"] = time.perf_counter() - t
+    if graph.edge_reader != "native":
+        raise AssertionError(f"graph.json read by {graph.edge_reader!r}, "
+                             f"not the native scanner")
+    path = os.path.join(ds, "graph.json")
+    t = time.perf_counter()
+    jsongraph.load_edges(path, graph.index_map)
+    walls["native_edges_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    src, dst = jsongraph.load_edges_json(path, graph.index_map)
+    walls["json_module_edges_s"] = time.perf_counter() - t
+    if not (np.array_equal(src, graph._edges_from)
+            and np.array_equal(dst, graph._edges_to)):
+        raise AssertionError("native and json edge readers disagree")
+    log(f"SongGraph ({graph.edge_reader} edges, tracks.json and "
+        f"collections.json by the json module, CSR build): "
+        f"{walls['load_graph_s']:.3f} s; graph.json's {len(src)} edges: "
+        f"native {walls['native_edges_s']:.3f} s, json module "
+        f"{walls['json_module_edges_s']:.3f} s")
+
+    run_name = os.path.basename(tr_st.run_dir)
+    pinsage = f"PinSage:{run_name}"
+    eval_dir = os.path.join(work, "eval")
+    t = time.perf_counter()
+    cli.main(["eval", "--dataset", ds, "--run-dir",
+              os.path.dirname(tr_st.run_dir), "--pinsage-runs", run_name,
+              "--k", str(EVAL_K), "--models", *EVAL_MODELS, pinsage,
+              "--eval-dir", eval_dir, "--device", str(dev)])
+    walls["eval_s"] = time.perf_counter() - t
+    models = (*EVAL_MODELS, pinsage)
+    # the part of eval_s outside the models' own times, timed again here
+    # on the same caches: each kNN cache's read and compressed write, and
+    # each table (which reads every cache once)
+    walls["knn_cache_read_s"] = walls["knn_cache_write_s"] = 0.0
+    for model in models:
+        t = time.perf_counter()
+        with np.load(os.path.join(eval_dir, "knn", model + ".npz")) as z:
+            arrays = dict(z)
+        walls["knn_cache_read_s"] += time.perf_counter() - t
+        t = time.perf_counter()
+        np.savez_compressed(os.path.join(work, "knn_rewrite.npz"), **arrays)
+        walls["knn_cache_write_s"] += time.perf_counter() - t
+    _, test_pos = graph.load_positives_split(
+        os.path.join(ds, "positives.json"))
+    knn = LazyKnnDict(list(models), eval_dir)
+    t = time.perf_counter()
+    compute_results_table(knn, test_pos, graph.in_degrees())
+    walls["accuracy_table_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    compute_beyond_accuracy_table(knn, test_pos, graph.in_degrees(),
+                                  graph.features, device=dev)
+    walls["beyond_table_s"] = time.perf_counter() - t
+    return SimpleNamespace(graph=graph, eval_dir=eval_dir, pinsage=pinsage,
+                           models=models, walls=walls)
+
+
+def read_csv_rows(path: str) -> dict:
+    """A results CSV -> {model: {column: float}}."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return {r[0]: {c: float(x) for c, x in zip(rows[0][1:], r[1:])}
+            for r in rows[1:]}
+
+
+def check_eval(torch, dev, ev, tr_st) -> dict:
+    """The eval path's outputs: both CSVs hold a finite row per model,
+    each kNN cache is [N, 100]; ``rank_eval`` on the card over every test
+    pair against the full catalog gives the PinSage row's hit@10 and
+    hit@100 within 1e-3 of the list-based table's; the kNN ids of 256
+    PinSage queries on the card equal a CPU f32 recompute up to ties
+    within 1e-6."""
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.evals.device_eval import rank_eval
+    from gcn_song_embeddings_tpu_torch.ops.knn import knn_from_emb
+
+    graph = ev.graph
+    tables = {name: read_csv_rows(os.path.join(ev.eval_dir, name))
+              for name in ("results_accuracy.csv", "results_beyond.csv")}
+    for name, table in tables.items():
+        if sorted(table) != sorted(ev.models) or not all(
+                np.isfinite(v) for row in table.values()
+                for v in row.values()):
+            raise AssertionError(f"{name}: rows {list(table)}, not all "
+                                 f"finite")
+    for model in ev.models:
+        with np.load(os.path.join(ev.eval_dir, "knn", model + ".npz")) as z:
+            shape = z["knn_n"].shape
+        if shape != (graph.n_items, EVAL_K):
+            raise AssertionError(f"knn/{model}.npz has shape {shape}")
+    acc = tables["results_accuracy.csv"]
+    _, test_pos = graph.load_positives_split(
+        os.path.join(graph.base_dir, "positives.json"))
+    out = {"accuracy": acc, "beyond": tables["results_beyond.csv"],
+           "rank_eval": {}}
+    for model, emb in ((ev.pinsage, tr_st.emb),
+                       ("Features", np.load(os.path.join(
+                           graph.base_dir, "features.npy")))):
+        sync(torch, dev)
+        t = time.perf_counter()
+        got = rank_eval(emb, test_pos, device=dev)
+        sync(torch, dev)
+        got["s"] = time.perf_counter() - t
+        diff = {k: abs(got[f"hit@{k}"] - acc[model][f"hr (k={k})"])
+                for k in (10, 100)}
+        got["diff_vs_lists"] = diff
+        out["rank_eval"][model] = got
+        log(f"rank_eval {model} over {len(test_pos)} test pairs x "
+            f"{graph.n_items} tracks on the card in {got['s']:.3f} s: "
+            f"{json.dumps(got)}")
+        if model == ev.pinsage and not max(diff.values()) <= 1e-3:
+            raise AssertionError(f"rank_eval and the kNN lists disagree "
+                                 f"for {model}: {diff}")
+    queries = np.arange(0, graph.n_items, graph.n_items // EVAL_QUERIES)
+    queries = queries[:EVAL_QUERIES]
+    gw, gn = knn_from_emb(tr_st.emb, queries, k=EVAL_K, device=dev)
+    cw, cn = knn_from_emb(tr_st.emb, queries, k=EVAL_K, device="cpu")
+    # "equal up to ties": in each place the card's id and the CPU's have
+    # exact (float64) cosines within 1e-6 of each other, so ids differ
+    # only by a swap inside a near-tie (the self-drop's included) or at
+    # the list's end
+    e = np.asarray(tr_st.emb, dtype=np.float64)
+    e = e / np.linalg.norm(e, axis=1, keepdims=True)
+
+    def exact(ids):
+        return np.einsum("qd,qkd->qk", e[queries], e[ids])
+
+    score_err = float(np.abs(gw - cw).max())
+    own_err = float(np.abs(exact(gn) - exact(cn)).max())
+    differ = gn != cn
+    if not (score_err <= 1e-6 and own_err <= 1e-6):
+        raise AssertionError(f"card kNN differs from the CPU's: scores "
+                             f"{score_err}, the card ids' own cosines "
+                             f"{own_err}, {int(differ.sum())} ids differ")
+    out["knn_card_vs_cpu"] = {"queries": len(queries),
+                              "max_score_diff": score_err,
+                              "max_own_cosine_diff": own_err,
+                              "ids_differing_within_ties": int(differ.sum())}
+    log(f"kNN of {len(queries)} PinSage queries, card vs CPU f32: "
+        f"{json.dumps(out['knn_card_vs_cpu'])}")
+    return out
+
+
+def check_project_once(torch, agg, st) -> dict:
+    """``embed_all`` at N=100k launches K2's projection once per layer;
+    with ``block_rows=32_768`` it gathers in 4 blocks a layer and gives
+    the same embeddings within 1e-5."""
+    from gcn_song_embeddings_tpu_torch.models.pinsage import embed_all
+
+    mcfg = st.cfg.model
+    args = (st.params, st.feats, st.nbw_d, st.nbn_d, st.graph.n_items,
+            mcfg.n_layers, mcfg.T)
+    out = {}
+    embs = []
+    for block_rows in (131_072, 32_768):
+        before = dict(agg.kernel_launches)
+        embs.append(embed_all(*args, block_rows=block_rows))
+        torch.cuda.synchronize()
+        counts = {k: agg.kernel_launches[k] - before[k] for k in before}
+        blocks = -(-st.graph.n_items // block_rows)
+        if counts != {"split": mcfg.n_layers, "project": mcfg.n_layers,
+                      "gather_mean": mcfg.n_layers * blocks}:
+            raise AssertionError(f"embed_all at block_rows={block_rows}: "
+                                 f"{counts}")
+        out[f"block_rows_{block_rows}"] = counts
+    out["max_abs_diff"] = float((embs[0] - embs[1]).abs().max())
+    log(f"embed_all at N={st.graph.n_items}: {json.dumps(out)}")
+    if not out["max_abs_diff"] <= 1e-5:
+        raise AssertionError(f"blocked embed_all differs: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1288,6 +1505,19 @@ def main() -> int:
     st.walls["train_step_ms"], step_profile = time_train_steps(torch,
                                                                 trainer)
 
+    # ---- the eval path, on the trained embeddings -----------------------
+    reset_counts()
+    ev = run_eval_path(dev, st, tr_st, work)
+    eval_launches = read_counts(("walk",))
+    log(f"launches on the eval path: {eval_launches}")
+    eval_checks = check_eval(torch, dev, ev, tr_st)
+    eval_checks["project_once"] = check_project_once(torch, agg, st)
+    log(json.dumps({"eval_walls": {
+        **ev.walls, "models": {m: {c: eval_checks["accuracy"][m][c]
+                                   for c in ("t (train)", "t (emb)",
+                                             "t (knn)")}
+                               for m in ev.models}}}))
+
     # ---- the int8 serving path, on the trained embeddings --------------
     reset_counts()
     it = run_int8_path(dev, st, tr_st)
@@ -1298,6 +1528,7 @@ def main() -> int:
     log(json.dumps({"phase_walls": st.walls}))
     log(json.dumps({"train_step_profile": step_profile}))
     log(json.dumps({"int8_checks": int8_checks}))
+    log(json.dumps({"eval_checks": eval_checks}))
     emb, nb_w, nb_n, params = st.emb, st.nb_w, st.nb_n, st.params
     feats, nbw_d, nbn_d, dg = st.feats, st.nbw_d, st.nbn_d, st.dg
     rows, cached, ds = st.rows, st.cached, st.ds
@@ -1355,11 +1586,18 @@ def main() -> int:
                           f"alpha={alpha}", nodes, alpha, draw_uniforms(
                               SERVE_HOPS, len(nodes),
                               block_generator(1, i, dev))))
+    # PersPageRank's query block at eval: the harness asks for 1000 rows
+    # at a time, each walking SERVE_HOPS hops
+    eval_nodes = torch.arange(1000, dtype=torch.int32, device=dev)
+    k1_shapes.append((f"eval PageRank B=1000 H={SERVE_HOPS} alpha={alpha}",
+                      eval_nodes, alpha, draw_uniforms(
+                          SERVE_HOPS, 1000, block_generator(0, 0, dev))))
     sweep_launches = st.sweep_walk_launches
     results = [measure_k1(
         torch, walk_kernel, fused_walk_tables(dg), k1_shapes,
         {"sweep": sweep_launches,
          "live_walk": launches["walk"] - sweep_launches,
+         "eval": eval_launches["walk"],
          "int8_live_walk": int8_launches["walk"]})]
 
     # K2 at both conv layers' shapes of embed_all (its backward at the

@@ -9,12 +9,15 @@ pinsage.py:
       out  = out / ||out||_2
   head(x) = G2 @ leaky_relu(G1 @ x + b1)          (G2 has no bias)
 
-The aggregation goes through ``ops.agg.conv_aggregate``, differentiable
-on both devices: on the GPU the frontier forward (the train step, and
-embedding a node set) runs kernel K3 and the full-catalog sweep runs K2;
-on the CPU both run their plain version.  The dense products of the W
-half and the head stay ``torch.matmul``.  Layer 0 consumes raw features;
-every layer outputs ``out_dim``.
+The aggregation goes through ``aggregate`` (``ops.agg.conv_aggregate``),
+differentiable on both devices: on the GPU the frontier forward (the
+train step, and embedding a node set) runs kernel K3 and the
+full-catalog sweep runs K2; on the CPU both run their plain version.
+``aggregate`` takes any width and any T, as the JAX package's einsum
+does: it pads Din and H with zero columns to the kernels' multiples of 4
+and cuts K3's neighbor columns into slices of at most 64.  The dense
+products of the W half and the head stay ``torch.matmul``.  Layer 0
+consumes raw features; every layer outputs ``out_dim``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gcn_song_embeddings_tpu_torch.ops.agg import conv_aggregate
+from gcn_song_embeddings_tpu_torch.ops.agg import (
+    MAX_T,
+    _denominator,
+    conv_aggregate,
+)
+
+WIDTH_MULTIPLE = 4  # the aggregation kernels' 16-byte loads
 
 
 class ConvParams(nn.Module):
@@ -123,14 +132,48 @@ def packed_nbhd_gather(packed: torch.Tensor, T: int):
     return gather_nbhds
 
 
+def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor,
+              nb_w: torch.Tensor, Wq: torch.Tensor, bq: torch.Tensor,
+              mode: str = "stream", block_rows: int | None = None
+              ) -> torch.Tensor:
+    """``conv_aggregate`` at any Din, H and T.
+
+    A Din or H that is not a multiple of 4 is padded with zero columns
+    (of the table and Wq, and zero entries of bq): a zero column adds
+    exactly 0 to each product and projects to leaky_relu(0) = 0, and the
+    padded output columns are cut off, so their gradient is dropped.  For
+    mode "dma" past K3's T <= 64 the neighbor columns are cut into slices
+    of at most 64: each slice's mean times its denominator is its
+    weighted sum, and the sums over the row's whole denominator give the
+    mean (an all-zero row keeps denominator 1)."""
+    din, hdim = table.shape[1], Wq.shape[0]
+    pad_d, pad_h = -din % WIDTH_MULTIPLE, -hdim % WIDTH_MULTIPLE
+    if pad_d or pad_h:
+        table = F.pad(table, (0, pad_d))
+        Wq = F.pad(Wq, (0, pad_d, 0, pad_h))
+        bq = F.pad(bq, (0, pad_h))
+    t = nb_nodes.shape[1]
+    if mode == "dma" and t > MAX_T:
+        total = 0.0
+        for s in range(0, t, MAX_T):
+            w_s = nb_w[:, s:s + MAX_T]
+            total = total + conv_aggregate(
+                table, nb_nodes[:, s:s + MAX_T], w_s, Wq, bq,
+                mode) * _denominator(w_s)
+        out = total / _denominator(nb_w)
+    else:
+        out = conv_aggregate(table, nb_nodes, nb_w, Wq, bq, mode, block_rows)
+    return out[:, :hdim] if pad_h else out
+
+
 def conv_from_table(p: ConvParams, h_self: torch.Tensor,
                     table: torch.Tensor, nb_nodes: torch.Tensor,
-                    nb_w: torch.Tensor, mode: str = "stream"
-                    ) -> torch.Tensor:
+                    nb_w: torch.Tensor, mode: str = "stream",
+                    block_rows: int | None = None) -> torch.Tensor:
     """One conv layer whose neighbors are rows ``nb_nodes`` [B, T] of
     ``table``: the aggregation never materializes them on the GPU (K2 for
     mode "stream", K3 for "dma")."""
-    agg = conv_aggregate(table, nb_nodes, nb_w, p.Wq, p.bq, mode)
+    agg = aggregate(table, nb_nodes, nb_w, p.Wq, p.bq, mode, block_rows)
     d = h_self.shape[1]
     # split-W product: [a, b] @ M^T == a @ M[:, :d]^T + b @ M[:, d:]^T,
     # without materializing the [B, Din + hidden] concat
@@ -208,19 +251,16 @@ def fullgraph_embeddings(params: PinSageParams, features: torch.Tensor,
     """Pre-head activations for ALL items, one dense sweep per layer.
 
     Layer l's activation of node v does not depend on the batch, so each
-    layer runs once over the catalog: N*(T+1) row touches per layer.
-    Catalogs past ``block_rows`` run each layer in row blocks (every block
-    still gathers from the full previous-layer table)."""
+    layer runs once over the catalog: on the GPU K2 projects every row of
+    the previous layer once, then gathers the nodes in blocks of
+    ``block_rows`` (the plain version gathers and projects block by
+    block, bounding its [block, T, Din] gather)."""
     nb_w = nbhd_weights[:, :T].contiguous()
     nb_n = nbhd_nodes[:, :T].to(torch.int32).contiguous()
-    n = features.shape[0]
     h = features
     for l in range(n_layers):
-        p = params.layers[l]
-        h = torch.cat([conv_from_table(p, h[s:s + block_rows], h,
-                                       nb_n[s:s + block_rows],
-                                       nb_w[s:s + block_rows])
-                       for s in range(0, n, block_rows)])
+        h = conv_from_table(params.layers[l], h, h, nb_n, nb_w,
+                            block_rows=block_rows)
     return h
 
 
@@ -248,12 +288,14 @@ def fullgraph_wins(batch_rows: int, n_items: int, n_layers: int,
 def embed_all(params: PinSageParams, features: torch.Tensor,
               nbhd_weights: torch.Tensor, nbhd_nodes: torch.Tensor,
               n_items: int, n_layers: int, T: int, batch_size: int = 1024,
-              strategy: str = "fullgraph") -> torch.Tensor:
+              strategy: str = "fullgraph", block_rows: int = 131_072
+              ) -> torch.Tensor:
     """Embed every item -> [n_items, out_dim].
 
     strategy="fullgraph" (default): the full-catalog conv sweep (K2 on the
-    GPU), then the head.  strategy="blocks": the frontier forward (K3 on
-    the GPU) over consecutive blocks of ``batch_size`` items, ids wrapping
+    GPU, nodes gathered ``block_rows`` at a time), then the head.
+    strategy="blocks": the frontier forward (K3 on the GPU) over
+    consecutive blocks of ``batch_size`` items, ids wrapping
     modulo the catalog as in the JAX package (whose ``blocks_per_call``
     groups blocks per device dispatch; eager PyTorch launches block by
     block)."""
@@ -263,7 +305,7 @@ def embed_all(params: PinSageParams, features: torch.Tensor,
     with torch.inference_mode():
         if strategy == "fullgraph":
             h = fullgraph_embeddings(params, features, nbhd_weights,
-                                     nbhd_nodes, n_layers, T)
+                                     nbhd_nodes, n_layers, T, block_rows)
             return head_apply(params, h)[:n_items]
         offsets = torch.arange(batch_size, device=features.device)
         gather_nbhds = packed_nbhd_gather(

@@ -19,8 +19,13 @@ splits Wq into TF32 big and small parts, then
 - ``"dma"``, K3 (``csrc/dma_agg.cu``, ``ops/dma_agg.py``): one fused
   kernel over the gathered rows, each block owning whole nodes.
 
-A CUDA call either launches its kernels or raises: there is no fallback,
-and no CUDA call returns a tensor that gradients do not reach.
+K2 takes any T >= 1; K3 takes T <= 64 (a block of 192 gathered rows
+holds whole nodes), and both take Din and H in multiples of 4 (16-byte
+loads): ``models.pinsage.aggregate`` meets those limits for any width and
+T.  With ``block_rows`` K2 projects the table once and gathers the nodes
+in blocks of that many rows.  A CUDA call either launches its kernels or
+raises: there is no fallback, and no CUDA call returns a tensor that
+gradients do not reach.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ NAME = "agg"
 SOURCE = "gcn_song_embeddings_tpu_torch/csrc/agg.cu"
 HEADER = "gcn_song_embeddings_tpu_torch/csrc/agg_tc.cuh"
 REPLACES = "gcn_song_embeddings_tpu/ops/pallas_agg.py:52"
-MAX_T = 64  # a K3 block (192 rows) holds whole nodes: 3 at T = 64
+MAX_T = 64  # K3's: a block (192 rows) holds whole nodes, 3 at T = 64
 MODES = {"stream": "K2", "dma": "K3"}
 BN, BK, SLAB = 128, 32, 64  # Wq tile rows and floats (agg_tc.cuh); P slab
 
@@ -145,9 +150,11 @@ def _check_tensors(specs) -> None:
 
 
 def _check_widths(kernel: str, hdim: int, din: int | None = None,
-                  t: int | None = None) -> None:
-    if t is not None and not 1 <= t <= MAX_T:
-        raise ValueError(f"{kernel} takes 1 <= T <= {MAX_T}, got T={t}")
+                  t: int | None = None, max_t: int | None = None) -> None:
+    if t is not None and max_t is not None and not 1 <= t <= max_t:
+        raise ValueError(f"{kernel} takes 1 <= T <= {max_t}, got T={t}")
+    if t is not None and t < 1:
+        raise ValueError(f"{kernel} takes T >= 1, got T={t}")
     widths = (hdim,) if din is None else (din, hdim)
     if min(widths) < 1 or any(x % 4 for x in widths):
         raise ValueError(f"{kernel} takes Din and H positive multiples of 4 "
@@ -274,13 +281,15 @@ def gather_mean(proj: torch.Tensor, nb_nodes: torch.Tensor,
 
 def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
                         nb_weights: torch.Tensor, Wq: torch.Tensor,
-                        bq: torch.Tensor, mode: str = "stream"
-                        ) -> torch.Tensor:
+                        bq: torch.Tensor, mode: str = "stream",
+                        block_rows: int | None = None) -> torch.Tensor:
     """Launch K2 (mode "stream") or K3 (mode "dma") on CUDA tensors: h
     [N, Din] f32, nb_nodes [B, T] int32 (ids in [0, N)), nb_weights [B, T]
-    f32, Wq [H, Din] f32, bq [H] f32 -> [B, H] f32.  Records no graph, so
-    it refuses inputs that need a gradient: ``conv_aggregate`` is the
-    differentiable entry."""
+    f32, Wq [H, Din] f32, bq [H] f32 -> [B, H] f32.  K2 projects the table
+    once, then gathers all B nodes, or with ``block_rows`` one block of
+    that many nodes at a time (the projection is freed on return).
+    Records no graph, so it refuses inputs that need a gradient:
+    ``conv_aggregate`` is the differentiable entry."""
     global launches
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
@@ -297,7 +306,7 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
             or bq.shape[0] != hdim):
         raise _mismatch(h=h, nb_nodes=nb_nodes, nb_weights=nb_weights, Wq=Wq,
                         bq=bq)
-    _check_widths(kernel, hdim, din, t)
+    _check_widths(kernel, hdim, din, t, MAX_T if mode == "dma" else None)
     _check_aligned(h=h)
     _check_cuda(kernel, h.device)
     out = torch.empty((b, hdim), dtype=torch.float32, device=h.device)
@@ -309,7 +318,11 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
     if mode == "dma":
         dma_agg.launch(h, nb_nodes, nb_weights, big, small, bq, out)
         return out
-    _gather_mean(_project_table(h, big, small, bq), nb_nodes, nb_weights, out)
+    proj = _project_table(h, big, small, bq)
+    step = block_rows or b
+    for s in range(0, b, step):
+        _gather_mean(proj, nb_nodes[s:s + step], nb_weights[s:s + step],
+                     out[s:s + step])
     launches += 1
     return out
 
@@ -333,11 +346,12 @@ class ConvAggregate(torch.autograd.Function):
     neighborhood cache."""
 
     @staticmethod
-    def forward(ctx, h, nb_nodes, nb_weights, Wq, bq, mode):
+    def forward(ctx, h, nb_nodes, nb_weights, Wq, bq, mode, block_rows=None):
         if h.device.type == "cpu":
             out = conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq)
         else:
-            out = conv_aggregate_cuda(h, nb_nodes, nb_weights, Wq, bq, mode)
+            out = conv_aggregate_cuda(h, nb_nodes, nb_weights, Wq, bq, mode,
+                                      block_rows)
         ctx.save_for_backward(h, nb_nodes, nb_weights, Wq, bq)
         ctx.mode = mode
         return out
@@ -346,7 +360,7 @@ class ConvAggregate(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dagg):
         h, nb_nodes, nb_weights, Wq, bq = ctx.saved_tensors
-        need_h, _, _, need_wq, need_bq, _ = ctx.needs_input_grad
+        need_h, _, _, need_wq, need_bq = ctx.needs_input_grad[:5]
         ids = nb_nodes.reshape(-1).long()
         proj = torch.addmm(bq, h, Wq.t())                    # [N, H]
         pre = proj[ids]                                       # [B*T, H]
@@ -359,19 +373,27 @@ class ConvAggregate(torch.autograd.Function):
         dbq = s.sum(dim=0) if need_bq else None
         if dagg.device.type == "cuda":
             backward_launches[ctx.mode] += 1
-        return dh, None, None, dwq, dbq, None
+        return dh, None, None, dwq, dbq, None, None
 
 
 def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
                    nb_weights: torch.Tensor, Wq: torch.Tensor,
-                   bq: torch.Tensor, mode: str = "stream") -> torch.Tensor:
+                   bq: torch.Tensor, mode: str = "stream",
+                   block_rows: int | None = None) -> torch.Tensor:
     """Importance-weighted neighbor aggregation [B, H]: on CUDA tensors
     through ``ConvAggregate`` (K2 for mode "stream", K3 for "dma"), on CPU
-    tensors the plain version (both modes: they compute one function)."""
+    tensors the plain version (both modes: they compute one function).
+    ``block_rows`` bounds the nodes aggregated at once: K2 still projects
+    the table once; the plain version gathers one block at a time."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
     if h.device.type == "cpu":
-        return conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq)
+        if not block_rows or block_rows >= nb_nodes.shape[0]:
+            return conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq)
+        return torch.cat([
+            conv_aggregate_plain(h, nb_nodes[s:s + block_rows],
+                                 nb_weights[s:s + block_rows], Wq, bq)
+            for s in range(0, nb_nodes.shape[0], block_rows)])
     if h.device.type != "cuda":
         raise ValueError(f"{MODES[mode]} runs on CUDA or CPU tensors, not "
                          f"{h.device}")
@@ -380,4 +402,4 @@ def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
                          "the neighborhood cache): pass them detached")
     return ConvAggregate.apply(h, nb_nodes.to(torch.int32).contiguous(),
                                nb_weights.contiguous(), Wq.contiguous(),
-                               bq.contiguous(), mode)
+                               bq.contiguous(), mode, block_rows)

@@ -24,7 +24,10 @@ import torch
 
 from gcn_song_embeddings_tpu_torch.config import WalkConfig
 from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
-from gcn_song_embeddings_tpu_torch.ops.walk_kernel import random_walks
+from gcn_song_embeddings_tpu_torch.ops.walk_kernel import (
+    random_walks,
+    restart_walks,
+)
 from gcn_song_embeddings_tpu_torch.ops.walks import fused_walk_tables
 
 
@@ -63,6 +66,18 @@ def visit_counts_topt(trace: torch.Tensor, nodeset: torch.Tensor, T: int
     neg_w, order = torch.sort(-weights, dim=1, stable=True)
     nodes = torch.gather(values, 1, order[:, :T])
     return -neg_w[:, :T], nodes
+
+
+def sample_neighborhood_topt_tables(tables, nodeset: torch.Tensor,
+                                    n_hops: int, alpha: float, T: int,
+                                    uniforms: torch.Tensor, n_chains: int = 1
+                                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Restart walks from ``nodeset`` over prebuilt ``fused_walk_tables``
+    (K1 on CUDA tensors) under ``uniforms`` [n_hops / n_chains,
+    B * n_chains, 3], then their top-T visits -> (weights [B, T], nodes
+    [B, T])."""
+    trace = restart_walks(tables, nodeset, n_hops, alpha, uniforms, n_chains)
+    return visit_counts_topt(trace, nodeset, T)
 
 
 def effective_chains(n_hops: int, parallel_chains: int) -> int:

@@ -34,13 +34,20 @@ identical; order among equal scores may differ.  Two faults of the JAX
 package's serve.py are not carried over: a tombstoned query row inside a
 coalesced hybrid batch yields ``[]`` for that row instead of an error for
 the whole batch, and a single query is answered from the k_cap-wide
-window, so it keeps k live results while k + tombstones <= k_cap.  Still
-to come with a later slice of the port: catalog-sharded serving
+window, so it keeps k live results while k + tombstones <= k_cap.  Two
+more are repaired here: an unbatched server (``serve(index,
+batched=False)``) holds the index's ``lock`` around every query and
+update, where the JAX package's handler threads race updates against
+queries, and ``remove_tracks`` gives a track id the row path's errors
+(a second removal is "already removed", a row named twice in one call
+raises) where the JAX package reports "unknown track" and dedupes.
+Still to come with a later slice of the port: catalog-sharded serving
 (``--sharded``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -218,6 +225,10 @@ class EmbeddingIndex(TrackResolverMixin):
         self._delta_host = np.zeros((0, self.dim), np.float32)
         self._delta_dev = None
         self._tombstones: set[int] = set()
+        self._removed_ids: set[str] = set()
+        # an unbatched server's handler threads take it around queries and
+        # updates (a QueryBatcher serializes them on its own thread)
+        self.lock = threading.RLock()
 
     def _upload_main(self) -> None:
         """The main device table from the host rows: f32 rows, or int8
@@ -288,21 +299,29 @@ class EmbeddingIndex(TrackResolverMixin):
         removed rows.  Their rows are zeroed on the host and the device (an
         int8 row's values and scale), so they score exactly 0, below every
         positively similar candidate; they leave results and id resolution,
-        and their rows are never reused."""
+        and their rows are never reused.  Either form of an already removed
+        track, or a row named twice in one call (as an id and as a row,
+        say), raises KeyError and removes nothing."""
         rows = []
         for t in tracks:
             if isinstance(t, str):
                 if t not in self.row_of:
-                    raise KeyError(f"unknown track {t!r}")
-                rows.append(self.row_of[t])
+                    # a removed id added again resolves to its new row
+                    raise KeyError(f"track {t!r} already removed"
+                                   if t in self._removed_ids
+                                   else f"unknown track {t!r}")
+                row = self.row_of[t]
             else:
                 row = int(t)
                 if not 0 <= row < self.n:
                     raise KeyError(f"index {row} out of range")
                 if row in self._tombstones:
                     raise KeyError(f"row {row} already removed")
-                rows.append(row)
-        rows = sorted(set(rows))
+            rows.append(row)
+        if len(set(rows)) != len(rows):
+            twice = sorted(r for r in set(rows) if rows.count(r) > 1)
+            raise KeyError(f"rows {twice} named twice in one removal")
+        rows.sort()
         self._tombstones.update(rows)
         arr = np.asarray(rows, np.int64)
         self.unit_host[arr] = 0.0
@@ -320,6 +339,7 @@ class EmbeddingIndex(TrackResolverMixin):
             self._delta_dev[torch.as_tensor(delta, device=self.device)] = 0.0
         for row in rows:
             self.row_of.pop(self.track_ids[row], None)
+            self._removed_ids.add(self.track_ids[row])
         if len(self._tombstones) > self.k_cap // 2:
             warnings.warn(
                 f"{len(self._tombstones)} tombstones vs top-k window "
@@ -584,6 +604,10 @@ class QueryBatcher:
 
 
 def make_handler(index: EmbeddingIndex, batcher: QueryBatcher | None = None):
+    # without a batcher, each request holds the index's lock from
+    # resolving its ids to its answer
+    guard = contextlib.nullcontext() if batcher else index.lock
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):  # quiet
             pass
@@ -600,33 +624,35 @@ def make_handler(index: EmbeddingIndex, batcher: QueryBatcher | None = None):
             url = urlparse(self.path)
             params = parse_qs(url.query)
             try:
-                if url.path == "/healthz":
-                    self._json(200, {"status": "ok", "tracks": index.n,
-                                     "dim": index.dim,
-                                     "removed": len(index._tombstones)})
-                elif url.path == "/knn":
-                    k = min(int(params.get("k", ["10"])[0]), index.n - 1)
-                    if "tracks" in params or "indices" in params:
-                        rows = index.resolve_many(params)
-                        nbrs = (batcher.knn_many(rows, k) if batcher
-                                else index.knn_rows(np.asarray(rows), k))
-                        self._json(200, {
-                            "queries": [index.track_ids[r] for r in rows],
-                            "neighbors": nbrs})
-                    else:
-                        row = index.resolve(params)
-                        nbrs = (batcher.knn(row, k) if batcher
-                                else index.knn(row, k))
-                        self._json(200, {"query": index.track_ids[row],
-                                         "neighbors": nbrs})
-                elif url.path == "/embed":
-                    row = index.resolve(params)
-                    self._json(200, {"track": index.track_ids[row],
-                                     "embedding": index.embed(row).tolist()})
-                else:
-                    self._json(404, {"error": f"no route {url.path}"})
+                with guard:
+                    code, payload = self._answer(url.path, params)
             except (KeyError, ValueError, IndexError) as e:
-                self._json(400, {"error": str(e)})
+                code, payload = 400, {"error": str(e)}
+            self._json(code, payload)
+
+        def _answer(self, path: str, params: dict):
+            if path == "/healthz":
+                return 200, {"status": "ok", "tracks": index.n,
+                             "dim": index.dim,
+                             "removed": len(index._tombstones)}
+            if path == "/knn":
+                k = min(int(params.get("k", ["10"])[0]), index.n - 1)
+                if "tracks" in params or "indices" in params:
+                    rows = index.resolve_many(params)
+                    nbrs = (batcher.knn_many(rows, k) if batcher
+                            else index.knn_rows(np.asarray(rows), k))
+                    return 200, {"queries": [index.track_ids[r]
+                                             for r in rows],
+                                 "neighbors": nbrs}
+                row = index.resolve(params)
+                nbrs = batcher.knn(row, k) if batcher else index.knn(row, k)
+                return 200, {"query": index.track_ids[row],
+                             "neighbors": nbrs}
+            if path == "/embed":
+                row = index.resolve(params)
+                return 200, {"track": index.track_ids[row],
+                             "embedding": index.embed(row).tolist()}
+            return 404, {"error": f"no route {path}"}
 
         def do_POST(self):  # noqa: N802 (http.server API)
             url = urlparse(self.path)
@@ -636,25 +662,29 @@ def make_handler(index: EmbeddingIndex, batcher: QueryBatcher | None = None):
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 tracks = json.loads(self.rfile.read(length))["tracks"]
-                if url.path == "/remove":
-                    rows = (batcher.remove_tracks(tracks) if batcher
-                            else index.remove_tracks(tracks))
-                    self._json(200, {"removed": rows, "tracks": index.n})
-                    return
-                emb = np.asarray([t["embedding"] for t in tracks],
-                                 dtype=np.float32)
-                ids = [t["track"] for t in tracks]
-                meta = {t["track"]: {f: t[f] for f in ("name", "artist")
-                                     if f in t}
-                        for t in tracks if "name" in t or "artist" in t}
-                rows = (batcher.add_tracks(emb, ids, meta) if batcher
-                        else index.add_tracks(emb, ids, meta))
-                self._json(200, {"added": ids, "rows": rows,
-                                 "tracks": index.n})
+                with guard:
+                    payload = self._update(url.path, tracks)
+                code = 200
             except (KeyError, ValueError, TypeError, NotImplementedError,
                     json.JSONDecodeError) as e:
                 # TypeError: a malformed payload (ragged embeddings)
-                self._json(400, {"error": str(e)})
+                code, payload = 400, {"error": str(e)}
+            self._json(code, payload)
+
+        def _update(self, path: str, tracks) -> dict:
+            if path == "/remove":
+                rows = (batcher.remove_tracks(tracks) if batcher
+                        else index.remove_tracks(tracks))
+                return {"removed": rows, "tracks": index.n}
+            emb = np.asarray([t["embedding"] for t in tracks],
+                             dtype=np.float32)
+            ids = [t["track"] for t in tracks]
+            meta = {t["track"]: {f: t[f] for f in ("name", "artist")
+                                 if f in t}
+                    for t in tracks if "name" in t or "artist" in t}
+            rows = (batcher.add_tracks(emb, ids, meta) if batcher
+                    else index.add_tracks(emb, ids, meta))
+            return {"added": ids, "rows": rows, "tracks": index.n}
 
     return Handler
 

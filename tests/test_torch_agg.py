@@ -104,10 +104,11 @@ def test_backward_gradcheck_float64():
     Wq = torch.tensor(rng.normal(size=(hdim, din)), requires_grad=True)
     bq = torch.tensor(rng.normal(size=hdim) * 0.1, requires_grad=True)
     for mode in ("stream", "dma"):
-        assert torch.autograd.gradcheck(
-            lambda h, Wq, bq: agg.ConvAggregate.apply(h, nb, w, Wq, bq,
-                                                      mode),
-            (h, Wq, bq))
+        for block_rows in (None, 2):
+            assert torch.autograd.gradcheck(
+                lambda h, Wq, bq: agg.ConvAggregate.apply(
+                    h, nb, w, Wq, bq, mode, block_rows),
+                (h, Wq, bq))
 
 
 @pytest.mark.parametrize("b,t,din,hdim,zero_row", [

@@ -1,8 +1,10 @@
 """Import hygiene of the PyTorch port and its no-fallback device rule.
 
-The port package, its CLI and chip_smoke.py must import with JAX and the
-JAX package blocked.  This test process has JAX loaded already (conftest),
-so the checks run in subprocesses with ``sys.modules[...] = None``.
+The port package, its CLI and chip_smoke.py must import with JAX, the
+JAX package and pandas blocked (the machine with the card has no
+pandas).  This test process has JAX loaded already (conftest), so the
+checks run in subprocesses with ``sys.modules[...] = None``.  The port
+builds its own native readers and never loads the JAX package's.
 """
 
 import os
@@ -17,7 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "gcn_song_embeddings_tpu_torch")
 BLOCK = ("import sys\n"
          "sys.modules['jax'] = None\n"
-         "sys.modules['gcn_song_embeddings_tpu'] = None\n")
+         "sys.modules['gcn_song_embeddings_tpu'] = None\n"
+         "sys.modules['pandas'] = None\n")
 NO_CUDA = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
 
@@ -45,6 +48,16 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
     assert not hits, f"{path} imports {hits}"
 
 
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_names_no_native_library_of_the_jax_package(path):
+    banned = re.compile(r"gcn_song_embeddings_tpu[/.]native"
+                        r"|lib(jsongraph|featload|audiodec)\.so")
+    with open(path, encoding="utf-8") as f:
+        hits = banned.findall(f.read())
+    assert not hits, f"{path} names {hits}"
+
+
 def test_every_port_module_imports_with_jax_blocked():
     res = _python(
         "import importlib, pkgutil\n"
@@ -54,6 +67,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['pandas'] is None\n"
         "print(' '.join(names))\n")
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
@@ -61,7 +75,10 @@ def test_every_port_module_imports_with_jax_blocked():
     prefix = "gcn_song_embeddings_tpu_torch."
     for module in ("ops.dma_agg", "ops.quantize", "ops.quant_kernel",
                    "train.adam", "train.loss",
-                   "train.sampler", "train.trainer"):
+                   "train.sampler", "train.trainer", "native.jsongraph",
+                   "native.featload", "evals.metrics", "evals.harness",
+                   "evals.tables", "evals.device_eval",
+                   "models.baselines.simple"):
         assert prefix + module in names
 
 

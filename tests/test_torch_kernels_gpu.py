@@ -268,9 +268,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     h = torch.zeros((10, 8), device=cuda)
     ids = torch.zeros((4, 65), dtype=torch.int32, device=cuda)
     w = torch.ones((4, 65), device=cuda)
-    with pytest.raises(ValueError, match="T <="):
-        agg.conv_aggregate(h, ids, w, torch.zeros((6, 8), device=cuda),
-                           torch.zeros(6, device=cuda))
+    with pytest.raises(ValueError, match="T >= 1"):   # K2 takes any T >= 1
+        agg.conv_aggregate(h, ids[:, :0], w[:, :0],
+                           torch.zeros((8, 8), device=cuda),
+                           torch.zeros(8, device=cuda))
     with pytest.raises(ValueError, match="float32"):
         agg.conv_aggregate(h.double(), ids[:, :3], w[:, :3],
                            torch.zeros((6, 8), device=cuda).double(),
@@ -373,3 +374,102 @@ def test_int8_scores_on_the_card_equal_the_cpu(cuda, b):
     q8 = torch.randint(-127, 128, (32, 128), dtype=torch.int8, device=cuda)
     assert torch.equal(torch._int_mm(q8, pv.t()),
                        torch._int_mm(q8, pv.t().contiguous()))
+
+
+@pytest.mark.parametrize("mode", ["stream", "dma"])
+@pytest.mark.parametrize("din,hdim,t", [(753, 512, 10), (512, 128, 100),
+                                        (753, 30, 100)])
+def test_model_aggregate_at_widths_and_t_the_kernels_do_not_take(
+        cuda, mode, din, hdim, t):
+    """``models.pinsage.aggregate`` pads Din/H to multiples of 4 and cuts
+    K3's neighbor columns into slices of <= 64: forward and backward
+    against the plain version at the raw shapes (MusicNN's 753-d
+    feature, T = 100)."""
+    from gcn_song_embeddings_tpu_torch.models.pinsage import aggregate
+
+    h, nb, w, Wq, bq = _agg_args(cuda, 300, t, 2000, din, hdim, seed=t)
+    cot = torch.randn((300, hdim), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(2))
+
+    def grads(dtype, fn):
+        xs = [x.to(dtype, copy=True).requires_grad_() for x in (h, Wq, bq)]
+        out = fn(xs[0], nb, w.to(dtype), xs[1], xs[2])
+        return out, torch.autograd.grad(out, xs, cot.to(dtype))
+
+    _, ref = grads(torch.float64, agg.conv_aggregate_plain)
+    before = (agg.launches, dma_agg.launches)
+    out, got = grads(torch.float32, lambda *a: aggregate(*a, mode=mode))
+    plain = agg.conv_aggregate_plain(h, nb, w, Wq, bq)
+    torch.cuda.synchronize()
+    launched = (agg.launches - before[0], dma_agg.launches - before[1])
+    assert launched == ((1, 0) if mode == "stream" else (0, -(-t // 64)))
+    assert out.shape == (300, hdim)
+    assert float((out - plain).abs().max()) <= AGG_ATOL
+    for g, r in zip(got, ref):
+        err = torch.linalg.vector_norm(g.double() - r) / \
+            torch.linalg.vector_norm(r)
+        assert float(err) <= GRAD_RTOL
+
+
+def test_fullgraph_projects_once_per_layer(cuda):
+    """embed_all with a small block_rows: one K2 projection (and one Wq
+    split) per layer, gathers block by block, the same embeddings as one
+    block."""
+    from gcn_song_embeddings_tpu_torch.models.pinsage import (
+        embed_all,
+        init_pinsage,
+    )
+
+    n, t, layers = 5000, 10, 2
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_pinsage(gen, layers, 512, 512, 128)
+    feats = torch.randn((n, 512), device=cuda, generator=gen)
+    nb_w = torch.rand((n, t), device=cuda, generator=gen)
+    nb_n = torch.randint(0, n, (n, t), device=cuda, generator=gen,
+                         dtype=torch.int32)
+    before = dict(agg.kernel_launches)
+    blocked = embed_all(params, feats, nb_w, nb_n, n, layers, t,
+                        block_rows=700)
+    torch.cuda.synchronize()
+    counts = {k: agg.kernel_launches[k] - before[k] for k in before}
+    assert counts == {"split": layers, "project": layers,
+                      "gather_mean": layers * -(-n // 700)}
+    whole = embed_all(params, feats, nb_w, nb_n, n, layers, t)
+    assert float((blocked - whole).abs().max()) <= 1e-5
+
+
+def test_rank_eval_and_knn_on_the_card_equal_the_cpu(cuda):
+    """rank_eval and knn_from_emb on a 5k table, card against CPU: the two
+    round the products differently, so a candidate within an ulp of a
+    pair's tie window may count half a rank more or less (a few pairs);
+    the hit rates stay equal here, MRR within 1e-6."""
+    from gcn_song_embeddings_tpu_torch.evals.device_eval import (
+        pair_ranks,
+        rank_eval,
+        unit_rows,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.knn import knn_from_emb
+
+    rng = np.random.default_rng(5)
+    emb = rng.normal(size=(5000, 64)).astype(np.float32)
+    pairs = rng.integers(0, 5000, (3000, 2))
+    kw = dict(hit_ks=(10, 100, 500), mrr_k=1000, batch=512, chunk=2048)
+    got = rank_eval(emb, pairs, device=cuda, **kw)
+    want = rank_eval(emb, pairs, device="cpu", **kw)
+    for key in want:
+        assert abs(got[key] - want[key]) <= (1e-6 if key.startswith("mrr")
+                                             else 0.0)
+    unit = torch.as_tensor(unit_rows(emb))
+    q, pos = (torch.as_tensor(pairs[:, i]) for i in (0, 1))
+    diff = (pair_ranks(unit.to(cuda), q.to(cuda), pos.to(cuda), 2048).cpu()
+            - pair_ranks(unit, q, pos, 2048)).abs()
+    assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) \
+        <= 1e-3
+    queries = np.arange(0, 5000, 7)
+    for streamed in (False, True):
+        gw, gn = knn_from_emb(emb, queries, k=50, streamed=streamed,
+                              chunk=1024, device=cuda)
+        cw, cn = knn_from_emb(emb, queries, k=50, streamed=streamed,
+                              chunk=1024, device="cpu")
+        np.testing.assert_allclose(gw, cw, atol=1e-6)
+        assert (gn == cn).mean() > 0.999

@@ -26,6 +26,7 @@ from gcn_song_embeddings_tpu.ops.ppr import (
 from gcn_song_embeddings_tpu.utils.checkpoint import save_pytree
 from gcn_song_embeddings_tpu_torch import cli
 from gcn_song_embeddings_tpu_torch.models import pinsage as tp
+from gcn_song_embeddings_tpu_torch.ops.agg import conv_aggregate_plain
 from gcn_song_embeddings_tpu_torch.utils.checkpoint import (
     load_jax_checkpoint,
     params_from_numpy,
@@ -222,3 +223,85 @@ def test_packed_tables_fullgraph_rule_and_blocks_match_jax():
         strategy="blocks")), atol=ATOL)
     with pytest.raises(ValueError, match="strategy"):
         tp.embed_all(port, tf, tw, tn, n, L, T, strategy="scan")
+
+
+@pytest.mark.parametrize("din,hdim,t,mode", [
+    (753, 30, 10, "stream"), (753, 30, 10, "dma"), (37, 16, 100, "dma"),
+    (36, 20, 100, "stream"), (32, 16, 130, "dma")])
+def test_aggregate_pads_widths_and_slices_t(din, hdim, t, mode):
+    """The model layer's aggregation at widths and T the kernels do not
+    take (Din 753 as MusicNN's feature, H not a multiple of 4, T > 64 for
+    K3): the padded / sliced path equals the plain aggregation at the raw
+    shapes, forward and gradient (the padded columns' gradient dropped).
+    An all-zero row keeps denominator 1; one with weight only in its last
+    slice divides by its whole sum."""
+    rng = np.random.default_rng(din + t)
+    n, b = 300, 41
+    table = torch.tensor(rng.normal(size=(n, din)).astype(np.float32),
+                         requires_grad=True)
+    nb = torch.tensor(rng.integers(0, n, (b, t)).astype(np.int32))
+    w = torch.tensor(rng.random((b, t)).astype(np.float32))
+    w[3] = 0.0
+    w[4, :t - 1] = 0.0
+    Wq = torch.tensor((0.05 * rng.normal(size=(hdim, din))).astype(
+        np.float32), requires_grad=True)
+    bq = torch.tensor(np.full(hdim, 0.3, np.float32), requires_grad=True)
+    cot = torch.tensor(rng.normal(size=(b, hdim)).astype(np.float32))
+    got = tp.aggregate(table, nb, w, Wq, bq, mode)
+    g_got = torch.autograd.grad(got, (table, Wq, bq), cot)
+    want = conv_aggregate_plain(table, nb, w, Wq, bq)
+    g_want = torch.autograd.grad(want, (table, Wq, bq), cot)
+    assert got.shape == (b, hdim)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               atol=1e-5)
+    assert torch.equal(got[3], torch.zeros(hdim))
+    for a, c in zip(g_got, g_want):
+        assert a.shape == c.shape
+        np.testing.assert_allclose(a.numpy(), c.numpy(), atol=1e-5)
+
+
+def test_odd_width_model_matches_jax():
+    """A 37-d feature table and a 30-wide Q layer through the whole model
+    (frontier and full-graph forwards) equal the JAX einsum model."""
+    n, t = 80, 5
+    jparams = _jax_params(6, in_dim=37, hidden=30)
+    port = params_from_numpy(_numpy_tree(jparams))
+    feats = np.random.default_rng(6).normal(size=(n, 37)).astype(np.float32)
+    w, nodes = _nbhds(n, t)
+    nodeset = np.asarray([0, 5, 44, 79], np.int32)
+    with torch.inference_mode():
+        fwd = tp.pinsage_forward(port, torch.from_numpy(feats),
+                                 torch.from_numpy(w), torch.from_numpy(nodes),
+                                 torch.from_numpy(nodeset), L, t)
+        emb = tp.embed_all(port, torch.from_numpy(feats), torch.from_numpy(w),
+                           torch.from_numpy(nodes), n, L, t)
+    jf, jw, jn = (jnp.asarray(a) for a in (feats, w, nodes))
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(jp.pinsage_forward(
+        jparams, jf, jw, jn, jnp.asarray(nodeset), L, t)), atol=ATOL)
+    np.testing.assert_allclose(emb.numpy(), np.asarray(jp.embed_all(
+        jparams, jf, jw, jn, n, L, t)), atol=ATOL)
+
+
+def test_fullgraph_aggregates_each_layer_in_one_call(monkeypatch):
+    """The full-graph sweep hands each layer's whole table to ONE
+    aggregation call with its ``block_rows`` (on the GPU: one K2
+    projection per layer, then gathers block by block), not one call per
+    row block; the blocked sweep equals the unblocked one."""
+    n = 90
+    port = params_from_numpy(_numpy_tree(_jax_params(7)))
+    feats = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(n, IN)).astype(np.float32))
+    w, nodes = (torch.from_numpy(a) for a in _nbhds(n, T))
+    calls = []
+    real = tp.conv_aggregate
+
+    def spy(h, nb_nodes, nb_w, Wq, bq, mode="stream", block_rows=None):
+        calls.append((h.shape[0], nb_nodes.shape[0], block_rows))
+        return real(h, nb_nodes, nb_w, Wq, bq, mode, block_rows)
+
+    monkeypatch.setattr(tp, "conv_aggregate", spy)
+    with torch.inference_mode():
+        blocked = tp.embed_all(port, feats, w, nodes, n, L, T, block_rows=16)
+        whole = tp.embed_all(port, feats, w, nodes, n, L, T)
+    assert calls[:L] == [(n, n, 16)] * L and len(calls) == 2 * L
+    np.testing.assert_allclose(blocked.numpy(), whole.numpy(), atol=1e-6)

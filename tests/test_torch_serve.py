@@ -708,3 +708,77 @@ def test_main_serves_int8(tmp_path, dataset_dir, monkeypatch):
     ix = served["index"]
     assert type(ix) is ts.EmbeddingIndex and ix.quantized
     assert len(ix.knn(0, 5)) == 5
+
+
+def test_remove_by_track_id_errors_as_by_row():
+    """Fixed fault of the JAX package (serve.py:335): there a second
+    removal by track id reports "unknown track", and an id plus its own
+    row in one call dedupes silently.  The port answers as for rows: the
+    second removal is "already removed" and a row named twice raises,
+    removing nothing."""
+    emb = _emb(40, seed=8)
+    ids = [f"t{i}" for i in range(40)]
+    ref = JEmbeddingIndex(emb, ids, k_cap=8)
+    port = ts.EmbeddingIndex(emb, ids, k_cap=8, device="cpu")
+    assert ref.remove_tracks(["t5"]) == port.remove_tracks(["t5"]) == [5]
+    with pytest.raises(KeyError, match="unknown track"):
+        ref.remove_tracks(["t5"])
+    with pytest.raises(KeyError, match="already removed"):
+        port.remove_tracks(["t5"])
+    with pytest.raises(KeyError, match="already removed"):
+        port.remove_tracks([5])
+    assert ref.remove_tracks(["t6", 6]) == [6]
+    for twice in (["t7", 7], [7, 7], ["t7", "t7"]):
+        with pytest.raises(KeyError, match="named twice"):
+            port.remove_tracks(twice)
+    assert 7 not in port._tombstones and port.row_of["t7"] == 7
+    assert port.remove_tracks(["t7", 8]) == [7, 8]
+    with pytest.raises(KeyError, match="unknown track"):
+        port.remove_tracks(["never"])
+    # a removed id added again is a live track with a new row
+    assert port.add_tracks(_emb(1, seed=10), ["t5"]) == [40]
+    assert port.remove_tracks(["t5"]) == [40]
+    with pytest.raises(KeyError, match="already removed"):
+        port.remove_tracks(["t5"])
+
+
+def test_unbatched_server_holds_the_index_lock():
+    """Fixed fault of the JAX package (serve.py:856): with batched=False
+    its handler threads run adds, removals and queries on the index with
+    no lock.  The port's handlers take the index's lock around each: a
+    request waits while another thread holds it."""
+    assert not hasattr(JEmbeddingIndex(_emb(8), k_cap=4), "lock")
+    index = ts.EmbeddingIndex(_emb(64, seed=9), k_cap=8, device="cpu")
+    server = ts.serve(index, port=0, batched=False)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    done = {}
+
+    def call(name, req):
+        with urllib.request.urlopen(req, timeout=60) as r:
+            done[name] = json.loads(r.read())
+
+    try:
+        for name, req in (
+                ("knn", f"{base}/knn?index=3&k=4"),
+                ("remove", urllib.request.Request(
+                    f"{base}/remove", data=json.dumps(
+                        {"tracks": [10]}).encode())),
+                ("add", urllib.request.Request(f"{base}/add", data=json.dumps(
+                    {"tracks": [{"track": "new", "embedding":
+                                 [1.0] * 16}]}).encode()))):
+            with index.lock:
+                client = threading.Thread(target=call, args=(name, req))
+                client.start()
+                client.join(timeout=0.5)
+                assert name not in done          # waits for the lock
+            client.join(timeout=60)
+            assert name in done
+        assert len(done["knn"]["neighbors"]) == 4
+        assert done["remove"]["removed"] == [10]
+        assert done["add"]["rows"] == [64] and index.n == 65
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)

@@ -443,11 +443,44 @@ def test_cli_train_then_embed_from_its_checkpoint(tmp_path):
               "--set", "train.batch_size=8", "--set", "walk.n_hops=50",
               "--set", "model.hidden_dim=32", "--set", "model.out_dim=16"])
     np.testing.assert_array_equal(np.load(os.path.join(run, "emb.npy")), emb)
-    # `embed --checkpoint` reads the port's own trainer state
+    # `embed --checkpoint` reads the port's own trainer state under the
+    # run's config.json (RunConfig(), T=3), and gives the run's emb.npy
     out = str(tmp_path / "emb_ckpt.npy")
     cli.main(["embed", "--dataset", ds, "--out", out, "--checkpoint",
               os.path.join(run, "state.npz"), "--device", "cpu"])
-    assert np.load(out).shape == (150, 16)
+    np.testing.assert_allclose(np.load(out), emb, atol=1e-5)
+
+
+def test_cli_embed_sweeps_as_the_run_trained(tmp_path):
+    """A co-listen run (walk.colisten_copies=1) on a dataset with both
+    positives files: `embed --checkpoint` augments with the same
+    positives_lfm.json pairs under the same walk config, so its output
+    is the run's emb.npy; no checkpoint keeps RunConfig.recommended()."""
+    ds = str(tmp_path / "ds")
+    cli.main(["synth", "--dataset", ds, "--n-tracks", "160",
+              "--n-collections", "40", "--n-positives", "600",
+              "--feature-dim", "12", "--seed", "4"])
+    with open(os.path.join(ds, "positives.json")) as f:
+        pairs = json.load(f)
+    with open(os.path.join(ds, "positives_lfm.json"), "w") as f:
+        json.dump(pairs[::3], f)
+    runs = str(tmp_path / "runs")
+    cli.main(["train", "--dataset", ds, "--run-dir", runs, "--run-name",
+              "co", "--device", "cpu", "--set", "train.epochs=1",
+              "--set", "train.batches_per_epoch=2",
+              "--set", "train.batch_size=8", "--set", "walk.n_hops=40",
+              "--set", "walk.colisten_copies=1", "--set", "model.T=4",
+              "--set", "model.hidden_dim=16", "--set", "model.out_dim=8"])
+    run = os.path.join(runs, "co")
+    for cache in os.listdir(ds):           # embed must sweep on its own
+        if cache.endswith(".npz"):
+            os.remove(os.path.join(ds, cache))
+    emb = cli.embed_dataset(ds, os.path.join(run, "state.npz"),
+                            device="cpu")
+    np.testing.assert_allclose(emb, np.load(os.path.join(run, "emb.npy")),
+                               atol=1e-5)
+    assert cli.checkpoint_config(None) == RunConfig.recommended()
+    assert cli.checkpoint_config(os.path.join(run, "state.npz")).model.T == 4
 
 
 def test_deterministic_training(port_graph, port_positives, tmp_path):
