@@ -15,6 +15,14 @@
    ``emb.npy`` -> HTTP serving of the hybrid ranker, live-walk (K1 per
    batch) and cached-head, answering single and batched queries.  Fails
    unless every kernel was launched.
+   Then the walk-side refresh, with the counters set to 0 again: the
+   graph gains 50 seeded random co-listen pairs and
+   ``refresh_neighborhoods`` re-sweeps the origins they can reach (K1),
+   saving under the augmented graph's cache meta; fails unless K1 ran,
+   every unaffected row equals the sweep's bit for bit and
+   ``precompute_neighborhoods`` on the augmented graph serves the saved
+   artifact unchanged.  Prints the affected share and ``refresh_s``
+   beside ``sweep_s`` (and the refresh without its cache write).
 4. Drives the training path with the counters set to 0 again: ``cli
    train`` of the same full-width model on the same dataset and cached
    sweep, 2 epochs x 25 batches of 128 triples in chunks of 20 (so a
@@ -32,10 +40,16 @@
 6. Drives the eval path with the counters set to 0 again: ``SongGraph``
    through the native ``graph.json`` reader (its ``load_graph_s`` beside
    the ``json`` module's time for the same file), then ``cli eval`` of
-   the Random, Features, PageRank, PageRankCo (query-time walks, kernel
-   K1) and trained PinSage rows at K=100 over the 100k catalog.  Fails
-   unless K1 ran, both CSVs hold finite rows and every kNN cache is
-   [100000, 100]; then ``rank_eval`` on the card over all test pairs must
+   every row of the JAX CLI at K=100 over the 100k catalog (Random,
+   PageRank and PageRankCo with K1, JaccardFast, Node2Vec with skip-gram
+   cut to 1 epoch, the four CF rows, GraphSAGE, GAT, GCN, Features, the
+   trained PinSage row and its Hybrid row, whose walk head runs K1),
+   counting K1's launches by row.  Fails unless K1 ran, both CSVs hold
+   finite rows and every kNN cache is [100000, 100] (JaccardFast's
+   [100000, 99]); then ALS on the card against the CPU, node2vec walks on
+   the card from CPU draws against the CPU's (every step an edge), the
+   BPR and LMF scatter-adds of duplicate ids against float64 and each GNN
+   row's falling loss; then ``rank_eval`` on the card over all test pairs must
    give the PinSage row's hit@10 and hit@100 within 1e-3 of the CSV's,
    the kNN ids of 256 PinSage queries on the card must equal a CPU f32
    recompute up to ties within 1e-6, and ``embed_all`` at N=100k must
@@ -54,9 +68,9 @@
    printed, and K4 is held to its plain version (``torch.equal``) and to
    the stochastic quantizer's contract (tests/test_quantize.py:40-48).
 8. Holds each kernel against its plain PyTorch version on the card at the
-   paths' shapes (K1 at the sweep's, alpha 0.85 and 0, at the live-walk
-   requests' B=1 and B=4 and at eval's PageRank block of 1000, each
-   timed with its own bound;
+   paths' shapes (K1 at the sweep's (the refresh's too), alpha 0.85 and
+   0, at the live-walk requests' B=1 and B=4 and at eval's PageRank
+   block of 1000 (the Hybrid head's too), each timed with its own bound;
    K1 and K4 bit-identical, K2 and K3 within 1e-4
    absolute, K2's Wq split, projection and gather-mean each against its
    own plain version; the aggregation's backward within GRAD_RTOL of
@@ -111,6 +125,7 @@ N_TRACKS, N_COLLECTIONS, TRACKS_PER_COLLECTION = 100_000, 25_000, 20
 N_POSITIVES, FEATURE_DIM = 200_000, 512
 SERVE_HOPS, QUERY_K = 1000, 10
 N_ADDED, N_REMOVED, QUANT_SEED = 16, 4, 3
+N_REFRESH_PAIRS, REFRESH_SEED = 50, 11
 
 
 def log(*parts) -> None:
@@ -647,6 +662,89 @@ def run_main_path(dev, work: str, n_tracks: int = N_TRACKS,
         params=params, feats=feats, nbw_d=nbw_d, nbn_d=nbn_d, emb=emb,
         rows=rows, cached=cached, train_pos=train_pos, walls=walls,
         sweep_walk_launches=sweep_walk_launches)
+
+
+def run_refresh_path(dev, st, work: str):
+    """The walk-side refresh, as a user runs it after new co-listens: the
+    main path's (co-listen augmented) graph gains ``N_REFRESH_PAIRS``
+    seeded random pairs (cross-cluster for 15 in 16 of them), and
+    ``refresh_neighborhoods`` re-sweeps the origins they can reach with
+    K1, saving under the augmented graph's cache meta.  Returns its
+    state."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch.data.device import (
+        augment_with_colisten,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.ppr import (
+        affected_origins,
+        refresh_neighborhoods,
+    )
+
+    n = st.graph.n_items
+    rng = np.random.default_rng(REFRESH_SEED)
+    pairs = np.stack([rng.choice(n, N_REFRESH_PAIRS, replace=False),
+                      rng.choice(n, N_REFRESH_PAIRS, replace=False)], 1)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    aug = augment_with_colisten(st.dg, pairs, 1)
+    aff = affected_origins(st.nb_w, st.nb_n, pairs, n)
+    log(f"refresh: {len(pairs)} new co-listen pairs, {len(aff)} of {n} "
+        f"origins affected (share {len(aff) / n:.4f})")
+    path = os.path.join(work, "refreshed_neighborhoods.npz")
+    sync(torch, dev)
+    t = time.perf_counter()
+    new_w, new_n = refresh_neighborhoods(aug, st.cfg.walk, st.nb_w, st.nb_n,
+                                         pairs, path=path, seed=0)
+    sync(torch, dev)
+    walls = {"refresh_s": time.perf_counter() - t,
+             "sweep_s": st.walls["sweep_s"],
+             "affected_share": len(aff) / n}
+    log(f"refresh: {len(aff)} origins re-swept and saved in "
+        f"{walls['refresh_s']:.3f} s (the full sweep: "
+        f"{st.walls['sweep_s']:.3f} s)")
+    return SimpleNamespace(aug=aug, pairs=pairs, aff=aff, new_w=new_w,
+                           new_n=new_n, path=path, walls=walls)
+
+
+def check_refresh(torch, walk_kernel, st, rf) -> dict:
+    """The refreshed artifact: every unaffected row bit-equal to the
+    sweep's, the affected rows re-walked, and ``precompute_neighborhoods``
+    on the augmented graph serving the saved file unchanged (no K1
+    launch); then the refresh timed again without its cache write."""
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.ops.ppr import (
+        precompute_neighborhoods,
+        refresh_neighborhoods,
+    )
+
+    keep = np.setdiff1d(np.arange(st.graph.n_items), rf.aff)
+    if not (np.array_equal(rf.new_w[keep], st.nb_w[keep])
+            and np.array_equal(rf.new_n[keep], st.nb_n[keep])):
+        raise AssertionError("refresh changed unaffected rows")
+    moved = int((rf.new_n[rf.aff] != st.nb_n[rf.aff]).any(axis=1).sum())
+    before = walk_kernel.launches
+    served_w, served_n = precompute_neighborhoods(rf.aug, st.cfg.walk,
+                                                  rf.path, seed=0)
+    if walk_kernel.launches != before or not (
+            np.array_equal(served_w, rf.new_w)
+            and np.array_equal(served_n, rf.new_n)):
+        raise AssertionError("precompute_neighborhoods on the augmented "
+                             "graph did not serve the refreshed artifact")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    refresh_neighborhoods(rf.aug, st.cfg.walk, st.nb_w, st.nb_n, rf.pairs,
+                          seed=0)
+    torch.cuda.synchronize()
+    out = {**rf.walls, "refresh_without_cache_write_s":
+           time.perf_counter() - t, "affected": len(rf.aff),
+           "affected_rows_changed": moved, "unaffected_rows_equal": True,
+           "served_back": True}
+    log(f"refresh checks: {json.dumps(out)}")
+    return out
 
 
 def train_config(work: str):
@@ -1195,17 +1293,38 @@ def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5):
 
 
 EVAL_K, EVAL_QUERIES = 100, 256
-EVAL_MODELS = ("Random", "Features", "PageRank", "PageRankCo")
+NODE2VEC_EPOCHS = 1  # cut from the default 10 (PERF.md section 4)
+
+
+def count_walk_launches(walk_kernel, models) -> dict:
+    """Wrap each model's ``train`` and ``knn`` so the K1 launches they
+    make are added to the returned {row: launches} as they run."""
+    counts = dict.fromkeys(models, 0)
+    for name, model in models.items():
+        for method in ("train", "knn"):
+            call = getattr(model, method)
+
+            def counted(*args, _call=call, _name=name, **kw):
+                before = walk_kernel.launches
+                try:
+                    return _call(*args, **kw)
+                finally:
+                    counts[_name] += walk_kernel.launches - before
+
+            setattr(model, method, counted)
+    return counts
 
 
 def run_eval_path(dev, st, tr_st, work: str):
     """The eval path, as a user runs it: ``SongGraph`` through the native
     ``graph.json`` reader (timed beside the ``json`` module's reading of
-    the same file), then ``cli eval`` of the Random, Features, PageRank,
-    PageRankCo and trained PinSage rows at K=100 (PageRank walks with
-    K1); then the parts of ``eval_s`` outside the rows' own times, timed
-    again on its caches (their reads and compressed writes, each table).
-    Returns its state."""
+    the same file), then ``cli eval`` of every row of the JAX CLI at K=100
+    with ``--hybrid-runs`` on the trained run (its ``cmd_eval`` body:
+    ``eval_models`` then ``run_eval``, with node2vec cut to
+    ``NODE2VEC_EPOCHS``); K1 walks for PageRank, PageRankCo and the
+    Hybrid row's head.  Then the parts of ``eval_s`` outside the rows' own
+    times, timed again: one cache's read and compressed write, and each
+    table.  Returns its state."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -1218,6 +1337,7 @@ def run_eval_path(dev, st, tr_st, work: str):
         compute_results_table,
     )
     from gcn_song_embeddings_tpu_torch.native import jsongraph
+    from gcn_song_embeddings_tpu_torch.ops import walk_kernel
 
     ds = st.ds
     walls = {}
@@ -1246,25 +1366,30 @@ def run_eval_path(dev, st, tr_st, work: str):
     run_name = os.path.basename(tr_st.run_dir)
     pinsage = f"PinSage:{run_name}"
     eval_dir = os.path.join(work, "eval")
+    args = cli.parser().parse_args([
+        "eval", "--dataset", ds, "--run-dir", os.path.dirname(tr_st.run_dir),
+        "--pinsage-runs", run_name, "--hybrid-runs", run_name,
+        "--k", str(EVAL_K), "--eval-dir", eval_dir, "--device", str(dev)])
     t = time.perf_counter()
-    cli.main(["eval", "--dataset", ds, "--run-dir",
-              os.path.dirname(tr_st.run_dir), "--pinsage-runs", run_name,
-              "--k", str(EVAL_K), "--models", *EVAL_MODELS, pinsage,
-              "--eval-dir", eval_dir, "--device", str(dev)])
+    eval_graph = cli.load_graph(args.dataset, args.features)
+    models = cli.eval_models(args, eval_graph, dev)
+    models["Node2Vec"].epochs = NODE2VEC_EPOCHS
+    row_walks = count_walk_launches(walk_kernel, models)
+    cli.run_eval(args, eval_graph, models, dev)
     walls["eval_s"] = time.perf_counter() - t
-    models = (*EVAL_MODELS, pinsage)
+    log(f"eval: {len(models)} rows in {walls['eval_s']:.1f} s; K1 launches "
+        f"by row: {json.dumps({k: v for k, v in row_walks.items() if v})}")
     # the part of eval_s outside the models' own times, timed again here
-    # on the same caches: each kNN cache's read and compressed write, and
-    # each table (which reads every cache once)
-    walls["knn_cache_read_s"] = walls["knn_cache_write_s"] = 0.0
-    for model in models:
-        t = time.perf_counter()
-        with np.load(os.path.join(eval_dir, "knn", model + ".npz")) as z:
-            arrays = dict(z)
-        walls["knn_cache_read_s"] += time.perf_counter() - t
-        t = time.perf_counter()
-        np.savez_compressed(os.path.join(work, "knn_rewrite.npz"), **arrays)
-        walls["knn_cache_write_s"] += time.perf_counter() - t
+    # on the same caches: one kNN cache's read and compressed write (the
+    # PinSage row's; every [N, 100] cache has the same size), and each
+    # table (which reads every cache once)
+    t = time.perf_counter()
+    with np.load(os.path.join(eval_dir, "knn", pinsage + ".npz")) as z:
+        arrays = dict(z)
+    walls["one_knn_cache_read_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    np.savez_compressed(os.path.join(work, "knn_rewrite.npz"), **arrays)
+    walls["one_knn_cache_write_s"] = time.perf_counter() - t
     _, test_pos = graph.load_positives_split(
         os.path.join(ds, "positives.json"))
     knn = LazyKnnDict(list(models), eval_dir)
@@ -1276,7 +1401,8 @@ def run_eval_path(dev, st, tr_st, work: str):
                                   graph.features, device=dev)
     walls["beyond_table_s"] = time.perf_counter() - t
     return SimpleNamespace(graph=graph, eval_dir=eval_dir, pinsage=pinsage,
-                           models=models, walls=walls)
+                           models=tuple(models), built=models,
+                           row_walks=row_walks, walls=walls)
 
 
 def read_csv_rows(path: str) -> dict:
@@ -1290,12 +1416,12 @@ def read_csv_rows(path: str) -> dict:
 
 
 def check_eval(torch, dev, ev, tr_st) -> dict:
-    """The eval path's outputs: both CSVs hold a finite row per model,
-    each kNN cache is [N, 100]; ``rank_eval`` on the card over every test
-    pair against the full catalog gives the PinSage row's hit@10 and
-    hit@100 within 1e-3 of the list-based table's; the kNN ids of 256
-    PinSage queries on the card equal a CPU f32 recompute up to ties
-    within 1e-6."""
+    """The eval path's outputs: both CSVs hold a finite row per model, each
+    kNN cache is [N, 100] (JaccardFast's [N, 99]); ``rank_eval`` on the
+    card over every test pair against the full catalog gives the PinSage
+    row's hit@10 and hit@100 within 1e-3 of the list-based table's; the kNN
+    ids of 256 PinSage queries on the card equal a CPU f32 recompute up to
+    ties within 1e-6."""
     import numpy as np
 
     from gcn_song_embeddings_tpu_torch.evals.device_eval import rank_eval
@@ -1313,7 +1439,9 @@ def check_eval(torch, dev, ev, tr_st) -> dict:
     for model in ev.models:
         with np.load(os.path.join(ev.eval_dir, "knn", model + ".npz")) as z:
             shape = z["knn_n"].shape
-        if shape != (graph.n_items, EVAL_K):
+        # JaccardFast drops its top-k's column 0, as the reference does
+        k = EVAL_K - 1 if model == "JaccardFast" else EVAL_K
+        if shape != (graph.n_items, k):
             raise AssertionError(f"knn/{model}.npz has shape {shape}")
     acc = tables["results_accuracy.csv"]
     _, test_pos = graph.load_positives_split(
@@ -1397,6 +1525,148 @@ def check_project_once(torch, agg, st) -> dict:
     return out
 
 
+def rel_err(np, a, b) -> float:
+    """The largest difference relative to the largest reference entry."""
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def f64_bpr_step(np, m, X, Y, u, i, r, j):
+    """One BPR step of ``m`` in float64 with ``np.add.at`` (every
+    duplicate id's update summed)."""
+    X, Y = X.copy(), Y.copy()
+    xu, yi, yj = X[u], Y[i], Y[j]
+    z = (1.0 / (1.0 + np.exp(np.sum(xu * (yi - yj), 1))))[:, None]
+    for T, ids, g in ((X, u, z * (yi - yj) - m.reg * xu),
+                      (Y, i, z * xu - m.reg * yi),
+                      (Y, j, -z * xu - m.reg * yj)):
+        np.add.at(T, ids, m.lr * g)
+    return X, Y
+
+
+def f64_lmf_step(np, m, X, Y, u, i, r, jneg):
+    """One LMF step of ``m`` in float64: AdaGrad accumulators from 1, each
+    batch's g*g added before its update reads them."""
+    X, Y = X.copy(), Y.copy()
+    GX, GY = np.ones_like(X), np.ones_like(Y)
+    xu, yi = X[u], Y[i]
+    gpos = (r - (1.0 + r) / (1.0 + np.exp(-np.sum(xu * yi, 1))))[:, None]
+    un = np.tile(u, 2)
+    xn, yn = X[un], Y[jneg]
+    gneg = -(1.0 / (1.0 + np.exp(-np.sum(xn * yn, 1))))[:, None] / m.neg_prop
+    for T, G, ids, g in ((X, GX, u, gpos * yi - m.reg * xu),
+                         (Y, GY, i, gpos * xu - m.reg * yi),
+                         (X, GX, un, gneg * yn), (Y, GY, jneg, gneg * xn)):
+        np.add.at(G, ids, g * g)
+        np.add.at(T, ids, m.lr * g / np.sqrt(G[ids]))
+    return X, Y
+
+
+def check_eval_rows(torch, dev, ev) -> dict:
+    """Card-side checks of the eval rows' plain-PyTorch paths: ``ALS.fit``
+    on the card against the CPU at a small size (within 1e-4 of the largest
+    factor); node2vec walks of 4096 starts over the Node2Vec row's 100k
+    alias graph, on the card from draws made on the CPU, equal to the CPU's
+    walks with every step an edge of the projection; the BPR and LMF steps
+    on a batch of heavily duplicated ids equal to a float64 reference
+    within the rounding of their f32 additions (the most repeated id's
+    count x 2^-24 x the largest entry); each GNN row's loss falling (the
+    first 100 steps' mean above the last 100's)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from gcn_song_embeddings_tpu_torch.models.baselines.mf import (
+        ALS,
+        BPR,
+        LMF,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.node2vec import (
+        draw_walks,
+        node2vec_walks,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.ppr import seeded_generator
+
+    out = {}
+    rng = np.random.default_rng(5)
+    dense = (rng.random((2000, 1500)) < 0.01) * rng.uniform(
+        0.5, 3.0, (2000, 1500))
+    mat = sp.csr_matrix(dense.astype(np.float32))
+    fits = []
+    for d in (dev, "cpu"):
+        m = ALS(factors=128, iterations=3, seed=1, device=d)
+        m.fit(mat)
+        fits.append(m)
+    out["als_card_vs_cpu"] = {
+        "user_rel_err": rel_err(np, fits[0].user_factors,
+                                fits[1].user_factors),
+        "item_rel_err": rel_err(np, fits[0].item_factors,
+                                fits[1].item_factors)}
+    if not max(out["als_card_vs_cpu"].values()) <= 1e-4:
+        raise AssertionError(f"ALS card vs CPU: {out['als_card_vs_cpu']}")
+
+    g = ev.built["Node2Vec"].alias
+    g_cpu = type(g)(*(t.cpu() for t in g))
+    n = g.n
+    starts = torch.arange(n)[::max(n // 4096, 1)][:4096]
+    draws = draw_walks(len(starts), 20, 3, seeded_generator([6], "cpu"))
+    card = node2vec_walks(g, starts.to(dev), 20, 2.0, 0.5,
+                          type(draws)(*(t.to(dev) for t in draws))).cpu()
+    cpu = node2vec_walks(g_cpu, starts, 20, 2.0, 0.5, draws)
+    if not torch.equal(card, cpu):
+        raise AssertionError(f"node2vec walks: card differs from the CPU "
+                             f"in {int((card != cpu).sum())} entries")
+    indptr, indices = g_cpu.indptr.numpy(), g_cpu.indices.numpy()
+    edge_keys = np.repeat(np.arange(n, dtype=np.int64),
+                          np.diff(indptr)) * n + indices
+    w = cpu.numpy()
+    steps = w[:, :-1].astype(np.int64) * n + w[:, 1:]
+    stuck = (np.diff(indptr)[w[:, :-1]] == 0) & (w[:, :-1] == w[:, 1:])
+    off_edge = int((~(np.isin(steps, edge_keys) | stuck)).sum())
+    out["node2vec_walks_card_vs_cpu"] = {
+        "walks": list(card.shape), "equal": True, "off_edge_steps": off_edge}
+    if off_edge:
+        raise AssertionError(f"node2vec walks leave the projection's edges "
+                             f"{off_edge} times")
+
+    X = rng.normal(0, 0.3, (64, 32)).astype(np.float32)
+    Y = rng.normal(0, 0.3, (48, 32)).astype(np.float32)
+    u, i = rng.integers(0, 6, 4096), rng.integers(0, 5, 4096)
+    j, r = rng.integers(0, 7, 8192), rng.uniform(0.5, 2, 4096)
+    r = r.astype(np.float32)
+    X64, Y64 = X.astype(np.float64), Y.astype(np.float64)
+    errs = {}
+    for model, neg in ((BPR(factors=32, learning_rate=1e-4), j[:4096]),
+                       (LMF(factors=32, learning_rate=1e-3), j)):
+        state = model.start(torch.tensor(X, device=dev),
+                            torch.tensor(Y, device=dev))
+        model.step(state, *(torch.as_tensor(a, device=dev)
+                            for a in (u, i, r, neg)))
+        ref = (f64_bpr_step if isinstance(model, BPR) else f64_lmf_step)(
+            np, model, X64, Y64, u, i, r, neg)
+        err = max(float(np.abs(got.cpu().numpy() - want).max())
+                  for got, want in zip(state, ref))
+        # the rounding of the f32 additions: each of the most repeated
+        # id's adds rounds at most half an ulp of the largest entry
+        dups = max(np.bincount(a).max() for a in (u, i, neg))
+        tol = dups * 2.0 ** -24 * max(float(np.abs(w).max()) for w in ref)
+        errs[type(model).__name__] = {"max_abs_err": err, "tolerance": tol,
+                                      "most_repeated_id": int(dups)}
+        if not err <= tol:
+            raise AssertionError(f"scatter-adds of duplicate ids: {errs}")
+    out["duplicate_id_scatter_adds_vs_float64"] = errs
+
+    losses = {}
+    for row in ("GraphSAGE", "GAT", "GCN"):
+        loss = ev.built[row].model.losses
+        losses[row] = {"first_100": float(loss[:100].mean()),
+                       "last_100": float(loss[-100:].mean()),
+                       "steps": len(loss)}
+        if not losses[row]["last_100"] < losses[row]["first_100"]:
+            raise AssertionError(f"{row} loss did not fall: {losses[row]}")
+    out["gnn_losses"] = losses
+    log(f"eval rows on the card: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1472,6 +1742,13 @@ def main() -> int:
                             "agg_gather_mean"))
     log(f"launches on the main path: {launches}")
 
+    # ---- the walk-side refresh after new co-listens ----------------------
+    reset_counts()
+    rf = run_refresh_path(dev, st, work)
+    refresh_launches = read_counts(("walk",))
+    log(f"launches on the refresh path: {refresh_launches}")
+    refresh_checks = check_refresh(torch, walk_kernel, st, rf)
+
     # ---- the training path ---------------------------------------------
     reset_counts()
     tr_st = run_train_path(dev, st, work)
@@ -1511,6 +1788,7 @@ def main() -> int:
     eval_launches = read_counts(("walk",))
     log(f"launches on the eval path: {eval_launches}")
     eval_checks = check_eval(torch, dev, ev, tr_st)
+    eval_checks["rows_on_the_card"] = check_eval_rows(torch, dev, ev)
     eval_checks["project_once"] = check_project_once(torch, agg, st)
     log(json.dumps({"eval_walls": {
         **ev.walls, "models": {m: {c: eval_checks["accuracy"][m][c]
@@ -1529,6 +1807,7 @@ def main() -> int:
     log(json.dumps({"train_step_profile": step_profile}))
     log(json.dumps({"int8_checks": int8_checks}))
     log(json.dumps({"eval_checks": eval_checks}))
+    log(json.dumps({"refresh_checks": refresh_checks}))
     emb, nb_w, nb_n, params = st.emb, st.nb_w, st.nb_n, st.params
     feats, nbw_d, nbn_d, dg = st.feats, st.nbw_d, st.nbn_d, st.dg
     rows, cached, ds = st.rows, st.cached, st.ds
@@ -1593,12 +1872,19 @@ def main() -> int:
                       eval_nodes, alpha, draw_uniforms(
                           SERVE_HOPS, 1000, block_generator(0, 0, dev))))
     sweep_launches = st.sweep_walk_launches
+    # the refresh walks blocks of the sweep's shape, and the Hybrid row's
+    # head blocks of the PageRank rows' shape
     results = [measure_k1(
         torch, walk_kernel, fused_walk_tables(dg), k1_shapes,
         {"sweep": sweep_launches,
          "live_walk": launches["walk"] - sweep_launches,
-         "eval": eval_launches["walk"],
+         "refresh": refresh_launches["walk"],
+         **{f"eval_{row.split(':')[0]}": n
+            for row, n in ev.row_walks.items() if n},
          "int8_live_walk": int8_launches["walk"]})]
+    if sum(ev.row_walks.values()) != eval_launches["walk"]:
+        raise AssertionError(f"eval K1 launches by row {ev.row_walks} do "
+                             f"not add up to {eval_launches['walk']}")
 
     # K2 at both conv layers' shapes of embed_all (its backward at the
     # same shapes: the train step's full-graph forward), K3 at both

@@ -12,8 +12,13 @@ Verbs:
             params from a trainer checkpoint (either package's) under the
             ``config.json`` beside it, or a seeded init under
             ``RunConfig.recommended()``, written to one emb.npy
-  eval   -- the baseline comparison: kNN lists of each model cached under
-            --eval-dir, results_accuracy.csv and results_beyond.csv
+  eval   -- the baseline comparison: every row of the JAX CLI (Random,
+            PageRank, PageRankCo, JaccardFast, Node2Vec, TrackTrackCfALS,
+            TrackTrackCfBPR, ColTrackCfALS, ColTrackCfLMF, GraphSAGE, GAT,
+            GCN, Features, PinSage:<run>, Hybrid:<run>); kNN lists of each
+            model cached under --eval-dir, results_accuracy.csv and
+            results_beyond.csv
+  grid   -- PinSage hyperparameter grid search, results sorted by MRR
   stats  -- dataset statistics
 
 Features resolve as in the JAX CLI: ``features_<name>.npy``, then
@@ -29,8 +34,11 @@ Usage:
   python -m gcn_song_embeddings_tpu_torch.cli embed --dataset DIR \
       --out emb.npy [--checkpoint state.npz] [--seed 0] [--device cuda]
   python -m gcn_song_embeddings_tpu_torch.cli eval --dataset DIR \
-      [--pinsage-runs RUN ...] [--models NAME ...] [--k 1000] \
-      [--eval-dir DIR] [--device cuda]
+      [--pinsage-runs RUN ...] [--hybrid-runs RUN ...] [--models NAME ...] \
+      [--k 1000] [--eval-dir DIR] [--device cuda]
+  python -m gcn_song_embeddings_tpu_torch.cli grid --dataset DIR \
+      --grid grid.json [--out grid_search.json] [--run-dir ./runs_gs] \
+      [--config cfg.json] [--set KEY=JSON ...] [--device cuda]
   python -m gcn_song_embeddings_tpu_torch.cli stats --dataset DIR
 
 Serve the result with ``python -m gcn_song_embeddings_tpu_torch.serve``.
@@ -43,12 +51,6 @@ import json
 import os
 
 import numpy as np
-
-# eval rows the JAX CLI has and the port does not have yet (ROADMAP.md,
-# queue 1 item 4)
-NOT_PORTED = ("JaccardFast", "Node2Vec", "TrackTrackCfALS", "TrackTrackCfBPR",
-              "ColTrackCfALS", "ColTrackCfLMF", "GraphSAGE", "GAT", "GCN")
-
 
 def cmd_synth(args) -> None:
     from gcn_song_embeddings_tpu_torch.data.synth import (
@@ -225,17 +227,38 @@ def cmd_embed(args) -> None:
 
 
 def eval_models(args, graph, device) -> dict:
-    """The eval rows the port has, named as the JAX CLI names them, cut to
-    ``--models``; a row the JAX CLI has and the port not yet raises."""
+    """Every eval row of the JAX CLI, under its names, each on ``device``,
+    cut to ``--models``: Random, PageRank, PageRankCo, JaccardFast,
+    Node2Vec, the four CF rows, GraphSAGE, GAT, GCN, Features (the raw
+    features file), PinSage:<run> per ``--pinsage-runs`` and Hybrid:<run>
+    per ``--hybrid-runs``."""
     from gcn_song_embeddings_tpu_torch.models.baselines import (
+        ColTrackCF,
         EmbLoader,
+        FastNode2Vec,
+        GraphSAGE,
+        JaccardFast,
         PersPageRank,
         Random,
+        TrackTrackCF,
+        WalkEmbedHybrid,
     )
 
-    models = {"Random": Random(),
-              "PageRank": PersPageRank(device=device),
-              "PageRankCo": PersPageRank(colisten_copies=1, device=device)}
+    models = {
+        "Random": Random(),
+        "PageRank": PersPageRank(device=device),
+        # walk ranking over the co-listen augmented graph
+        "PageRankCo": PersPageRank(colisten_copies=1, device=device),
+        "JaccardFast": JaccardFast(device=device),
+        "Node2Vec": FastNode2Vec(device=device),
+        "TrackTrackCfALS": TrackTrackCF(algo="als", device=device),
+        "TrackTrackCfBPR": TrackTrackCF(algo="bpr", device=device),
+        "ColTrackCfALS": ColTrackCF(algo="als", device=device),
+        "ColTrackCfLMF": ColTrackCF(algo="lmf", device=device),
+        "GraphSAGE": GraphSAGE(device=device),
+        "GAT": GraphSAGE(layer="gat", device=device),
+        "GCN": GraphSAGE(layer="gcn", device=device),
+    }
     if graph.features is not None:
         # the raw (not z-normalized) features, from the file the graph's
         # own features came from
@@ -246,36 +269,30 @@ def eval_models(args, graph, device) -> dict:
     for run_name in args.pinsage_runs or []:
         models[f"PinSage:{run_name}"] = EmbLoader(
             os.path.join(args.run_dir, run_name, "emb.npy"), device=device)
-    later = sorted({*(m for m in args.models or [] if m in NOT_PORTED),
-                    *(f"Hybrid:{r}" for r in args.hybrid_runs or [])})
-    if later:
-        raise SystemExit(f"eval rows {later} are not in the port yet "
-                         f"(ROADMAP.md, queue 1 item 4); ported: "
-                         f"{sorted(models)}")
-    if not args.models:
-        print(f"eval: rows left out (not in the port yet, ROADMAP.md queue "
-              f"1 item 4): {', '.join(NOT_PORTED)}")
-        return models
-    unknown = set(args.models) - set(models)
-    if unknown:
-        raise SystemExit(f"unknown models {sorted(unknown)}; available: "
-                         f"{sorted(models)}")
-    return {k: v for k, v in models.items() if k in args.models}
+    for run_name in args.hybrid_runs or []:
+        models[f"Hybrid:{run_name}"] = WalkEmbedHybrid(
+            os.path.join(args.run_dir, run_name, "emb.npy"), device=device)
+    if args.models:
+        unknown = set(args.models) - set(models)
+        if unknown:
+            raise SystemExit(f"unknown models {sorted(unknown)}; "
+                             f"available: {sorted(models)}")
+        models = {k: v for k, v in models.items() if k in args.models}
+    return models
 
 
-def cmd_eval(args) -> None:
+def run_eval(args, graph, models: dict, device) -> str:
+    """Train, cache and score ``models`` on ``graph``'s test positives;
+    writes results_accuracy.csv and results_beyond.csv under the eval dir
+    and returns it."""
     from gcn_song_embeddings_tpu_torch.evals.harness import get_knn_dict
     from gcn_song_embeddings_tpu_torch.evals.tables import (
         compute_beyond_accuracy_table,
         compute_results_table,
     )
-    from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
-    graph = load_graph(args.dataset, args.features)
     train_pos, test_pos = graph.load_positives_split(
         positives_path(args.dataset, args.positives))
-    models = eval_models(args, graph, dev)
     save_dir = args.eval_dir or os.path.join(args.dataset, "baselines")
     knn_dict = get_knn_dict(models, graph, graph.track_ids, train_pos,
                             test_pos, graph.features, save_dir, k=args.k)
@@ -285,10 +302,39 @@ def cmd_eval(args) -> None:
     if graph.features is not None:
         beyond = compute_beyond_accuracy_table(
             knn_dict, test_pos, graph.in_degrees(), graph.features,
-            device=dev)
+            device=device)
         print(beyond.to_string())
         beyond.to_csv(os.path.join(save_dir, "results_beyond.csv"))
     print(f"results -> {save_dir}")
+    return save_dir
+
+
+def cmd_eval(args) -> None:
+    from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    graph = load_graph(args.dataset, args.features)
+    run_eval(args, graph, eval_models(args, graph, dev), dev)
+
+
+def cmd_grid(args) -> None:
+    from gcn_song_embeddings_tpu_torch.train.grid_search import grid_search
+    from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    graph = load_graph(args.dataset, args.features)
+    if graph.features is None:
+        raise SystemExit(f"no features found in {args.dataset}")
+    train_pos, test_pos = graph.load_positives_split(
+        positives_path(args.dataset, args.positives))
+    with open(args.grid) as f:
+        grid = json.load(f)
+    results = grid_search(graph, train_pos, test_pos, grid,
+                          base_cfg=run_config(args.run_name, args.config,
+                                              args.set),
+                          base_run_dir=args.run_dir, out_path=args.out,
+                          device=dev)
+    print(json.dumps(results[:5], indent=2))
 
 
 def cmd_stats(args) -> None:
@@ -303,7 +349,8 @@ def cmd_stats(args) -> None:
     print(json.dumps(graph.stats(positives), indent=2))
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
+    """The CLI's argument parser (each verb's ``func`` is its command)."""
     p = argparse.ArgumentParser(prog="gcn_song_embeddings_tpu_torch")
     sub = p.add_subparsers(dest="verb", required=True)
 
@@ -363,16 +410,32 @@ def main(argv=None) -> None:
     sp.add_argument("--pinsage-runs", nargs="*", default=None,
                     help="add PinSage:<run> rows: <run-dir>/<run>/emb.npy")
     sp.add_argument("--hybrid-runs", nargs="*", default=None,
-                    help="Hybrid:<run> rows (not in the port yet)")
+                    help="add Hybrid:<run> rows: walk head + the cosine "
+                         "ranking of <run-dir>/<run>/emb.npy")
     sp.add_argument("--models", nargs="*", default=None,
                     help="subset of the rows to evaluate")
     sp.set_defaults(func=cmd_eval)
 
+    sp = sub.add_parser("grid")
+    common(sp)
+    sp.add_argument("--run-name", default="pinsage_tpu")
+    sp.add_argument("--run-dir", default="./runs_gs")
+    sp.add_argument("--config", default=None, help="RunConfig json file")
+    sp.add_argument("--set", action="append", metavar="KEY=JSON",
+                    help="config override, e.g. --set train.lr=0.001")
+    sp.add_argument("--grid", required=True,
+                    help="json file: {param_path: [values, ...]}")
+    sp.add_argument("--out", default="grid_search.json")
+    sp.set_defaults(func=cmd_grid)
+
     sp = sub.add_parser("stats")
     common(sp, device=False)
     sp.set_defaults(func=cmd_stats)
+    return p
 
-    args = p.parse_args(argv)
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
     args.func(args)
 
 

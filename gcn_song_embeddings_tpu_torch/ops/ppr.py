@@ -12,7 +12,9 @@ tail included.
 
 The neighborhood cache (``.npz`` of ``weights``/``nodes``/``meta``/
 ``alpha``) is byte-compatible with the JAX package's: each package loads
-what the other wrote.
+what the other wrote.  ``refresh_neighborhoods`` re-sweeps only the
+origins a graph augmentation can reach and saves the result under the
+augmented graph's cache meta.
 """
 
 from __future__ import annotations
@@ -28,7 +30,14 @@ from gcn_song_embeddings_tpu_torch.ops.walk_kernel import (
     random_walks,
     restart_walks,
 )
-from gcn_song_embeddings_tpu_torch.ops.walks import fused_walk_tables
+from gcn_song_embeddings_tpu_torch.ops.walks import (
+    draw_uniforms,
+    fused_walk_tables,
+)
+
+# mixed into the refresh's generator seeds, so its walks draw apart from
+# the sweep's (the JAX package folds the same constant into its key)
+REFRESH_SALT = 0x5EF5E5
 
 
 def visit_counts_topt(trace: torch.Tensor, nodeset: torch.Tensor, T: int
@@ -88,16 +97,23 @@ def effective_chains(n_hops: int, parallel_chains: int) -> int:
     return w
 
 
+def seeded_generator(entropy: list[int], device: torch.device
+                     ) -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``entropy``
+    (through numpy's ``SeedSequence``, so nearby keys give unrelated
+    streams)."""
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+    g = torch.Generator(device=device)
+    g.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+    return g
+
+
 def block_generator(seed: int, start: int, device: torch.device
                     ) -> torch.Generator:
     """The generator of the sweep block that starts at origin `start`:
     seeded from (seed, start), so every block draws fresh uniforms and a
     rerun of the sweep repeats them."""
-    state = np.random.SeedSequence([seed, start]).generate_state(
-        2, np.uint32)
-    g = torch.Generator(device=device)
-    g.manual_seed((int(state[0]) << 31) ^ int(state[1]))
-    return g
+    return seeded_generator([seed, start], device)
 
 
 def precompute_neighborhoods(graph: DeviceGraph, cfg: WalkConfig,
@@ -136,6 +152,81 @@ def precompute_neighborhoods(graph: DeviceGraph, cfg: WalkConfig,
     out_w, out_n = all_w.cpu().numpy(), all_n.cpu().numpy()
     _save_cache(path, out_w, out_n, cfg, seed, graph.n_edges)
     return out_w, out_n
+
+
+def affected_origins(old_w: np.ndarray, old_n: np.ndarray,
+                     added_pairs: np.ndarray, n_items: int) -> np.ndarray:
+    """Origins whose cached top-T neighborhood can change when the item
+    pairs in ``added_pairs`` gain edges: every endpoint, and every origin
+    whose cached top-T holds an endpoint at a weight > 0 (visit mass
+    outside the top-T is what the cache already drops).  Sorted int32."""
+    touched = np.unique(np.asarray(added_pairs, np.int64)[:, :2].ravel())
+    touched = touched[(touched >= 0) & (touched < n_items)]
+    lut = np.zeros(n_items, dtype=bool)
+    lut[touched] = True
+    mask = lut[old_n] & (old_w > 0)
+    aff = np.flatnonzero(mask.any(axis=1))
+    return np.union1d(aff, touched).astype(np.int32)
+
+
+def refresh_neighborhoods(graph: DeviceGraph, cfg: WalkConfig,
+                          old_w: np.ndarray, old_n: np.ndarray,
+                          added_pairs: np.ndarray, path: str | None = None,
+                          seed: int = 0, verbose: bool = False,
+                          uniforms=None) -> tuple[np.ndarray, np.ndarray]:
+    """Re-sweep the cached top-T neighborhoods that a graph augmentation
+    can change.
+
+    ``graph`` is the augmented graph (the ``added_pairs``' edges are in
+    it) and ``old_w``/``old_n`` the artifact swept before the
+    augmentation.  Only ``affected_origins`` are walked again, in blocks
+    of ``cfg.batch_walkers`` (the last one padded with its last id), with
+    K1 on CUDA and the plain walk on the CPU; every other row is kept.
+    ``uniforms(start, n_walkers)`` gives the block at offset ``start`` of
+    the affected list its [n_hops / chains, n_walkers, 3] uniforms
+    (default: a generator seeded from (seed, ``REFRESH_SALT``, start) on
+    the graph's device).  The result is saved under the augmented
+    graph's cache meta, so ``precompute_neighborhoods`` on that graph (in
+    either package) serves it."""
+    n_items = graph.n_items
+    T = cfg.t_precompute
+    if old_w.shape != (n_items, T) or old_n.shape != (n_items, T):
+        raise ValueError(f"old artifact shape {old_w.shape} != "
+                         f"({n_items}, {T})")
+    aff = affected_origins(old_w, old_n, added_pairs, n_items)
+    new_w = np.array(old_w, dtype=np.float32, copy=True)
+    new_n = np.array(old_n, dtype=np.int32, copy=True)
+    if verbose:
+        print(f"refresh: {len(aff)}/{n_items} origins affected "
+              f"({100 * len(aff) / max(n_items, 1):.1f}%)")
+    if len(aff):
+        dev = graph.device
+        chains = effective_chains(cfg.n_hops, cfg.parallel_chains)
+        if uniforms is None:
+            def uniforms(start, n_walkers):
+                return draw_uniforms(
+                    cfg.n_hops // chains, n_walkers,
+                    seeded_generator([seed, REFRESH_SALT, start], dev))
+        tables = fused_walk_tables(graph)
+        aff_d = torch.as_tensor(aff, device=dev)
+        out_w = torch.empty((len(aff), T), dtype=torch.float32, device=dev)
+        out_n = torch.empty((len(aff), T), dtype=torch.int32, device=dev)
+        bs = cfg.batch_walkers
+        for start in range(0, len(aff), bs):
+            stop = min(start + bs, len(aff))
+            block = aff_d[stop - 1].repeat(bs)
+            block[:stop - start] = aff_d[start:stop]
+            w, n = sample_neighborhood_topt_tables(
+                tables, block, cfg.n_hops, cfg.alpha, T,
+                uniforms(start, bs * chains), chains)
+            out_w[start:stop] = w[:stop - start]
+            out_n[start:stop] = n[:stop - start]
+            if verbose:
+                print(f"refresh: {stop}/{len(aff)} re-swept")
+        new_w[aff] = out_w.cpu().numpy()
+        new_n[aff] = out_n.cpu().numpy()
+    _save_cache(path, new_w, new_n, cfg, seed, graph.n_edges)
+    return new_w, new_n
 
 
 def _cache_meta(cfg: WalkConfig, seed: int, n_edges: int

@@ -7,7 +7,8 @@ f32-accurate products, summed in another order); the list metrics equal
 within 1e-9 (the same numpy on the same lists); ``intra_diversity`` on the
 torch path within 1e-5 relative (f32 sums in another order); the CLI's
 CSVs allclose 1e-5.  ``Random`` lists are bit-equal, and ``PersPageRank``
-fed the JAX package's uniforms gives its top-T ids exactly.
+fed the JAX package's uniforms gives its top-T ids exactly.  CLI ``eval``
+with no ``--models`` writes every row of the JAX CLI.
 """
 
 import os
@@ -48,6 +49,7 @@ from gcn_song_embeddings_tpu_torch.models.baselines import (
     Random,
 )
 from gcn_song_embeddings_tpu_torch.ops.knn import knn_from_emb
+from torch_threads import one_torch_thread  # noqa: F401
 
 TIMES = ("t (train)", "t (emb)", "t (knn)")
 
@@ -311,17 +313,77 @@ def test_cli_eval_csvs_match_jax(eval_run, dataset_dir):
 
 def test_cli_eval_refuses_rows_the_port_does_not_have(dataset_dir,
                                                       tmp_path, capsys):
+    """Every row of the JAX CLI is in the port now: the rows it still
+    refuses are the ones neither package has (an unknown name, a Hybrid
+    row without --hybrid-runs), and nothing is written for them."""
     base = ["eval", "--dataset", dataset_dir, "--device", "cpu",
             "--eval-dir", str(tmp_path / "ev"), "--k", "20"]
-    for extra in (["--models", "Random", "JaccardFast"],
-                  ["--models", "GraphSAGE"],
-                  ["--hybrid-runs", "r", "--models", "Random"]):
-        with pytest.raises(SystemExit, match="queue 1 item 4"):
+    for extra in (["--models", "Nope"], ["--models", "Random", "Hybrid:r"],
+                  ["--hybrid-runs", "r", "--models", "Hybrid:s"]):
+        with pytest.raises(SystemExit, match="unknown models"):
             cli.main(base + extra)
-    with pytest.raises(SystemExit, match="unknown models"):
-        cli.main(base + ["--models", "Nope"])
     assert not os.path.exists(tmp_path / "ev")
-    cli.main(base + ["--models", "Random"])
+    cli.main(base + ["--models", "Random", "JaccardFast"])
     assert "rows left out" not in capsys.readouterr().out
     acc = pd.read_csv(tmp_path / "ev" / "results_accuracy.csv", index_col=0)
-    assert list(acc.index) == ["Random"]
+    assert list(acc.index) == ["Random", "JaccardFast"]
+    # JaccardFast keeps the reference's k-1 wide lists
+    assert harness.load_knn("JaccardFast", str(tmp_path / "ev"))[1].shape \
+        == (500, 19)
+
+
+def test_cli_eval_with_no_models_runs_every_jax_row(dataset_dir, tmp_path,
+                                                    monkeypatch):
+    """``eval`` with no ``--models`` builds every row JAX's ``cmd_eval``
+    builds (its names captured from the JAX CLI itself), ``--hybrid-runs``
+    included, and writes both CSVs with JAX's rows and columns.  The GNN
+    rows train 20 steps and node2vec 1 epoch here, to keep the CPU run
+    short; every other row runs at its defaults."""
+    runs = tmp_path / "runs"
+    (runs / "r").mkdir(parents=True)
+    np.save(runs / "r" / "emb.npy", _emb(500, 16, seed=14))
+    args = ["eval", "--dataset", dataset_dir, "--run-dir", str(runs),
+            "--pinsage-runs", "r", "--hybrid-runs", "r", "--k", "30"]
+
+    class Built(Exception):
+        pass
+
+    def capture(models, *rest, **kw):
+        raise Built(list(models))
+
+    monkeypatch.setattr(jharness, "get_knn_dict", capture)
+    with pytest.raises(Built) as built:
+        jcli.main(args + ["--eval-dir", str(tmp_path / "jax")])
+    jax_rows = built.value.args[0]
+    assert len(jax_rows) == 15 and "Hybrid:r" in jax_rows
+
+    build = cli.eval_models
+
+    def cut(args, graph, device):
+        models = build(args, graph, device)
+        for name in ("GraphSAGE", "GAT", "GCN"):
+            models[name].kwargs["steps"] = 20
+        models["Node2Vec"].epochs = 1
+        return models
+
+    monkeypatch.setattr(cli, "eval_models", cut)
+    ev = tmp_path / "port"
+    cli.main(args + ["--eval-dir", str(ev), "--device", "cpu"])
+    knn = harness.LazyKnnDict(jax_rows, str(ev))
+    test_pos = SongGraph(dataset_dir).load_positives_split(
+        os.path.join(dataset_dir, "positives.json"))[1]
+    feats = np.load(os.path.join(dataset_dir, "features.npy"))
+    deg = SongGraph(dataset_dir).in_degrees()
+    for name, ref in (
+            ("results_accuracy.csv",
+             jtables.compute_results_table(knn, test_pos, deg)),
+            ("results_beyond.csv",
+             jtables.compute_beyond_accuracy_table(knn, test_pos, deg,
+                                                   feats))):
+        got = pd.read_csv(ev / name, index_col=0)
+        assert list(got.index) == jax_rows == list(ref.index)
+        assert list(got.columns) == list(ref.columns)
+        assert np.isfinite(got.to_numpy()).all()
+    for row in jax_rows:
+        n = harness.load_knn(row, str(ev))[1]
+        assert n.shape == (500, 29 if row == "JaccardFast" else 30), row

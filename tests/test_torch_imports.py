@@ -78,20 +78,39 @@ def test_every_port_module_imports_with_jax_blocked():
                    "train.sampler", "train.trainer", "native.jsongraph",
                    "native.featload", "evals.metrics", "evals.harness",
                    "evals.tables", "evals.device_eval",
-                   "models.baselines.simple"):
+                   "models.baselines.simple", "models.baselines.similarity",
+                   "models.baselines.mf", "models.baselines.node2vec",
+                   "models.baselines.graphsage",
+                   "models.baselines.pinsage_wrapper", "models.gnnlib",
+                   "ops.graph_ops", "ops.node2vec", "train.grid_search"):
         assert prefix + module in names
 
 
 def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
     res = _python(
         "import numpy as np\n"
+        "import scipy.sparse as sp\n"
         "from gcn_song_embeddings_tpu_torch import cli, serve\n"
+        "from gcn_song_embeddings_tpu_torch.models import gnnlib\n"
+        "from gcn_song_embeddings_tpu_torch.models.baselines import mf\n"
+        "from gcn_song_embeddings_tpu_torch.ops.node2vec import "
+        "build_alias_graph\n"
+        "from gcn_song_embeddings_tpu_torch.train.grid_search import "
+        "grid_search\n"
         "from gcn_song_embeddings_tpu_torch.utils.device import "
         "resolve_device\n"
+        "ip, ix = np.array([0, 1, 2]), np.array([1, 0])\n"
+        "mat = sp.csr_matrix(np.eye(3, dtype='f4'))\n"
         "calls = [lambda: resolve_device(None),\n"
         "         lambda: serve.EmbeddingIndex(np.eye(4, dtype='f4')),\n"
         "         lambda: cli.embed_dataset('nowhere'),\n"
-        "         lambda: serve.main(['--emb', 'x.npy'])]\n"
+        "         lambda: serve.main(['--emb', 'x.npy']),\n"
+        "         lambda: build_alias_graph(ip, ix),\n"
+        "         lambda: gnnlib.GNNCore().fit(ip, ix, None, 2),\n"
+        "         lambda: gnnlib.params_from_jax({'l': {'W': [1.0]}}),\n"
+        "         lambda: mf.ALS(factors=2).fit(mat),\n"
+        "         lambda: mf.BPR(factors=2).fit(mat),\n"
+        "         lambda: grid_search(None, None, None, {})]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"
