@@ -67,7 +67,30 @@
    int8-vs-f32 top-10 overlap and the device bytes of both tables are
    printed, and K4 is held to its plain version (``torch.equal``) and to
    the stochastic quantizer's contract (tests/test_quantize.py:40-48).
-8. Holds each kernel against its plain PyTorch version on the card at the
+8. Right after step 3, drives ``prepare`` and ``all`` with the counters
+   set to 0 again, on a copy of the 100k dataset (graph.json,
+   tracks.json, collections.json):
+   ``cli prepare --features random --gen-positives`` (100,000 per-track
+   feature files, the consolidated matrix, the PPR sweep with K1 under
+   ``WalkConfig()``, walk positives), then ``cli all`` (the same prepare,
+   ``train`` cut as in step 4, ``eval`` of Random, PageRank (K1) and its
+   own ``PinSage:<run>`` row at K=100).  Fails unless K1 ran 25 times in
+   prepare and never in all's prepare or train (the cache and the
+   per-track files are reused), ``features_random.npy`` is bit-equal to a
+   numpy replay of ``RandomFeatures(512, seed=0)``, every walk pair lies
+   in its origin's top 3 with weight > 0 and equals
+   ``generate_walk_positives`` on the written cache, all rewrote the same
+   positives.json and its PinSage row's hit@100 beats Random's.
+9. Then audio features at the nets' published widths: a 256-track catalog
+   with seeded 30 s clips (half 22,050 Hz ``.wav``, half 16 kHz
+   ``.npy``), ``cli prepare --features`` mfcc, openl3, vggish and musicnn
+   (random init), each timed; for 2 clips, each front end and embedder
+   on the card against the port's CPU path (mel front ends rtol 1e-4 /
+   atol 1e-4, OpenL3's dB mel atol 1e-3, embeddings rtol 1e-3 / atol
+   1e-3); the MFCC batch's peak device memory at 512 clips; an mp3 round
+   trip where the FFmpeg decoder was built.  Prints a ``prepare_checks``
+   line.
+10. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes (K1 at the sweep's (the refresh's too), alpha 0.85 and
    0, at the live-walk requests' B=1 and B=4 and at eval's PageRank
    block of 1000 (the Hybrid head's too), each timed with its own bound;
@@ -82,7 +105,7 @@
    as the host issues them, its wrapper included.  K2's
    and K3's bounds count their products on the TF32 tensor cores in
    three passes (3xTF32); ``bound_f32_simt_ms`` keeps the f32 one.
-9. Checks the outputs: finite embeddings of the expected shape that match
+11. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
 
@@ -1667,6 +1690,310 @@ def check_eval_rows(torch, dev, ev) -> dict:
     return out
 
 
+# ---- prepare and all, and the audio features ---------------------------
+PREPARE_RUN = "smoke_all"
+AUDIO_TRACKS, AUDIO_COLLECTIONS, AUDIO_SEED = 256, 64, 5
+AUDIO_DIMS = {"mfcc": 40, "openl3": 512, "vggish": 128, "musicnn": 753}
+# the card against the port's CPU path: mel front ends (OpenL3's dB mel
+# at atol 1e-3, the JAX golden test's bar) and embeddings
+FRONT_TOL = {"rtol": 1e-4, "atol": 1e-4}
+OPENL3_MEL_TOL = {"rtol": 1e-4, "atol": 1e-3}
+EMB_TOL = {"rtol": 1e-3, "atol": 1e-3}
+MFCC_BATCH = 512  # generate_features' batch: its frames' device memory
+
+
+class stage_walks:
+    """Count K1's launches inside each of ``cli``'s stage commands while
+    ``cli all`` runs them: {command name: launches}."""
+
+    def __init__(self, cli, walk_kernel, names):
+        self.cli, self.walk_kernel, self.names = cli, walk_kernel, names
+        self.counts = dict.fromkeys(names, 0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.cli, n) for n in self.names}
+        for name, fn in self.saved.items():
+            def counted(args, _fn=fn, _name=name):
+                before = self.walk_kernel.launches
+                try:
+                    return _fn(args)
+                finally:
+                    self.counts[_name] += self.walk_kernel.launches - before
+
+            setattr(self.cli, name, counted)
+        return self.counts
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cli, name, fn)
+
+
+def run_prepare_path(dev, st, work: str):
+    """``cli prepare --features random --gen-positives`` and then ``cli
+    all`` (prepare -> train -> eval) on a copy of the main path's dataset
+    (graph.json, tracks.json and collections.json only: prepare rewrites
+    positives.json, which the other paths read).  ``all`` trains with the
+    training path's cut and evaluates Random, PageRank and its own
+    ``PinSage:<run>`` row at K=100.  Returns its state."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import cli
+    from gcn_song_embeddings_tpu_torch.ops import walk_kernel
+
+    ds = os.path.join(work, "prepare_dataset")
+    os.makedirs(ds)
+    for name in ("graph.json", "tracks.json", "collections.json"):
+        shutil.copy(os.path.join(st.ds, name), ds)
+    common = ["--dataset", ds, "--features", "random", "--gen-positives",
+              "--seed", "0", "--device", str(dev)]
+    t = time.perf_counter()
+    prepare_walls = cli.main(["prepare", *common])
+    sync(torch, dev)
+    walls = {"prepare_s": time.perf_counter() - t, **prepare_walls}
+    prepare_k1 = walk_kernel.launches
+    pos_path = os.path.join(ds, "positives.json")
+    with open(pos_path, "rb") as f:
+        positives = f.read()
+    pos_stamp = os.stat(pos_path).st_mtime_ns
+    runs, eval_dir = os.path.join(work, "runs_all"), os.path.join(
+        work, "eval_all")
+    with stage_walks(cli, walk_kernel, ("cmd_prepare", "cmd_train",
+                                        "cmd_eval")) as stages:
+        t = time.perf_counter()
+        all_walls = cli.main([
+            "all", *common, "--run-dir", runs, "--run-name", PREPARE_RUN,
+            "--set", f"train.epochs={TRAIN_EPOCHS}",
+            "--set", f"train.batches_per_epoch={TRAIN_BATCHES}",
+            "--set", f"train.checkpoint_every_batches={TRAIN_CHUNK}",
+            "--k", str(EVAL_K), "--eval-dir", eval_dir,
+            "--models", "Random", "PageRank", f"PinSage:{PREPARE_RUN}"])
+        sync(torch, dev)
+    walls["all_s"] = time.perf_counter() - t
+    walls["all"] = all_walls
+    log(f"prepare (random features, sweep, walk positives) in "
+        f"{walls['prepare_s']:.1f} s ({json.dumps(prepare_walls)}); all in "
+        f"{walls['all_s']:.1f} s; K1 launches: prepare {prepare_k1}, all "
+        f"by stage {json.dumps(stages)}")
+    return SimpleNamespace(ds=ds, runs=runs, eval_dir=eval_dir, walls=walls,
+                           prepare_k1=prepare_k1, all_k1=dict(stages),
+                           positives=positives, pos_stamp=pos_stamp)
+
+
+def check_prepare(st, pp) -> dict:
+    """``prepare``'s and ``all``'s outputs: K1 ran 25 times in prepare
+    (the 100k sweep) and never in ``all``'s prepare or train (the cache
+    and the per-track files are reused); ``features_random.npy`` bit-equal
+    to a numpy replay of ``RandomFeatures(512, seed=0)`` over 512-row
+    batches; every walk pair (a, b) has b in a's top 3 with weight > 0 and
+    the pairs are ``generate_walk_positives`` on the written cache; ``all``
+    rewrote the same positives.json; its emb.npy is finite and both CSVs
+    hold a PinSage row whose hit@100 beats Random's."""
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.config import WalkConfig
+    from gcn_song_embeddings_tpu_torch.data.positives import (
+        generate_walk_positives,
+    )
+
+    n = st.graph.n_items
+    sweep_blocks = -(-n // WalkConfig().batch_walkers)
+    if pp.prepare_k1 != sweep_blocks:
+        raise AssertionError(f"prepare launched K1 {pp.prepare_k1} times, "
+                             f"not {sweep_blocks}")
+    if pp.all_k1["cmd_prepare"] or pp.all_k1["cmd_train"]:
+        raise AssertionError(f"all re-swept: {pp.all_k1}")
+    feats = np.load(os.path.join(pp.ds, "features_random.npy"))
+    rng = np.random.default_rng(0)
+    replay = np.concatenate([rng.normal(size=(min(512, n - s), 512))
+                             .astype(np.float32) for s in range(0, n, 512)])
+    if feats.shape != (n, 512) or not np.array_equal(feats, replay):
+        raise AssertionError(f"features_random.npy {feats.shape} is not "
+                             f"RandomFeatures(512, seed=0)'s")
+    with np.load(os.path.join(pp.ds, "neighborhoods.npz")) as z:
+        weights, nodes = z["weights"], z["nodes"]
+    ids = st.graph.track_ids
+    row = {t: i for i, t in enumerate(ids)}
+    pairs = json.loads(pp.positives)
+    want = generate_walk_positives((weights, nodes), n, seed=0)
+    if pairs != [{"a": ids[p["a"]], "b": ids[p["b"]]} for p in want]:
+        raise AssertionError("positives.json is not generate_walk_positives "
+                             "on the written neighborhoods")
+    a = np.array([row[p["a"]] for p in pairs])
+    b = np.array([row[p["b"]] for p in pairs])
+    top = (nodes[a, :3] == b[:, None]) & (weights[a, :3] > 0)
+    if not top.any(axis=1).all():
+        raise AssertionError("a walk pair outside its origin's top 3")
+    pos_path = os.path.join(pp.ds, "positives.json")
+    with open(pos_path, "rb") as f:
+        rewritten = f.read()
+    if os.stat(pos_path).st_mtime_ns <= pp.pos_stamp or \
+            rewritten != pp.positives:
+        raise AssertionError("all did not rewrite the same positives.json")
+    emb = np.load(os.path.join(pp.runs, PREPARE_RUN, "emb.npy"))
+    if emb.shape != (n, 128) or not np.isfinite(emb).all():
+        raise AssertionError(f"all's emb.npy: {emb.shape}")
+    acc = read_csv_rows(os.path.join(pp.eval_dir, "results_accuracy.csv"))
+    beyond = read_csv_rows(os.path.join(pp.eval_dir, "results_beyond.csv"))
+    pinsage = f"PinSage:{PREPARE_RUN}"
+    if set(acc) != {"Random", "PageRank", pinsage} or set(beyond) != set(acc):
+        raise AssertionError(f"all's CSV rows: {sorted(acc)}, "
+                             f"{sorted(beyond)}")
+    hit = {m: acc[m]["hr (k=100)"] for m in acc}
+    if not hit[pinsage] > hit["Random"]:
+        raise AssertionError(f"all's PinSage hit@100 {hit[pinsage]} does not "
+                             f"beat Random's {hit['Random']}")
+    out = {"prepare_k1_launches": pp.prepare_k1, "all_k1_by_stage":
+           pp.all_k1, "features_random_bit_equal": True,
+           "walk_pairs": len(pairs), "pairs_in_top3": True,
+           "positives_rewritten_equal": True, "hit_at_100": hit}
+    log(f"prepare checks: {json.dumps(out)}")
+    return out
+
+
+def write_audio_catalog(work: str) -> str:
+    """A 256-track catalog (``make_synthetic_dataset``) with a seeded 30 s
+    clip per track: three partials and a noise floor; even tracks as
+    22,050 Hz int16 ``.wav`` (prepare resamples them), odd tracks as
+    16 kHz ``.npy``."""
+    import wave
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.data.synth import (
+        make_synthetic_dataset,
+    )
+
+    ds = os.path.join(work, "audio_dataset")
+    make_synthetic_dataset(ds, n_tracks=AUDIO_TRACKS,
+                           n_collections=AUDIO_COLLECTIONS,
+                           n_positives=4 * AUDIO_TRACKS, feature_dim=8,
+                           seed=AUDIO_SEED, write_features=False)
+    with open(os.path.join(ds, "tracks.json")) as f:
+        ids = list(json.load(f))
+    clip_dir = os.path.join(ds, "clips")
+    os.makedirs(clip_dir)
+    rng = np.random.default_rng(AUDIO_SEED)
+    for i, tid in enumerate(ids):
+        sr = 22_050 if i % 2 == 0 else 16_000
+        t = np.arange(30 * sr, dtype=np.float64) / sr
+        freqs = rng.uniform(80.0, 4000.0, 3)
+        amps = rng.uniform(0.05, 0.3, 3)
+        y = sum(a * np.sin(2 * np.pi * f * t) for f, a in zip(freqs, amps))
+        y = (y * (1.0 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.2, 4.0) * t))
+             / 2.0 + 1e-3 * rng.standard_normal(t.shape)).astype(np.float32)
+        if i % 2:
+            np.save(os.path.join(clip_dir, f"{tid}.npy"), y)
+            continue
+        with wave.open(os.path.join(clip_dir, f"{tid}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sr)
+            w.writeframes((np.clip(y, -1, 1) * 32767).astype(np.int16)
+                          .tobytes())
+    return ds
+
+
+def worst(np, got, want, tol) -> dict:
+    got, want = np.asarray(got), np.asarray(want)
+    err = np.abs(got - want)
+    ratio = float((err / (tol["atol"] + tol["rtol"] * np.abs(want))).max())
+    return {"max_abs_err": float(err.max()), "worst_err_over_tol": ratio}
+
+
+def run_audio_path(dev, work: str) -> dict:
+    """``cli prepare --features mfcc``, ``openl3``, ``vggish`` and
+    ``musicnn`` (random init) over a 256-clip catalog, each timed; then,
+    for 2 of its clips (a .wav and a .npy), each front end and embedder on
+    the card against the port's own CPU path; the MFCC batch's peak
+    device memory at generate_features' 512 clips; and, where the FFmpeg
+    decoder was built, an mp3 round trip through ``load_clip``.  Returns
+    the walls and checks."""
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import cli
+    from gcn_song_embeddings_tpu_torch import features as F
+    from gcn_song_embeddings_tpu_torch.models import audio_embedders as ae
+    from gcn_song_embeddings_tpu_torch.native import audiodec
+
+    t = time.perf_counter()
+    ds = write_audio_catalog(work)
+    walls = {"write_clips_s": time.perf_counter() - t}
+    for name, dim in AUDIO_DIMS.items():
+        t = time.perf_counter()
+        cli.main(["prepare", "--dataset", ds, "--features", name,
+                  "--device", str(dev)])
+        sync(torch, dev)
+        walls[f"features_{name}_s"] = time.perf_counter() - t
+        mat = np.load(os.path.join(ds, f"features_{name}.npy"))
+        if mat.shape != (AUDIO_TRACKS, dim) or not np.isfinite(mat).all():
+            raise AssertionError(f"features_{name}.npy: {mat.shape}")
+    log(f"audio features over {AUDIO_TRACKS} clips: "
+        f"{json.dumps(walls)}")
+
+    cpu = torch.device("cpu")
+    with open(os.path.join(ds, "tracks.json")) as f:
+        ids = list(json.load(f))[:2]
+    clips = np.stack([F.load_clip(os.path.join(ds, "clips", tid + ext))
+                      for tid, ext in zip(ids, (".wav", ".npy"))])
+    checks = {}
+    fronts = {"openl3_mel": (ae.openl3_mel_windows, OPENL3_MEL_TOL),
+              "vggish_patches": (ae.vggish_log_mel_patches, FRONT_TOL),
+              "musicnn_patches": (ae.musicnn_log_mel_patches, FRONT_TOL)}
+    for name, (fn, tol) in fronts.items():
+        got, _ = fn(clips, device=dev)
+        want, _ = fn(clips, device=cpu)
+        checks[name] = worst(np, got.cpu(), want, tol)
+    checks["melspectrogram"] = worst(
+        np, F.melspectrogram(clips, device=dev),
+        F.melspectrogram(clips, device=cpu), FRONT_TOL)
+    nets = {"mfcc": lambda d: F.MFCC(device=d),
+            "openl3": lambda d: F.OpenL3(device=d),
+            "vggish": lambda d: F.VGGish(device=d),
+            "musicnn": lambda d: F.MusicNN(device=d)}
+    for name, make in nets.items():
+        checks[f"{name}_emb"] = worst(np, make(dev).embed_batch(clips),
+                                      make(cpu).embed_batch(clips), EMB_TOL)
+    bad = {k: v for k, v in checks.items() if v["worst_err_over_tol"] > 1}
+    if bad:
+        raise AssertionError(f"card vs CPU beyond the bars: {bad}")
+
+    # frame memory of the MFCC batch at generate_features' 512 clips
+    batch = np.zeros((MFCC_BATCH, F.CLIP_SAMPLES), np.float32)
+    batch[:, :16000] = clips[0, :16000]
+    mfcc = F.MFCC(device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    mfcc.embed_batch(batch)
+    torch.cuda.synchronize()
+    walls["mfcc_512_clips_s"] = time.perf_counter() - t
+    checks["mfcc_512_clips_peak_bytes"] = \
+        torch.cuda.max_memory_allocated() - base
+
+    checks["decoder_built"] = audiodec.native_available()
+    if checks["decoder_built"]:
+        sr = 32_000
+        tone = (0.5 * np.sin(2 * np.pi * 523.25 * np.arange(3 * sr) / sr)
+                ).astype(np.float32)
+        path = os.path.join(work, "tone.mp3")
+        audiodec.encode_mp3(path, tone, sr)
+        y = F.load_clip(path)
+        head = y[: 2 * F.SAMPLE_RATE]
+        spec = np.abs(np.fft.rfft(head * np.hanning(len(head))))
+        peak = float(np.fft.rfftfreq(len(head), 1.0 / F.SAMPLE_RATE)
+                     [spec.argmax()])
+        if y.shape != (F.CLIP_SAMPLES,) or abs(peak - 523.25) > 3.0 or \
+                np.abs(y[-F.SAMPLE_RATE:]).max() != 0.0:
+            raise AssertionError(f"mp3 round trip: {y.shape}, peak {peak}")
+        checks["mp3_peak_hz"] = peak
+    log(f"audio checks (card vs CPU): {json.dumps(checks)}")
+    return {"walls": walls, "checks": checks}
+
+
 def main() -> int:
     import torch
 
@@ -1742,6 +2069,25 @@ def main() -> int:
                             "agg_gather_mean"))
     log(f"launches on the main path: {launches}")
 
+    # ---- prepare, then all, on a copy of the main path's dataset --------
+    reset_counts()
+    pp = run_prepare_path(dev, st, work)
+    prepare_launches = read_counts(("walk", "agg", "agg_split",
+                                    "agg_project", "agg_gather_mean",
+                                    "dma_agg", "agg_backward_dma"))
+    log(f"launches on the prepare and all path: {prepare_launches}")
+    prepare_checks = check_prepare(st, pp)
+
+    # ---- audio features at the nets' published widths --------------------
+    audio = run_audio_path(dev, work)
+    prepare_checks["audio"] = audio["checks"]
+    st.walls.update({"prepare_s": pp.walls["prepare_s"],
+                     "all_s": pp.walls["all_s"],
+                     "prepare": {k: v for k, v in pp.walls.items()
+                                 if k not in ("prepare_s", "all_s")},
+                     **audio["walls"]})
+    torch.cuda.empty_cache()
+
     # ---- the walk-side refresh after new co-listens ----------------------
     reset_counts()
     rf = run_refresh_path(dev, st, work)
@@ -1803,7 +2149,9 @@ def main() -> int:
     log(f"launches on the int8 path: {int8_launches}")
     st.walls["int8"] = it["walls"]
     int8_checks = check_int8(torch, st, tr_st, it)
+
     log(json.dumps({"phase_walls": st.walls}))
+    log(json.dumps({"prepare_checks": prepare_checks}))
     log(json.dumps({"train_step_profile": step_profile}))
     log(json.dumps({"int8_checks": int8_checks}))
     log(json.dumps({"eval_checks": eval_checks}))
@@ -1881,7 +2229,9 @@ def main() -> int:
          "refresh": refresh_launches["walk"],
          **{f"eval_{row.split(':')[0]}": n
             for row, n in ev.row_walks.items() if n},
-         "int8_live_walk": int8_launches["walk"]})]
+         "int8_live_walk": int8_launches["walk"],
+         "prepare": pp.prepare_k1,
+         "all_eval_PageRank": pp.all_k1["cmd_eval"]})]
     if sum(ev.row_walks.values()) != eval_launches["walk"]:
         raise AssertionError(f"eval K1 launches by row {ev.row_walks} do "
                              f"not add up to {eval_launches['walk']}")
@@ -1904,7 +2254,8 @@ def main() -> int:
     row = kernel_row(
         "K2 3xTF32 Q-MLP of every table row, then gather + weighted mean "
         "(agg.conv_aggregate, mode stream)", agg.SOURCE, agg.REPLACES,
-        {"serve": launches["agg"], "train": train_launches["agg"]},
+        {"serve": launches["agg"], "train": train_launches["agg"],
+         "all": prepare_launches["agg"]},
         train_launches["agg_backward_stream"], k2,
         f"both embed_all layers, N={graph.n_items} T={mcfg.T}: Din=512 and "
         f"Din=128, H={mcfg.hidden_dim}; backward at the same shapes (the "
@@ -1913,14 +2264,18 @@ def main() -> int:
     row["header"] = agg.HEADER
     for name, part in row["parts"].items():
         # the split also runs for every K3 call of the training path
-        part["launches_by_path"] = {"serve": launches[f"agg_{name}"],
-                                    "train": train_launches[f"agg_{name}"]}
+        part["launches_by_path"] = {
+            "serve": launches[f"agg_{name}"],
+            "train": train_launches[f"agg_{name}"],
+            "all": prepare_launches[f"agg_{name}"]}
     results.append(row)
     row = kernel_row(
         "K3 fused 3xTF32 gather + Q-MLP + weighted mean "
         "(agg.conv_aggregate, mode dma)", dma_agg.SOURCE, dma_agg.REPLACES,
-        {"train": train_launches["dma_agg"]},
-        train_launches["agg_backward_dma"], k3,
+        {"train": train_launches["dma_agg"],
+         "all": prepare_launches["dma_agg"]},
+        train_launches["agg_backward_dma"]
+        + prepare_launches["agg_backward_dma"], k3,
         f"both aggregations of a frontier train step at B=128: "
         f"{step_shapes[0][2].shape[0]} nodes x T={mcfg.T}, Din=512 and "
         f"{step_shapes[1][2].shape[0]} nodes x T={mcfg.T}, Din=128; "

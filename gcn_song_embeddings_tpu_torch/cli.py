@@ -4,6 +4,12 @@ Verbs:
   synth  -- write a synthetic dataset in the reference on-disk format
             (``--hard``: the benchmark where the graph must beat the
             features)
+  prepare -- per-track features from the dataset's clips (random, mfcc,
+            openl3, vggish (alias vggish2), musicnn; ``--feature-weights``
+            loads a net's ``.npz``, else it runs seeded random-init and
+            warns) into features_<name>/ and features_<name>.npy; with
+            ``--gen-positives`` the PPR sweep (K1) and walk positives into
+            positives.json
   train  -- PinSage training on one device (co-listen augmentation, PPR
             sweep, sampler, max-margin loss, Adam, chunked checkpoints
             with resume), then the embeddings of every track to
@@ -18,8 +24,12 @@ Verbs:
             GCN, Features, PinSage:<run>, Hybrid:<run>); kNN lists of each
             model cached under --eval-dir, results_accuracy.csv and
             results_beyond.csv
+  all    -- prepare, then train, then eval with the PinSage:<run> row
+            appended (the reference's ``dashboard.py all``)
   grid   -- PinSage hyperparameter grid search, results sorted by MRR
   stats  -- dataset statistics
+  serve  -- the HTTP server; its arguments go to
+            ``gcn_song_embeddings_tpu_torch.serve``
 
 Features resolve as in the JAX CLI: ``features_<name>.npy``, then
 ``features.npy``, then the per-track directory ``features_<name>/``;
@@ -28,6 +38,11 @@ positives are ``--positives`` (which must exist) or the first of
 
 Usage:
   python -m gcn_song_embeddings_tpu_torch.cli synth --dataset DIR [--hard]
+  python -m gcn_song_embeddings_tpu_torch.cli prepare --dataset DIR \
+      [--features random|mfcc|openl3|vggish|musicnn] \
+      [--feature-weights W.npz] [--gen-positives] [--seed 0] [--device cuda]
+  python -m gcn_song_embeddings_tpu_torch.cli all --dataset DIR \
+      [prepare's, train's and eval's options]
   python -m gcn_song_embeddings_tpu_torch.cli train --dataset DIR \
       [--run-name NAME] [--run-dir ./runs] [--config cfg.json] \
       [--set train.lr=0.001 ...] [--no-resume] [--device cuda]
@@ -40,8 +55,10 @@ Usage:
       --grid grid.json [--out grid_search.json] [--run-dir ./runs_gs] \
       [--config cfg.json] [--set KEY=JSON ...] [--device cuda]
   python -m gcn_song_embeddings_tpu_torch.cli stats --dataset DIR
+  python -m gcn_song_embeddings_tpu_torch.cli serve --emb E.npy [...]
 
-Serve the result with ``python -m gcn_song_embeddings_tpu_torch.serve``.
+``train --mesh-graph N`` with N > 0 (sharded training) arrives with the
+``parallel/`` slice (ROADMAP queue 1 item 6) and raises until then.
 """
 
 from __future__ import annotations
@@ -49,6 +66,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
+import time
 
 import numpy as np
 
@@ -128,11 +147,83 @@ def run_config(run_name: str, config: str | None, overrides: list[str]):
     return config_with_overrides(cfg, values)
 
 
+def feature_embedder(name: str, weights: str | None, seed: int, device):
+    """The embedder ``prepare --features name`` runs."""
+    from gcn_song_embeddings_tpu_torch import features as F
+
+    if name == "random":
+        return F.RandomFeatures(dim=512, seed=seed)
+    if name == "mfcc":
+        return F.MFCC(device=device)
+    if name == "openl3":
+        return F.OpenL3(weights_path=weights, seed=seed, device=device)
+    if name in ("vggish", "vggish2"):
+        # "vggish2" is an alias: the net is AudioSet VGGish and writes
+        # features_vggish/ (see features.VGGish)
+        return F.VGGish(weights_path=weights, seed=seed, device=device)
+    if name == "musicnn":
+        return F.MusicNN(weights_path=weights, seed=seed, device=device)
+    raise SystemExit(f"unknown feature model {name!r}")
+
+
+def cmd_prepare(args) -> dict:
+    """Features, then (``--gen-positives``) the PPR sweep under
+    ``WalkConfig()`` and walk positives in ``positives.json`` (reference
+    prepare_dataset, dashboard.py:18-45).  Returns its walls (s)."""
+    from gcn_song_embeddings_tpu_torch import features as F
+    from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    walls = {}
+    t = time.perf_counter()
+    emb = feature_embedder(args.features, args.feature_weights, args.seed,
+                           dev)
+    F.generate_features(args.dataset, emb)
+    walls["features_s"] = time.perf_counter() - t
+    print(f"features_{emb.name} generated")
+    if args.gen_positives:
+        from gcn_song_embeddings_tpu_torch.config import WalkConfig
+        from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
+        from gcn_song_embeddings_tpu_torch.data.positives import (
+            generate_walk_positives,
+            indices_to_id_pairs,
+        )
+        from gcn_song_embeddings_tpu_torch.ops.ppr import (
+            precompute_neighborhoods,
+        )
+
+        t = time.perf_counter()
+        graph = load_graph(args.dataset, need_features=False)
+        nbhds = precompute_neighborhoods(
+            DeviceGraph.from_graph(graph, dev), WalkConfig(),
+            graph.nbhds_path, seed=args.seed, verbose=True)
+        walls["sweep_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        pairs = indices_to_id_pairs(
+            generate_walk_positives(nbhds, graph.n_items, seed=args.seed),
+            graph.track_ids)
+        out = os.path.join(args.dataset, "positives.json")
+        with open(out, "w", encoding="utf-8") as f:
+            json.dump(pairs, f)
+        walls["positives_s"] = time.perf_counter() - t
+        print(f"{len(pairs)} walk positives -> {out}")
+    return walls
+
+
+def refuse_mesh(mesh_graph: int) -> None:
+    if mesh_graph:
+        raise SystemExit(
+            f"--mesh-graph {mesh_graph}: sharded training arrives with the "
+            f"parallel/ slice of the port (ROADMAP.md queue 1 item 6); "
+            f"--mesh-graph 0 trains on one device")
+
+
 def cmd_train(args) -> None:
     from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
     from gcn_song_embeddings_tpu_torch.train.trainer import PinSageTrainer
     from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
 
+    refuse_mesh(args.mesh_graph)
     dev = resolve_device(args.device)
     cfg = run_config(args.run_name, args.config, args.set)
     graph = load_graph(args.dataset, args.features)
@@ -317,6 +408,25 @@ def cmd_eval(args) -> None:
     run_eval(args, graph, eval_models(args, graph, dev), dev)
 
 
+def cmd_all(args) -> dict:
+    """prepare, train, then eval with ``PinSage:<run-name>`` appended
+    (``--models`` filters every row, that one too, as in the JAX CLI).
+    Returns its walls (s)."""
+    refuse_mesh(args.mesh_graph)
+    walls = {}
+    t = time.perf_counter()
+    walls["prepare"] = cmd_prepare(args)
+    walls["prepare_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cmd_train(args)
+    walls["train_s"] = time.perf_counter() - t
+    args.pinsage_runs = (args.pinsage_runs or []) + [args.run_name]
+    t = time.perf_counter()
+    cmd_eval(args)
+    walls["eval_s"] = time.perf_counter() - t
+    return walls
+
+
 def cmd_grid(args) -> None:
     from gcn_song_embeddings_tpu_torch.train.grid_search import grid_search
     from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
@@ -379,14 +489,57 @@ def parser() -> argparse.ArgumentParser:
                          "(data.synth.make_hard_dataset)")
     sp.set_defaults(func=cmd_synth)
 
+    def prepare_options(sp):
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--gen-positives", action="store_true",
+                        help="PPR sweep and walk positives -> "
+                             "positives.json")
+        sp.add_argument("--feature-weights", default=None,
+                        help="npz weights for openl3/vggish/musicnn "
+                             "(models/audio_embedders.py layout); default "
+                             "random-init (untrained)")
+
+    def train_options(sp):
+        sp.add_argument("--run-name", default="pinsage_tpu")
+        sp.add_argument("--run-dir", default="./runs")
+        sp.add_argument("--config", default=None,
+                        help="RunConfig json file")
+        sp.add_argument("--set", action="append", metavar="KEY=JSON",
+                        help="config override, e.g. --set train.lr=0.001")
+        sp.add_argument("--no-resume", action="store_true")
+        sp.add_argument("--mesh-graph", type=int, default=0,
+                        help="sharded training's graph-axis size; only 0 "
+                             "(one device) until the parallel/ slice")
+
+    def eval_options(sp):
+        sp.add_argument("--eval-dir", default=None,
+                        help="artifact cache and CSVs (default: "
+                             "<dataset>/baselines)")
+        sp.add_argument("--k", type=int, default=1000)
+        sp.add_argument("--pinsage-runs", nargs="*", default=None,
+                        help="add PinSage:<run> rows: "
+                             "<run-dir>/<run>/emb.npy")
+        sp.add_argument("--hybrid-runs", nargs="*", default=None,
+                        help="add Hybrid:<run> rows: walk head + the "
+                             "cosine ranking of <run-dir>/<run>/emb.npy")
+        sp.add_argument("--models", nargs="*", default=None,
+                        help="subset of the rows to evaluate")
+
+    sp = sub.add_parser("prepare")
+    common(sp)
+    prepare_options(sp)
+    sp.set_defaults(func=cmd_prepare)
+
+    sp = sub.add_parser("all")
+    common(sp)
+    prepare_options(sp)
+    train_options(sp)
+    eval_options(sp)
+    sp.set_defaults(func=cmd_all)
+
     sp = sub.add_parser("train")
     common(sp)
-    sp.add_argument("--run-name", default="pinsage_tpu")
-    sp.add_argument("--run-dir", default="./runs")
-    sp.add_argument("--config", default=None, help="RunConfig json file")
-    sp.add_argument("--set", action="append", metavar="KEY=JSON",
-                    help="config override, e.g. --set train.lr=0.001")
-    sp.add_argument("--no-resume", action="store_true")
+    train_options(sp)
     sp.set_defaults(func=cmd_train)
 
     sp = sub.add_parser("embed")
@@ -403,17 +556,7 @@ def parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("eval")
     common(sp)
     sp.add_argument("--run-dir", default="./runs")
-    sp.add_argument("--eval-dir", default=None,
-                    help="artifact cache and CSVs (default: "
-                         "<dataset>/baselines)")
-    sp.add_argument("--k", type=int, default=1000)
-    sp.add_argument("--pinsage-runs", nargs="*", default=None,
-                    help="add PinSage:<run> rows: <run-dir>/<run>/emb.npy")
-    sp.add_argument("--hybrid-runs", nargs="*", default=None,
-                    help="add Hybrid:<run> rows: walk head + the cosine "
-                         "ranking of <run-dir>/<run>/emb.npy")
-    sp.add_argument("--models", nargs="*", default=None,
-                    help="subset of the rows to evaluate")
+    eval_options(sp)
     sp.set_defaults(func=cmd_eval)
 
     sp = sub.add_parser("grid")
@@ -431,12 +574,24 @@ def parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("stats")
     common(sp, device=False)
     sp.set_defaults(func=cmd_stats)
+
+    sub.add_parser("serve", add_help=False,
+                   help="the HTTP server (gcn_song_embeddings_tpu_torch."
+                        "serve; see its --help)")
     return p
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Run one verb; returns what its command returns (the walls of
+    ``prepare`` and ``all``)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        # serve owns its argument surface: hand it the rest verbatim
+        from gcn_song_embeddings_tpu_torch import serve
+
+        return serve.main(argv[1:])
     args = parser().parse_args(argv)
-    args.func(args)
+    return args.func(args)
 
 
 if __name__ == "__main__":

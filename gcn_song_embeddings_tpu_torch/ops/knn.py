@@ -2,7 +2,8 @@
 
 Ranking needs true f32 products: embeddings trained at a tiny margin
 separate by ~1e-4 cosine, below TF32's resolution.  ``exact_f32`` turns
-TF32 off for the products it wraps and restores the caller's setting.
+TF32 off for the matrix products and cuDNN convolutions it wraps and
+restores the caller's settings.
 These are plain products and ``torch.topk`` (the JAX package computes
 them in XLA, not in a Pallas kernel).
 """
@@ -19,13 +20,17 @@ from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
 
 @contextlib.contextmanager
 def exact_f32():
-    """Run f32 matrix products in full f32 (TF32 off) inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """Run f32 matrix products and convolutions in full f32 (TF32 off)
+    inside the block."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def cosine_topk_block(emb: torch.Tensor, queries: torch.Tensor, k: int

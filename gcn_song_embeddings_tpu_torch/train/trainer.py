@@ -275,6 +275,28 @@ class PinSageTrainer:
         np.save(path, self.embed())
         return path
 
+    def save_embeddings_per_track(self, track_ids: list[str],
+                                  emb_dir: Optional[str] = None,
+                                  fmt: str = "npy") -> str:
+        """The reference's layout (pinsage_training.py:297-327): one
+        vector file per track id under ``<run>/emb/``, ``<tid>.npy`` or,
+        with ``fmt="pt"``, ``<tid>.pt`` through ``torch.save``; existing
+        files are kept.  Returns the directory."""
+        if fmt not in ("npy", "pt"):
+            raise ValueError(f"fmt {fmt!r}: 'npy' or 'pt'")
+        emb_dir = emb_dir or os.path.join(self.run_dir, "emb")
+        os.makedirs(emb_dir, exist_ok=True)
+        emb = self.embed()
+        for i, tid in enumerate(track_ids):
+            out = os.path.join(emb_dir, f"{tid}.{fmt}")
+            if os.path.isfile(out):
+                continue
+            if fmt == "pt":
+                torch.save(torch.from_numpy(np.array(emb[i])), out)
+            else:
+                np.save(out, emb[i])
+        return emb_dir
+
     def save_model(self) -> None:
         save_state(self.state_path, self.params, self.opt,
                    {"epochs_done": self.e, "batches_done": self.b})

@@ -1,10 +1,11 @@
 """Import hygiene of the PyTorch port and its no-fallback device rule.
 
 The port package, its CLI and chip_smoke.py must import with JAX, the
-JAX package and pandas blocked (the machine with the card has no
-pandas).  This test process has JAX loaded already (conftest), so the
-checks run in subprocesses with ``sys.modules[...] = None``.  The port
-builds its own native readers and never loads the JAX package's.
+JAX package, pandas, torchaudio and librosa blocked (the machine with the
+card has none of the last three).  This test process has JAX loaded
+already (conftest), so the checks run in subprocesses with
+``sys.modules[...] = None``.  The port builds its own native readers and
+never loads the JAX package's.
 """
 
 import os
@@ -20,7 +21,9 @@ PORT = os.path.join(REPO, "gcn_song_embeddings_tpu_torch")
 BLOCK = ("import sys\n"
          "sys.modules['jax'] = None\n"
          "sys.modules['gcn_song_embeddings_tpu'] = None\n"
-         "sys.modules['pandas'] = None\n")
+         "sys.modules['pandas'] = None\n"
+         "sys.modules['torchaudio'] = None\n"
+         "sys.modules['librosa'] = None\n")
 NO_CUDA = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
 
@@ -68,6 +71,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "import chip_smoke\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['pandas'] is None\n"
+        "assert sys.modules['torchaudio'] is None\n"
+        "assert sys.modules['librosa'] is None\n"
         "print(' '.join(names))\n")
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
@@ -82,7 +87,9 @@ def test_every_port_module_imports_with_jax_blocked():
                    "models.baselines.mf", "models.baselines.node2vec",
                    "models.baselines.graphsage",
                    "models.baselines.pinsage_wrapper", "models.gnnlib",
-                   "ops.graph_ops", "ops.node2vec", "train.grid_search"):
+                   "ops.graph_ops", "ops.node2vec", "train.grid_search",
+                   "features", "models.audio_embedders", "data.positives",
+                   "native.audiodec", "convert_audio_weights"):
         assert prefix + module in names
 
 
@@ -90,7 +97,9 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
     res = _python(
         "import numpy as np\n"
         "import scipy.sparse as sp\n"
-        "from gcn_song_embeddings_tpu_torch import cli, serve\n"
+        "from gcn_song_embeddings_tpu_torch import cli, features, serve\n"
+        "from gcn_song_embeddings_tpu_torch.models import "
+        "audio_embedders as ae\n"
         "from gcn_song_embeddings_tpu_torch.models import gnnlib\n"
         "from gcn_song_embeddings_tpu_torch.models.baselines import mf\n"
         "from gcn_song_embeddings_tpu_torch.ops.node2vec import "
@@ -110,7 +119,18 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "         lambda: gnnlib.params_from_jax({'l': {'W': [1.0]}}),\n"
         "         lambda: mf.ALS(factors=2).fit(mat),\n"
         "         lambda: mf.BPR(factors=2).fit(mat),\n"
-        "         lambda: grid_search(None, None, None, {})]\n"
+        "         lambda: grid_search(None, None, None, {}),\n"
+        "         lambda: cli.main(['prepare', '--dataset', 'nowhere']),\n"
+        "         lambda: cli.main(['all', '--dataset', 'nowhere']),\n"
+        "         lambda: features.MFCC(),\n"
+        "         lambda: features.OpenL3(),\n"
+        "         lambda: features.VGGish(),\n"
+        "         lambda: features.MusicNN(),\n"
+        "         lambda: features.melspectrogram(np.zeros((1, 4096))),\n"
+        "         lambda: ae.MusicNNNet.build(),\n"
+        "         lambda: ae.openl3_mel_windows(np.zeros((1, 16000))),\n"
+        "         lambda: ae.vggish_log_mel_patches(np.zeros((1, 16000))),\n"
+        "         lambda: ae.musicnn_log_mel_patches(np.zeros((1, 16000)))]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"
