@@ -68,13 +68,14 @@
    printed, and K4 is held to its plain version (``torch.equal``) and to
    the stochastic quantizer's contract (tests/test_quantize.py:40-48).
 8. Right after step 3, drives ``prepare`` and ``all`` with the counters
-   set to 0 again, on a copy of the 100k dataset (graph.json,
-   tracks.json, collections.json):
-   ``cli prepare --features random --gen-positives`` (100,000 per-track
-   feature files, the consolidated matrix, the PPR sweep with K1 under
-   ``WalkConfig()``, walk positives), then ``cli all`` (the same prepare,
-   ``train`` cut as in step 4, ``eval`` of Random, PageRank (K1) and its
-   own ``PinSage:<run>`` row at K=100).  Fails unless K1 ran 25 times in
+   set to 0 again, on a 25,000-track dataset made as the main one is
+   (graph.json, tracks.json, collections.json; cut from 100k for the
+   time limit): ``cli prepare --features random --gen-positives``
+   (25,000 per-track feature files, the consolidated matrix, the PPR
+   sweep with K1 under ``WalkConfig()``, walk positives), then ``cli
+   all`` (the same prepare, ``train`` cut as in step 4, ``eval`` of
+   Random, PageRank (K1) and its own ``PinSage:<run>`` row at K=100).
+   Fails unless K1 ran once a sweep block (7) in
    prepare and never in all's prepare or train (the cache and the
    per-track files are reused), ``features_random.npy`` is bit-equal to a
    numpy replay of ``RandomFeatures(512, seed=0)``, every walk pair lies
@@ -105,7 +106,35 @@
    as the host issues them, its wrapper included.  K2's
    and K3's bounds count their products on the TF32 tensor cores in
    three passes (3xTF32); ``bound_f32_simt_ms`` keeps the f32 one.
-11. Checks the outputs: finite embeddings of the expected shape that match
+11. Right after the int8 path, the multi-device layer (``parallel/``)
+   with the counters set to 0 again in each process, held to two
+   single-process runs of 3 steps from one seeded init on 3 global
+   batches of 128: ``one`` (each batch whole) and ``halves`` (each
+   rank's 64-row half alone, its loss over 2, the gradients summed).
+   (a) A world of one on NCCL in this process: the multi-device sweep
+   with K1, bit-equal to the main path's; ``ShardedTrainer`` 3 frontier
+   steps with K3 and 3 full-graph steps with K2 against ``one`` (losses
+   and every parameter at TRAJ, each step's gradients at GRAD_RTOL; a
+   parameter whose gradient entries differ beyond GRAD_RTOL is counted,
+   not held); the full-catalog sharded embed (K3) within 2e-4 of
+   ``embed_all`` of the same parameters.  (c) The sharded verbs as
+   worlds of one: ``cli train --mesh-graph 1`` (its ``state.npz``
+   through ``cli embed`` within 2e-4), then ``serve --sharded`` f32,
+   ``--int8`` and ``--hybrid --cached-head`` in processes of their own,
+   one request each equal up to ties to the single-process index.
+   (b) Two ranks of this script (``--sharded-rank``) under ``torchrun``
+   on the one card over gloo (NCCL takes one rank a GPU), each counting
+   its own launches: both gathers bit-equal to indexing, the
+   multi-device sweep bit-equal to the main path's artifact, the fused
+   partitioned sweep's top-T bit-equal to K1's walks on the same
+   uniforms, the same two 3-step runs against ``halves``, 4,096 ids
+   embedded within 2e-4, sharded f32 / int8 / cached-head hybrid kNN of
+   64 queries over a seeded 100k x 128 table equal to the single-process
+   indexes up to ties (tied runs as sets; the ids left unchecked are
+   counted), and one HTTP request through rank 0.  Prints a
+   ``sharded_checks`` line (checks, walls, backends); NCCL across cards
+   stays unverified.
+12. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
 
@@ -684,7 +713,7 @@ def run_main_path(dev, work: str, n_tracks: int = N_TRACKS,
         ds=ds, cfg=cfg, graph=graph, dg=dg, nb_w=nb_w, nb_n=nb_n,
         params=params, feats=feats, nbw_d=nbw_d, nbn_d=nbn_d, emb=emb,
         rows=rows, cached=cached, train_pos=train_pos, walls=walls,
-        sweep_walk_launches=sweep_walk_launches)
+        sweep_walk_launches=sweep_walk_launches, nb_path=nb_path)
 
 
 def run_refresh_path(dev, st, work: str):
@@ -1692,6 +1721,10 @@ def check_eval_rows(torch, dev, ev) -> dict:
 
 # ---- prepare and all, and the audio features ---------------------------
 PREPARE_RUN = "smoke_all"
+# prepare and all run on a quarter of the main path's catalog: at 100k
+# their 100,000 per-track feature files took 150-350 s of the script's
+# time limit on an H100 host's file system
+PREPARE_TRACKS, PREPARE_COLLECTIONS, PREPARE_POSITIVES = 25_000, 6_250, 50_000
 AUDIO_TRACKS, AUDIO_COLLECTIONS, AUDIO_SEED = 256, 64, 5
 AUDIO_DIMS = {"mfcc": 40, "openl3": 512, "vggish": 128, "musicnn": 753}
 # the card against the port's CPU path: mel front ends (OpenL3's dB mel
@@ -1728,24 +1761,35 @@ class stage_walks:
             setattr(self.cli, name, fn)
 
 
-def run_prepare_path(dev, st, work: str):
+def run_prepare_path(dev, work: str):
     """``cli prepare --features random --gen-positives`` and then ``cli
-    all`` (prepare -> train -> eval) on a copy of the main path's dataset
-    (graph.json, tracks.json and collections.json only: prepare rewrites
-    positives.json, which the other paths read).  ``all`` trains with the
-    training path's cut and evaluates Random, PageRank and its own
-    ``PinSage:<run>`` row at K=100.  Returns its state."""
+    all`` (prepare -> train -> eval) on a ``PREPARE_TRACKS`` dataset made
+    as the main path's is (graph.json, tracks.json and collections.json
+    only: prepare writes the features and positives.json).  ``all``
+    trains with the training path's cut and evaluates Random, PageRank
+    and its own ``PinSage:<run>`` row at K=100.  Returns its state."""
     from types import SimpleNamespace
 
     import torch
 
     from gcn_song_embeddings_tpu_torch import cli
+    from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
+    from gcn_song_embeddings_tpu_torch.data.synth import (
+        make_synthetic_dataset,
+    )
     from gcn_song_embeddings_tpu_torch.ops import walk_kernel
 
+    src = os.path.join(work, "prepare_source")
+    make_synthetic_dataset(src, n_tracks=PREPARE_TRACKS,
+                           n_collections=PREPARE_COLLECTIONS,
+                           tracks_per_collection=TRACKS_PER_COLLECTION,
+                           n_positives=PREPARE_POSITIVES,
+                           feature_dim=FEATURE_DIM, seed=0)
     ds = os.path.join(work, "prepare_dataset")
     os.makedirs(ds)
     for name in ("graph.json", "tracks.json", "collections.json"):
-        shutil.copy(os.path.join(st.ds, name), ds)
+        shutil.copy(os.path.join(src, name), ds)
+    shutil.rmtree(src)
     common = ["--dataset", ds, "--features", "random", "--gen-positives",
               "--seed", "0", "--device", str(dev)]
     t = time.perf_counter()
@@ -1778,12 +1822,13 @@ def run_prepare_path(dev, st, work: str):
         f"by stage {json.dumps(stages)}")
     return SimpleNamespace(ds=ds, runs=runs, eval_dir=eval_dir, walls=walls,
                            prepare_k1=prepare_k1, all_k1=dict(stages),
-                           positives=positives, pos_stamp=pos_stamp)
+                           positives=positives, pos_stamp=pos_stamp,
+                           graph=SongGraph(ds))
 
 
-def check_prepare(st, pp) -> dict:
-    """``prepare``'s and ``all``'s outputs: K1 ran 25 times in prepare
-    (the 100k sweep) and never in ``all``'s prepare or train (the cache
+def check_prepare(pp) -> dict:
+    """``prepare``'s and ``all``'s outputs: K1 ran once a sweep block in
+    prepare and never in ``all``'s prepare or train (the cache
     and the per-track files are reused); ``features_random.npy`` bit-equal
     to a numpy replay of ``RandomFeatures(512, seed=0)`` over 512-row
     batches; every walk pair (a, b) has b in a's top 3 with weight > 0 and
@@ -1797,7 +1842,7 @@ def check_prepare(st, pp) -> dict:
         generate_walk_positives,
     )
 
-    n = st.graph.n_items
+    n = pp.graph.n_items
     sweep_blocks = -(-n // WalkConfig().batch_walkers)
     if pp.prepare_k1 != sweep_blocks:
         raise AssertionError(f"prepare launched K1 {pp.prepare_k1} times, "
@@ -1813,7 +1858,7 @@ def check_prepare(st, pp) -> dict:
                              f"RandomFeatures(512, seed=0)'s")
     with np.load(os.path.join(pp.ds, "neighborhoods.npz")) as z:
         weights, nodes = z["weights"], z["nodes"]
-    ids = st.graph.track_ids
+    ids = pp.graph.track_ids
     row = {t: i for i, t in enumerate(ids)}
     pairs = json.loads(pp.positives)
     want = generate_walk_positives((weights, nodes), n, seed=0)
@@ -1994,9 +2039,854 @@ def run_audio_path(dev, work: str) -> dict:
     return {"walls": walls, "checks": checks}
 
 
+# ---- the sharded path: parallel/ on a world of 1 (NCCL) and 2 (gloo) ----
+
+SHARDED_STEPS = 3
+SHARDED_PROBE = 4096       # ids the two-rank world embeds (1 block)
+SHARDED_ROWS = 64          # kNN queries held against one process's
+PART_WALKERS = 50_000      # the partitioned sweep's block (25,000 a rank)
+SHARDED_TIMEOUT_S = 480
+SERVE_START_S = 240        # a `serve --sharded` process's start, at most
+SHARDED_EMB_SEED = 21      # the sharded kNN's table: seeded normal rows,
+#                            apart enough that few scores tie (the
+#                            seeded-init model's top cosines crowd near 1)
+SHARDED_SERVES = {"f32": [], "int8": ["--int8"],
+                  "hybrid": ["--hybrid", "--cached-head"]}
+
+
+def sharded_serving_table(n_items: int, dim: int = 128):
+    import numpy as np
+
+    return np.random.default_rng(SHARDED_EMB_SEED).normal(
+        size=(n_items, dim)).astype(np.float32)
+
+
+def kernel_modules() -> dict:
+    from gcn_song_embeddings_tpu_torch.ops import (
+        agg,
+        dma_agg,
+        quant_kernel,
+        walk_kernel,
+    )
+
+    return {"walk": walk_kernel, "agg": agg, "dma_agg": dma_agg,
+            "quant": quant_kernel}
+
+
+def reset_kernel_counts() -> None:
+    from gcn_song_embeddings_tpu_torch.ops import agg
+
+    for mod in kernel_modules().values():
+        mod.launches = 0
+    for counts in (agg.backward_launches, agg.kernel_launches):
+        for key in counts:
+            counts[key] = 0
+
+
+def kernel_counts() -> dict:
+    from gcn_song_embeddings_tpu_torch.ops import agg
+
+    counts = {name: mod.launches for name, mod in kernel_modules().items()}
+    counts.update({f"agg_backward_{mode}": n
+                   for mode, n in agg.backward_launches.items()})
+    counts.update({f"agg_{name}": n
+                   for name, n in agg.kernel_launches.items()})
+    return counts
+
+
+def sharded_config(fullgraph: str):
+    """``RunConfig.recommended()`` at full width (in 512, hidden 512, out
+    128, T=10, B=128, 500 hops) with ``train.fullgraph_forward``."""
+    import dataclasses
+
+    from gcn_song_embeddings_tpu_torch.config import RunConfig
+
+    cfg = RunConfig.recommended("sharded")
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, fullgraph_forward=fullgraph))
+
+
+def leaves_np(params) -> dict:
+    """A copy of each leaf (on the CPU ``.numpy()`` would share memory
+    with the parameter that Adam goes on updating in place)."""
+    return {name: p.detach().cpu().numpy().copy()
+            for name, p in params.leaves()}
+
+
+def sharded_reference(dev, st, work: str) -> dict:
+    """The single-process runs every sharded run is held to, for the
+    frontier and the full-graph forward: 3 Adam steps from one seeded
+    init on 3 global batches of 128, two ways.  ``one``: each batch
+    whole, as ``train_step`` takes it (a world of one's arithmetic).
+    ``halves``: each batch as a world of two computes it, the loss of
+    each 64-row half over 2 and the two halves' gradients summed, at the
+    shapes each rank sees.  ``one_again`` repeats ``one``: the spread of
+    one process's own runs.  Each keeps its losses, each step's gradients
+    and its parameters after 3 steps.  Writes the init (``save_state``)
+    and the batches for the ranks."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch.models.pinsage import init_pinsage
+    from gcn_song_embeddings_tpu_torch.ops.ppr import block_generator
+    from gcn_song_embeddings_tpu_torch.train.sampler import sample_batch
+    from gcn_song_embeddings_tpu_torch.train.trainer import (
+        TrainTables,
+        make_optimizer,
+        triple_loss,
+    )
+    from gcn_song_embeddings_tpu_torch.utils.checkpoint import save_state
+
+    cfg = sharded_config("off")
+    mcfg, tcfg = cfg.model, cfg.train
+    tables = TrainTables.build(st.feats, st.nbw_d, st.nbn_d, mcfg.T, dev)
+    gen = block_generator(777, 0, dev)
+    positives = torch.as_tensor(st.train_pos, dtype=torch.int32, device=dev)
+    batches = [sample_batch(gen, positives, st.nbn_d, tcfg.batch_size,
+                            st.graph.n_items) for _ in range(SHARDED_STEPS)]
+    seeded = torch.Generator(device=dev)
+    seeded.manual_seed(tcfg.seed)
+    init = init_pinsage(seeded, mcfg.n_layers, st.feats.shape[1],
+                        mcfg.hidden_dim, mcfg.out_dim, mcfg.bias_init)
+    ref = {"init": init, "batches": batches}
+    for mode in ("off", "on"):
+        ref[mode] = {}
+        for name, parts in (("one", 1), ("halves", 2), ("one_again", 1)):
+            params = copy.deepcopy(init)
+            opt = make_optimizer(params, tcfg)
+            losses, steps = [], []
+            for bt in batches:
+                loss, grads = 0.0, None
+                for part in bt.chunk(parts):
+                    part_loss = triple_loss(params, tables, part, tcfg, mcfg,
+                                            mode == "on")[0] / parts
+                    g = torch.autograd.grad(part_loss, opt.params)
+                    grads = g if grads is None else [
+                        a + b for a, b in zip(grads, g)]
+                    loss = loss + part_loss.detach()
+                steps.append({leaf: x.cpu().numpy() for (leaf, _), x in zip(
+                    init.leaves(), grads)})
+                opt.step(grads)
+                losses.append(float(loss))
+            ref[mode][name] = {"losses": losses, "grads": steps,
+                               "leaves": leaves_np(params)}
+    sync(torch, dev)
+    d = os.path.join(work, "sharded")
+    os.makedirs(d, exist_ok=True)
+    np.save(os.path.join(d, "batches.npy"),
+            np.stack([b.cpu().numpy() for b in batches]))
+    save_state(os.path.join(d, "init.npz"), init,
+               make_optimizer(init, tcfg), {})
+    return ref
+
+
+def hold_sharded_run(np, name, losses, grads, leaves, ref) -> dict:
+    """A sharded 3-step run against one process's run of the same
+    arithmetic (``sharded_reference``): the 3 losses at TRAJ, each step's
+    gradients at GRAD_RTOL (relative Frobenius, the aggregation
+    backward's bar), and every parameter after 3 steps at TRAJ where the
+    two runs' gradients agree.  An entry whose gradient differs by more
+    than GRAD_RTOL of its size at some step is counted (at most 1 % of a
+    leaf) and its move logged, not held: upstream a pre-activation within
+    rounding of 0, summed in another order, took the other leaky_relu
+    slope (the effect GRAD_RTOL's comment describes), or the entry's own
+    sum cancels to rounding; Adam then moves it by up to lr whatever the
+    gradient's size.  The full-graph backward sums in an order that
+    varies from run to run, so one process's runs differ so as well
+    (``one_again``)."""
+    np.testing.assert_allclose(losses, ref["losses"], **TRAJ,
+                               err_msg=f"{name}: losses")
+    grad_err = [{leaf: float(np.linalg.norm(g[leaf] - want)
+                             / max(np.linalg.norm(want), 1e-30))
+                 for leaf, want in g_ref.items()}
+                for g, g_ref in zip(grads, ref["grads"])]
+    bad = [(i, leaf) for i, errs in enumerate(grad_err)
+           for leaf, e in errs.items() if not e <= GRAD_RTOL]
+    if bad:
+        raise AssertionError(f"{name}: gradients beyond relative error "
+                             f"{GRAD_RTOL} (step, leaf): {bad}")
+    out = {"grad_rel_err": max(max(e.values()) for e in grad_err),
+           "param_max_diff": 0.0, "param_max_diff_held": 0.0,
+           "entries_gradients_differ": 0, "entries_beyond_traj": 0}
+    for leaf, want in ref["leaves"].items():
+        differ = np.zeros(want.shape, bool)
+        for g, g_ref in zip(grads, ref["grads"]):
+            differ |= (np.abs(g[leaf] - g_ref[leaf])
+                       > GRAD_RTOL * np.abs(g_ref[leaf]))
+        diff = np.abs(leaves[leaf] - want)
+        beyond = diff > TRAJ["atol"] + TRAJ["rtol"] * np.abs(want)
+        out["param_max_diff"] = max(out["param_max_diff"], float(diff.max()))
+        out["param_max_diff_held"] = max(
+            out["param_max_diff_held"], float(diff[~differ].max(initial=0)))
+        out["entries_gradients_differ"] += int(differ.sum())
+        out["entries_beyond_traj"] += int(beyond.sum())
+        for idx in list(zip(*np.nonzero(beyond)))[:2]:
+            log(f"{name}: {leaf}{list(map(int, idx))} moved "
+                f"{float(diff[idx]):.3g}; gradients by step "
+                f"{[float(g[leaf][idx]) for g in grads]} vs "
+                f"{[float(g[leaf][idx]) for g in ref['grads']]}")
+        if (beyond & ~differ).any() or differ.sum() > 0.01 * differ.size:
+            raise AssertionError(
+                f"{name}: {leaf} after 3 steps beyond TRAJ at "
+                f"{int((beyond & ~differ).sum())} entries whose gradients "
+                f"agree; gradients differ at {int(differ.sum())} of "
+                f"{differ.size}")
+    log(f"three sharded steps, {name}: losses {list(map(float, losses))} "
+        f"vs {ref['losses']}; gradients' largest relative error by step "
+        f"{[max(e.values()) for e in grad_err]}; {json.dumps(out)}")
+    return out
+
+
+def run_spread(np, ref, a: str, b: str) -> dict:
+    """Run ``a`` of ``sharded_reference`` against run ``b``: parameters
+    after 3 steps (largest move, entries beyond TRAJ) and the largest
+    relative error of a step's gradients."""
+    ra, rb = ref[a], ref[b]
+    return {
+        "param_max_diff": max(float(np.abs(ra["leaves"][k] - v).max())
+                              for k, v in rb["leaves"].items()),
+        "entries_beyond_traj": sum(int((np.abs(ra["leaves"][k] - v) > (
+            TRAJ["atol"] + TRAJ["rtol"] * np.abs(v))).sum())
+            for k, v in rb["leaves"].items()),
+        "grad_rel_err": max(float(np.linalg.norm(ga[k] - v)
+                                  / max(np.linalg.norm(v), 1e-30))
+                            for ga, gb in zip(ra["grads"], rb["grads"])
+                            for k, v in gb.items())}
+
+
+def same_up_to_ties(np, name, w, n, w_ref, n_ref, atol=1e-6) -> dict:
+    """Two rankings ([B, k] scores sorted descending, and their ids) are
+    one up to ties: the scores agree within ``atol`` at every position
+    (-inf where the other has -inf), and each run of tied finite scores
+    (neighbors within ``atol`` in either ranking) that ends before the
+    last position holds the same ids in both.  Returns the ids checked,
+    and those left unchecked: a run that reaches position k - 1 (its
+    members may go on past k), and the -inf fills."""
+    w, w_ref = np.asarray(w, np.float64), np.asarray(w_ref, np.float64)
+    np.testing.assert_allclose(w, w_ref, atol=atol, rtol=0,
+                               err_msg=f"{name}: scores")
+    out = {"checked": 0, "unchecked_tie_at_k": 0, "unchecked_fills": 0}
+    for wi, ri, ni, mi in zip(w, w_ref, n, n_ref):
+        k = int(np.isfinite(ri).sum())
+        out["unchecked_fills"] += len(ri) - k
+        start = 0
+        for i in range(1, k + 1):
+            if i < k and (abs(wi[i] - wi[i - 1]) <= atol
+                          or abs(ri[i] - ri[i - 1]) <= atol):
+                continue
+            if i == len(wi):
+                out["unchecked_tie_at_k"] += i - start
+            elif sorted(ni[start:i]) != sorted(mi[start:i]):
+                raise AssertionError(f"{name}: ids differ in positions "
+                                     f"{start}..{i - 1}")
+            else:
+                out["checked"] += i - start
+            start = i
+    return out
+
+
+def sharded_steps(tr, batches) -> tuple[list, list]:
+    """One ``tr.step`` a batch, each step's global loss and gradients
+    kept (the gradients on the host, by leaf name)."""
+    names = [name for name, _ in tr.params.leaves()]
+    losses, steps = [], []
+    for bt in batches:
+        loss, grads = tr.gradients(bt)
+        tr.opt.step(grads)
+        losses.append(float(loss))
+        steps.append({n: g.cpu().numpy() for n, g in zip(names, grads)})
+    return losses, steps
+
+
+def run_sharded_world1(dev, st, ref) -> dict:
+    """(a) A world of one on NCCL, driven as ``train --mesh-graph 1``
+    drives it: the multi-device sweep (a world of one sweeps alone, K1),
+    for the frontier (K3) and the full-graph (K2) forward the gradients
+    of the reference's first batch and 3 steps on its batches from its
+    init, then 5 more frontier steps timed (the group's first collectives
+    are behind them), and the full-catalog sharded embed (K3).  Launch
+    counts are read right after the path; the checks follow (the
+    embeddings against ``embed_all`` of the same parameters)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gcn_song_embeddings_tpu_torch.models.pinsage import embed_all
+    from gcn_song_embeddings_tpu_torch.ops.ppr import (
+        precompute_neighborhoods_multichip,
+    )
+    from gcn_song_embeddings_tpu_torch.parallel import multihost
+    from gcn_song_embeddings_tpu_torch.parallel.mesh import make_mesh
+    from gcn_song_embeddings_tpu_torch.parallel.train_step import (
+        ShardedTrainer,
+    )
+
+    multihost.initialize_multihost(num_processes=1, device=dev)
+    try:
+        mesh = make_mesh(n_graph=1)
+        backend = dist.get_backend()
+        walls, runs = {}, {}
+        reset_kernel_counts()
+        t = time.perf_counter()
+        w, n = precompute_neighborhoods_multichip(st.dg, st.cfg.walk, None,
+                                                  seed=0)
+        walls["multichip_sweep_s"] = time.perf_counter() - t
+        for mode in ("off", "on"):
+            tr = ShardedTrainer(mesh, sharded_config(mode), st.graph.n_items,
+                                st.graph.features, (st.nb_w, st.nb_n),
+                                st.train_pos, params=ref["init"])
+            sync(torch, dev)
+            t = time.perf_counter()
+            losses, grads = sharded_steps(tr, ref["batches"])
+            sync(torch, dev)
+            walls[f"train_step_ms_{mode}_first3"] = (
+                (time.perf_counter() - t) * 1e3 / SHARDED_STEPS)
+            runs[mode] = (losses, grads, leaves_np(tr.params), tr)
+        tr = runs["off"][3]
+        t = time.perf_counter()
+        tr.train_chunk(5, batches=ref["batches"][:1] * 5)
+        sync(torch, dev)
+        walls["train_step_ms_off"] = (time.perf_counter() - t) * 1e3 / 5
+        t = time.perf_counter()
+        emb = tr.embed()
+        sync(torch, dev)
+        walls["embed_s"] = time.perf_counter() - t
+        counts = kernel_counts()
+    finally:
+        multihost.shutdown()
+    checks = {"backend": backend,
+              "sweep_bit_equal": bool(np.array_equal(w, st.nb_w)
+                                      and np.array_equal(n, st.nb_n))}
+    for mode in ("off", "on"):
+        checks[f"train_{mode}"] = hold_sharded_run(
+            np, f"world 1, fullgraph {mode}", *runs[mode][:3],
+            ref[mode]["one"])
+        checks[f"train_{mode}"]["one_process_twice"] = run_spread(
+            np, ref[mode], "one_again", "one")
+    mcfg = st.cfg.model
+    want = embed_all(tr.params, st.feats, st.nbw_d, st.nbn_d,
+                     st.graph.n_items, mcfg.n_layers, mcfg.T).cpu().numpy()
+    checks["embed_max_diff"] = float(np.abs(emb - want).max())
+    if not checks["sweep_bit_equal"]:
+        raise AssertionError("world of 1: multi-device sweep differs")
+    if not checks["embed_max_diff"] <= 2e-4:
+        raise AssertionError(f"world of 1: embeddings {checks}")
+    return {"checks": checks, "walls": walls, "counts": counts}
+
+
+def _stop(proc, grace: float = 30.0) -> None:
+    """End ``proc``: SIGTERM, on which torchrun takes down its ranks
+    (each in a session of its own, out of reach of a signal to its
+    group), then SIGKILL past ``grace`` to it and its children."""
+    import signal
+
+    if proc.poll() is None:
+        ranks = []
+        for entry in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == proc.pid:
+                        ranks.append(int(entry))
+            except OSError:
+                continue
+        proc.terminate()
+        try:
+            proc.wait(timeout=grace)
+        except subprocess.TimeoutExpired:
+            for pid in ranks + [proc.pid]:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+    proc.wait()
+
+
+def run_sharded_cli(dev, st, work: str) -> dict:
+    """(c) The sharded verbs as a user runs them, each a world of one on
+    NCCL: ``cli train --mesh-graph 1`` on the main dataset (its cached
+    sweep, 3 steps at full width, the catalog's sharded embed; launches
+    read right after), its ``state.npz`` embedded by the single-process
+    ``cli embed``; then ``serve --sharded`` (f32, ``--int8``, ``--hybrid
+    --cached-head``) on its ``emb.npy``, each in a process of its own,
+    all three started together, one batched request each held against
+    the single-process index that ``serve`` builds for the same flags."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import cli
+    from gcn_song_embeddings_tpu_torch import serve as serve_mod
+
+    _, cfg_path = train_config(work)
+    runs = os.path.join(work, "runs_sharded")
+    walls = {}
+    reset_kernel_counts()
+    t = time.perf_counter()
+    cli.main(["train", "--dataset", st.ds, "--run-dir", runs,
+              "--run-name", "mesh1", "--config", cfg_path, "--mesh-graph",
+              "1", "--set", "train.epochs=1", "--set",
+              f"train.batches_per_epoch={SHARDED_STEPS}", "--device",
+              str(dev)])
+    sync(torch, dev)
+    walls["cli_train_s"] = time.perf_counter() - t
+    counts = kernel_counts()
+    run = os.path.join(runs, "mesh1")
+    emb_path = os.path.join(run, "emb.npy")
+    emb = np.load(emb_path)
+    out = os.path.join(work, "emb_mesh1_embed.npy")
+    cli.main(["embed", "--dataset", st.ds, "--out", out, "--checkpoint",
+              os.path.join(run, "state.npz"), "--device", str(dev)])
+    checks = {"cli_train_embed_max_diff": float(np.abs(
+        np.load(out) - emb).max())}
+    with np.load(os.path.join(run, "state.npz")) as z:
+        checks["cli_train_adam_count"] = int(z["adam.count"])
+    if not (checks["cli_train_embed_max_diff"] <= 2e-4
+            and checks["cli_train_adam_count"] == SHARDED_STEPS
+            and emb.shape == (st.graph.n_items, st.cfg.model.out_dim)):
+        raise AssertionError(f"cli train --mesh-graph 1: {checks}, "
+                             f"emb {emb.shape}")
+
+    rows = [int(r) for r in st.rows][:4]
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([REPO,
+                                          os.environ.get("PYTHONPATH", "")])}
+    procs, answers = {}, {}
+    try:
+        for kind, flags in SHARDED_SERVES.items():
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            logf = open(os.path.join(work, f"serve_sharded_{kind}.log"), "w")
+            procs[kind] = (port, logf, subprocess.Popen(
+                [sys.executable, "-m", "gcn_song_embeddings_tpu_torch.serve",
+                 "--sharded", "--emb", emb_path, "--dataset", st.ds,
+                 "--port", str(port), "--device", str(dev), *flags],
+                stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=REPO))
+        t = time.perf_counter()
+        deadline = time.monotonic() + SERVE_START_S
+        for kind, (port, logf, proc) in procs.items():
+            base = f"http://127.0.0.1:{port}"
+            while kind not in answers:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    logf.flush()
+                    with open(logf.name) as f:
+                        raise AssertionError(
+                            f"serve --sharded {kind} ended {proc.poll()}:\n"
+                            f"{f.read()[-6000:]}")
+                try:
+                    get_json(f"{base}/healthz")
+                except (urllib.error.URLError, ConnectionError):
+                    time.sleep(0.5)
+                    continue
+                walls[f"serve_{kind}_up_s"] = time.perf_counter() - t
+                url = (f"{base}/knn?indices={','.join(map(str, rows))}"
+                       f"&k={QUERY_K}")
+                get_json(url)                       # the batcher's first
+                t1 = time.perf_counter()
+                code, body = get_json(url)
+                walls[f"serve_{kind}_request_ms"] = (
+                    (time.perf_counter() - t1) * 1e3)
+                answers[kind] = (code, body["neighbors"])
+    finally:
+        for _, logf, proc in procs.values():
+            _stop(proc)
+            logf.close()
+    for kind, (code, got) in answers.items():
+        if kind == "hybrid":
+            ix = serve_mod.HybridIndex(emb, nbhds=(st.nb_w, st.nb_n),
+                                       device=dev)
+        else:
+            ix = serve_mod.EmbeddingIndex(emb, quantized=kind == "int8",
+                                          device=dev)
+        want = ix.knn_rows(np.asarray(rows), QUERY_K)
+        if code != 200 or [len(r) for r in got] != [len(r) for r in want]:
+            raise AssertionError(f"serve --sharded {kind}: {code}, "
+                                 f"{[len(r) for r in got]}")
+        w, n, w_ref, n_ref = ([[o[f] for o in r] for r in rs]
+                              for rs, f in ((got, "score"), (got, "index"),
+                                            (want, "score"),
+                                            (want, "index")))
+        checks[f"serve_{kind}"] = same_up_to_ties(
+            np, f"serve --sharded {kind}", w, n, w_ref, n_ref, atol=2e-6)
+    log(f"sharded verbs, a world of one: {json.dumps(checks)}; walls "
+        f"{json.dumps(walls)}")
+    return {"checks": checks, "walls": walls, "counts": counts}
+
+
+def run_sharded_world2(work: str, st) -> list:
+    """(b) Two ranks of ``chip_smoke.py --sharded-rank DIR`` under
+    ``torchrun`` on the one card, over gloo; returns each rank's report.
+    torchrun takes both down when one fails; past ``SHARDED_TIMEOUT_S``
+    ``_stop`` ends torchrun and both ranks."""
+    d = os.path.join(work, "sharded")
+    with open(os.path.join(d, "problem.json"), "w") as f:
+        json.dump({"dataset": st.ds, "nbhds": st.nb_path,
+                   "device": "cuda:0" if st.feats.is_cuda else "cpu"}, f)
+    path = os.path.join(d, "ranks.log")
+    with open(path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", os.path.abspath(__file__),
+             "--sharded-rank", d], stdout=logf, stderr=subprocess.STDOUT,
+            env={**os.environ, "OMP_NUM_THREADS": "1"}, cwd=REPO)
+        try:
+            proc.wait(timeout=SHARDED_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            _stop(proc)
+    with open(path) as f:
+        text = f.read()
+    for line in text.splitlines()[-24:]:
+        log(f"  [ranks] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the two-rank world exited {proc.returncode}:"
+                             f"\n{text[-6000:]}")
+    out = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def sharded_rank_main(d: str) -> int:
+    """One rank (torchrun's ``RANK``) of the two-rank gloo world on the
+    card: drives the sharded path (gathers, multi-device and partitioned
+    sweeps, 3 frontier and 3 full-graph steps, the probe's embed, f32 /
+    int8 / hybrid sharded kNN, one HTTP request through rank 0), reads
+    its launch counts, then checks what it can alone (gathers and the
+    sweeps, bit for bit) and leaves the rest to the parent: rank 0 writes
+    each run's parameters with ``save_state``, and its arrays."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from gcn_song_embeddings_tpu_torch.config import RunConfig
+    from gcn_song_embeddings_tpu_torch.data.device import (
+        DeviceGraph,
+        apply_colisten_config,
+    )
+    from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
+    from gcn_song_embeddings_tpu_torch.models.pinsage import pack_nbhds_np
+    from gcn_song_embeddings_tpu_torch.ops.ppr import (
+        precompute_neighborhoods_multichip,
+        seeded_generator,
+        visit_counts_topt,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.walk_kernel import restart_walks
+    from gcn_song_embeddings_tpu_torch.ops.walks import (
+        draw_uniforms,
+        fused_walk_tables,
+    )
+    from gcn_song_embeddings_tpu_torch.parallel import multihost
+    from gcn_song_embeddings_tpu_torch.parallel.gather import (
+        sharded_table_gather,
+        sharded_table_gather_ring,
+    )
+    from gcn_song_embeddings_tpu_torch.parallel.mesh import make_mesh
+    from gcn_song_embeddings_tpu_torch.parallel.serve_sharded import (
+        ShardedServeIndex,
+        ShardedServingFrontend,
+    )
+    from gcn_song_embeddings_tpu_torch.parallel.train_step import (
+        ShardedTrainer,
+    )
+    from gcn_song_embeddings_tpu_torch.parallel.walks_sharded import (
+        precompute_neighborhoods_partitioned,
+    )
+    from gcn_song_embeddings_tpu_torch import serve as serve_mod
+    from gcn_song_embeddings_tpu_torch.utils.checkpoint import (
+        load_jax_checkpoint,
+        save_state,
+    )
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(d, "problem.json")) as f:
+        problem = json.load(f)
+    dev = torch.device(problem["device"])
+    rank = multihost.initialize_multihost(device=dev, backend="gloo",
+                                          timeout_s=300)
+    try:
+        backend = dist.get_backend()
+        cfg = RunConfig.recommended()
+        ds = problem["dataset"]
+        graph = SongGraph(ds, features_file=os.path.join(ds, "features.npy"))
+        train_pos, _ = graph.load_positives_split(
+            os.path.join(ds, "positives.json"))
+        dg, _ = apply_colisten_config(DeviceGraph.from_graph(graph, dev),
+                                      train_pos, cfg.walk, None)
+        with np.load(problem["nbhds"]) as z:
+            nb_w, nb_n = z["weights"], z["nodes"]
+        batches = np.load(os.path.join(d, "batches.npy"))
+        init = load_jax_checkpoint(os.path.join(d, "init.npz"), dev)
+        mesh = make_mesh(n_graph=2)
+        n_items, b = graph.n_items, batches.shape[1] // 2
+        feats = torch.as_tensor(graph.features, device=dev)
+        packed = torch.as_tensor(pack_nbhds_np(nb_w, nb_n, cfg.model.T),
+                                 device=dev)
+        walls, got = {}, {}
+
+        def timed(name, fn):
+            sync(torch, dev)
+            t = time.perf_counter()
+            out = fn()
+            sync(torch, dev)
+            walls[name] = time.perf_counter() - t
+            return out
+
+        reset_kernel_counts()
+        # -- the path -----------------------------------------------------
+        rows_local = n_items // 2
+        ids = torch.as_tensor(np.random.default_rng(rank).integers(
+            0, n_items, 8192), dtype=torch.int32, device=dev)
+        for name, table in (("features", feats), ("packed", packed)):
+            local = table[rank * rows_local:(rank + 1) * rows_local]
+            got[name] = [fn(local, ids, mesh.graph_group) for fn in (
+                sharded_table_gather, sharded_table_gather_ring)]
+        mc_w, mc_n = timed("multichip_sweep_s", lambda: (
+            precompute_neighborhoods_multichip(dg, cfg.walk, None, seed=0)))
+        pcfg = dataclasses.replace(cfg.walk, batch_walkers=PART_WALKERS)
+        pw, pn = timed("partitioned_sweep_s", lambda: (
+            precompute_neighborhoods_partitioned(dg, pcfg, mesh, None,
+                                                 seed=0)))
+        runs = {}
+        for mode in ("off", "on"):
+            tr = ShardedTrainer(mesh, sharded_config(mode), n_items,
+                                graph.features, (nb_w, nb_n), train_pos,
+                                params=init)
+            mine = [torch.as_tensor(bt[rank * b:(rank + 1) * b],
+                                    device=dev) for bt in batches]
+            losses, grads = timed(f"train_{mode}_s",
+                                  lambda: sharded_steps(tr, mine))
+            walls[f"train_step_ms_{mode}"] = (
+                walls.pop(f"train_{mode}_s") * 1e3 / SHARDED_STEPS)
+            runs[mode] = (tr, losses, grads)
+        probe = np.arange(0, n_items, max(1, n_items // SHARDED_PROBE))[
+            :SHARDED_PROBE]
+        emb = timed("embed_s", lambda: runs["off"][0].embed(ids=probe))
+        served = sharded_serving_table(n_items)
+        qrows = np.arange(0, n_items, max(1, n_items // SHARDED_ROWS))[
+            :SHARDED_ROWS]
+        knn = {}
+        for kind, quantized in (("f32", False), ("int8", True),
+                                ("hybrid", False)):
+            idx = timed(f"index_{kind}_s", lambda: ShardedServeIndex(
+                served, mesh, nbhds=(nb_w, nb_n) if kind == "hybrid"
+                else None, quantized=quantized))
+            fn = idx.hybrid_knn_rows if kind == "hybrid" else idx.knn_rows
+            knn[kind] = timed(f"knn_{kind}_batch{SHARDED_ROWS}_s",
+                              lambda: fn(qrows, 100))
+        http = None
+        if rank == 0:
+            front = ShardedServingFrontend(idx, track_ids=graph.track_ids,
+                                           tracks_meta=graph.tracks)
+            server = serve_mod.serve(front, host="127.0.0.1", port=0)
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                url = (f"http://127.0.0.1:{server.server_address[1]}"
+                       f"/knn?index={int(qrows[5])}&k={QUERY_K}")
+                get_json(url)                       # the batcher's first
+                t = time.perf_counter()
+                code, res = get_json(url)
+                walls["request_ms"] = (time.perf_counter() - t) * 1e3
+                http = {"code": code, "ids": [o["index"]
+                                              for o in res["neighbors"]]}
+            finally:
+                server.shutdown()
+                server.server_close()
+                front.close()
+                thread.join(timeout=30)
+        else:
+            idx.follow()
+        counts = kernel_counts()
+        # -- checks this rank can make alone (launches no longer count) --
+        checks = {"backend": backend}
+        for name, table in (("features", feats), ("packed", packed)):
+            want = table[ids.long()]
+            checks[f"gather_{name}_bit_equal"] = all(
+                bool(torch.equal(g, want)) for g in got[name])
+        checks["multichip_sweep_bit_equal"] = bool(
+            np.array_equal(mc_w, nb_w) and np.array_equal(mc_n, nb_n))
+        tables = fused_walk_tables(dg)
+        chains = 1
+        per = PART_WALKERS // 2
+        ok = True
+        for start in range(0, n_items, PART_WALKERS):
+            first = start + rank * per
+            nodes = torch.arange(first, first + per, dtype=torch.int32,
+                                 device=dev) % n_items
+            u = draw_uniforms(pcfg.n_hops // chains, per,
+                              seeded_generator([0, start, rank], dev))
+            w1, n1 = visit_counts_topt(restart_walks(
+                tables, nodes, pcfg.n_hops, pcfg.alpha, u), nodes,
+                pcfg.t_precompute)
+            keep = max(0, min(per, n_items - first))
+            ok &= (np.array_equal(n1[:keep].cpu().numpy(),
+                                  pn[first:first + keep])
+                   and np.array_equal(w1[:keep].cpu().numpy(),
+                                      pw[first:first + keep]))
+        checks["partitioned_topt_bit_equal"] = bool(ok)
+        if http is not None:
+            checks["http_code"] = http["code"]
+            w5, n5 = knn["hybrid"][0][5], knn["hybrid"][1][5]
+            checks["http_equals_collective"] = http["ids"] == [
+                int(x) for x, s in zip(n5, w5) if np.isfinite(s)][:QUERY_K]
+        report = {"rank": rank, "checks": checks, "walls": walls,
+                  "counts": counts}
+        if rank == 0:
+            arrays = {"emb": emb, "probe": probe, "qrows": qrows}
+            for mode, (tr, losses, grads) in runs.items():
+                save_state(os.path.join(d, f"{mode}_state.npz"), tr.params,
+                           tr.opt, {})
+                arrays[f"{mode}/losses"] = losses
+                for i, step in enumerate(grads):
+                    for name, g in step.items():
+                        arrays[f"{mode}/grad{i}/{name}"] = g
+            for kind, (w, n) in knn.items():
+                arrays[f"knn/{kind}/w"], arrays[f"knn/{kind}/n"] = w, n
+            np.savez(os.path.join(d, "rank0.npz"), **arrays)
+    finally:
+        multihost.shutdown()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def check_sharded_world2(dev, st, ref, reports, work: str) -> dict:
+    """(b)'s checks against one process on the card: every rank's own
+    checks held, both 3-step runs against one process's ``halves`` run
+    (``hold_sharded_run``), the probe's embeddings within 2e-4 of
+    ``embed_all`` of rank 0's parameters, f32 / int8 / hybrid kNN equal
+    to the single-process indexes up to ties, the HTTP answer equal to
+    the collective's."""
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch import serve as serve_mod
+    from gcn_song_embeddings_tpu_torch.models.pinsage import embed_all
+    from gcn_song_embeddings_tpu_torch.utils.checkpoint import (
+        load_jax_checkpoint,
+    )
+
+    d = os.path.join(work, "sharded")
+    checks = {f"rank{r['rank']}": r["checks"] for r in reports}
+    for r in reports:
+        bad = [k for k, v in r["checks"].items() if v is False]
+        if bad:
+            raise AssertionError(f"rank {r['rank']} failed {bad}")
+    if reports[0]["checks"].get("http_code") != 200:
+        raise AssertionError(f"HTTP through rank 0: {reports[0]['checks']}")
+    with np.load(os.path.join(d, "rank0.npz")) as z:
+        arr = {k: z[k] for k in z.files}
+    params = {}
+    for mode in ("off", "on"):
+        params[mode] = load_jax_checkpoint(
+            os.path.join(d, f"{mode}_state.npz"), dev)
+        grads = [{k[len(f"{mode}/grad{i}/"):]: v for k, v in arr.items()
+                  if k.startswith(f"{mode}/grad{i}/")}
+                 for i in range(SHARDED_STEPS)]
+        leaves = leaves_np(params[mode])
+        checks[f"train_{mode}"] = hold_sharded_run(
+            np, f"world 2, fullgraph {mode}", arr[f"{mode}/losses"], grads,
+            leaves, ref[mode]["halves"])
+        checks[f"train_{mode}"]["param_max_diff_whole_batches"] = max(
+            float(np.abs(leaves[k] - v).max())
+            for k, v in ref[mode]["one"]["leaves"].items())
+        checks[f"train_{mode}"]["halves_vs_whole_batches"] = run_spread(
+            np, ref[mode], "halves", "one")
+    # the rank's embeddings against embed_all of the same parameters
+    mcfg = st.cfg.model
+    want = embed_all(params["off"], st.feats, st.nbw_d, st.nbn_d,
+                     st.graph.n_items, mcfg.n_layers, mcfg.T).cpu().numpy()
+    err = float(np.abs(arr["emb"] - want[arr["probe"]]).max())
+    checks["embed_max_diff"] = err
+    if not err <= 2e-4:
+        raise AssertionError(f"world 2: embeddings differ by {err}")
+    qrows = arr["qrows"]
+    ties = {}
+    for kind in ("f32", "int8", "hybrid"):
+        table = sharded_serving_table(st.graph.n_items)
+        if kind == "hybrid":
+            ix = serve_mod.HybridIndex(table, nbhds=(st.nb_w, st.nb_n),
+                                       device=dev)
+        else:
+            ix = serve_mod.EmbeddingIndex(table, quantized=kind == "int8",
+                                          device=dev)
+        out = ix.knn_rows(qrows, 100)
+        w_ref = np.array([[o["score"] for o in r] for r in out])
+        n_ref = np.array([[o["index"] for o in r] for r in out])
+        w, n = arr[f"knn/{kind}/w"], arr[f"knn/{kind}/n"]
+        ties[kind] = same_up_to_ties(np, f"sharded {kind} kNN", w, n, w_ref,
+                                     n_ref, atol=2e-6)
+    checks["knn_ids"] = ties
+    return checks
+
+
+def run_sharded_path(dev, st, work: str) -> dict:
+    """The sharded phase: the single-process reference, (a) a world of
+    one on NCCL in this process, (c) the sharded CLI verbs as worlds of
+    one, (b) two ranks on gloo over the card under torchrun."""
+    ref = sharded_reference(dev, st, work)
+    one = run_sharded_world1(dev, st, ref)
+    need = ("walk", "dma_agg", "agg", "agg_backward_dma",
+            "agg_backward_stream")
+    missing = [k for k in need if one["counts"][k] == 0]
+    if missing:
+        raise AssertionError(f"world of 1: kernels never launched {missing}")
+    import torch
+
+    verbs = run_sharded_cli(dev, st, work)
+    missing = [k for k in ("dma_agg", "agg_backward_dma")
+               if verbs["counts"][k] == 0]
+    if missing:
+        raise AssertionError(f"cli train --mesh-graph 1: kernels never "
+                             f"launched {missing}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    reports = run_sharded_world2(work, st)
+    two_s = time.perf_counter() - t
+    for r in reports:
+        missing = [k for k in need if r["counts"][k] == 0]
+        if missing:
+            raise AssertionError(f"world of 2, rank {r['rank']}: kernels "
+                                 f"never launched {missing}")
+    two = check_sharded_world2(dev, st, ref, reports, work)
+    out = {
+        "checks": {"nccl_world1": one["checks"],
+                   "nccl_cli_world1": verbs["checks"], "gloo_world2": two},
+        "walls": {"nccl_world1": one["walls"],
+                  "nccl_cli_world1": verbs["walls"],
+                  "gloo_world2": {"total_s": two_s,
+                                  **{f"rank{r['rank']}": r["walls"]
+                                     for r in reports}}},
+        "backends": {"nccl_world1": one["checks"]["backend"],
+                     "nccl_cli_world1": "nccl",
+                     "gloo_world2": reports[0]["checks"]["backend"],
+                     "gloo_transport": "host-staged CUDA tensors"},
+        "counts": {"nccl_world1": one["counts"],
+                   "nccl_cli_world1": verbs["counts"],
+                   **{f"gloo_rank{r['rank']}": r["counts"]
+                      for r in reports}},
+        "unverified": "NCCL across two or more cards",
+    }
+    return out
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded-rank":
+        # one rank of the sharded phase's two-rank world (run_sharded_world2)
+        return sharded_rank_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -2040,22 +2930,10 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "bytes stack frame" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    kernels = {"walk": walk_kernel, "agg": agg, "dma_agg": dma_agg,
-               "quant": quant_kernel}
-
-    def reset_counts():
-        for mod in kernels.values():
-            mod.launches = 0
-        for counts in (agg.backward_launches, agg.kernel_launches):
-            for key in counts:
-                counts[key] = 0
+    reset_counts = reset_kernel_counts
 
     def read_counts(need):
-        counts = {name: mod.launches for name, mod in kernels.items()}
-        counts.update({f"agg_backward_{mode}": n
-                       for mode, n in agg.backward_launches.items()})
-        counts.update({f"agg_{name}": n
-                       for name, n in agg.kernel_launches.items()})
+        counts = kernel_counts()
         missing = [name for name in need if counts[name] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the path: "
@@ -2071,12 +2949,12 @@ def main() -> int:
 
     # ---- prepare, then all, on a copy of the main path's dataset --------
     reset_counts()
-    pp = run_prepare_path(dev, st, work)
+    pp = run_prepare_path(dev, work)
     prepare_launches = read_counts(("walk", "agg", "agg_split",
                                     "agg_project", "agg_gather_mean",
                                     "dma_agg", "agg_backward_dma"))
     log(f"launches on the prepare and all path: {prepare_launches}")
-    prepare_checks = check_prepare(st, pp)
+    prepare_checks = check_prepare(pp)
 
     # ---- audio features at the nets' published widths --------------------
     audio = run_audio_path(dev, work)
@@ -2149,6 +3027,20 @@ def main() -> int:
     log(f"launches on the int8 path: {int8_launches}")
     st.walls["int8"] = it["walls"]
     int8_checks = check_int8(torch, st, tr_st, it)
+    torch.cuda.empty_cache()
+
+    # ---- the sharded path: parallel/ on NCCL (world of 1) and gloo (2) --
+    t = time.perf_counter()
+    sh = run_sharded_path(dev, st, work)
+    sh["walls"]["phase_s"] = time.perf_counter() - t
+    sharded = {"nccl_world1": sh["counts"]["nccl_world1"],
+               "nccl_cli_world1": sh["counts"]["nccl_cli_world1"],
+               "gloo_world2": {k: sum(sh["counts"][f"gloo_rank{r}"][k]
+                                      for r in range(2))
+                               for k in sh["counts"]["gloo_rank0"]}}
+    log(f"launches on the sharded path: {json.dumps(sharded)}")
+    log(json.dumps({"sharded_checks": {k: sh[k] for k in (
+        "checks", "walls", "backends", "unverified")}}))
 
     log(json.dumps({"phase_walls": st.walls}))
     log(json.dumps({"prepare_checks": prepare_checks}))
@@ -2231,7 +3123,8 @@ def main() -> int:
             for row, n in ev.row_walks.items() if n},
          "int8_live_walk": int8_launches["walk"],
          "prepare": pp.prepare_k1,
-         "all_eval_PageRank": pp.all_k1["cmd_eval"]})]
+         "all_eval_PageRank": pp.all_k1["cmd_eval"],
+         **{f"sharded_{w}": c["walk"] for w, c in sharded.items()}})]
     if sum(ev.row_walks.values()) != eval_launches["walk"]:
         raise AssertionError(f"eval K1 launches by row {ev.row_walks} do "
                              f"not add up to {eval_launches['walk']}")
@@ -2255,8 +3148,10 @@ def main() -> int:
         "K2 3xTF32 Q-MLP of every table row, then gather + weighted mean "
         "(agg.conv_aggregate, mode stream)", agg.SOURCE, agg.REPLACES,
         {"serve": launches["agg"], "train": train_launches["agg"],
-         "all": prepare_launches["agg"]},
-        train_launches["agg_backward_stream"], k2,
+         "all": prepare_launches["agg"],
+         **{f"sharded_{w}": c["agg"] for w, c in sharded.items()}},
+        train_launches["agg_backward_stream"]
+        + sum(c["agg_backward_stream"] for c in sharded.values()), k2,
         f"both embed_all layers, N={graph.n_items} T={mcfg.T}: Din=512 and "
         f"Din=128, H={mcfg.hidden_dim}; backward at the same shapes (the "
         f"full-graph train step), launched "
@@ -2267,15 +3162,18 @@ def main() -> int:
         part["launches_by_path"] = {
             "serve": launches[f"agg_{name}"],
             "train": train_launches[f"agg_{name}"],
-            "all": prepare_launches[f"agg_{name}"]}
+            "all": prepare_launches[f"agg_{name}"],
+            **{f"sharded_{w}": c[f"agg_{name}"] for w, c in sharded.items()}}
     results.append(row)
     row = kernel_row(
         "K3 fused 3xTF32 gather + Q-MLP + weighted mean "
         "(agg.conv_aggregate, mode dma)", dma_agg.SOURCE, dma_agg.REPLACES,
         {"train": train_launches["dma_agg"],
-         "all": prepare_launches["dma_agg"]},
+         "all": prepare_launches["dma_agg"],
+         **{f"sharded_{w}": c["dma_agg"] for w, c in sharded.items()}},
         train_launches["agg_backward_dma"]
-        + prepare_launches["agg_backward_dma"], k3,
+        + prepare_launches["agg_backward_dma"]
+        + sum(c["agg_backward_dma"] for c in sharded.values()), k3,
         f"both aggregations of a frontier train step at B=128: "
         f"{step_shapes[0][2].shape[0]} nodes x T={mcfg.T}, Din=512 and "
         f"{step_shapes[1][2].shape[0]} nodes x T={mcfg.T}, Din=128; "

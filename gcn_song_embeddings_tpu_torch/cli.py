@@ -57,8 +57,11 @@ Usage:
   python -m gcn_song_embeddings_tpu_torch.cli stats --dataset DIR
   python -m gcn_song_embeddings_tpu_torch.cli serve --emb E.npy [...]
 
-``train --mesh-graph N`` with N > 0 (sharded training) arrives with the
-``parallel/`` slice (ROADMAP queue 1 item 6) and raises until then.
+``train --mesh-graph N`` with N > 0 trains sharded (``parallel/``): the
+ranks of a ``torch.distributed`` world form a (dp, N) mesh, node tables
+row-sharded over N ranks.  Run it under ``torchrun --nproc_per_node K``
+(one process per GPU), or alone as a world of one.  ``all --mesh-graph``
+runs prepare and eval on rank 0 and trains on every rank.
 """
 
 from __future__ import annotations
@@ -210,20 +213,14 @@ def cmd_prepare(args) -> dict:
     return walls
 
 
-def refuse_mesh(mesh_graph: int) -> None:
-    if mesh_graph:
-        raise SystemExit(
-            f"--mesh-graph {mesh_graph}: sharded training arrives with the "
-            f"parallel/ slice of the port (ROADMAP.md queue 1 item 6); "
-            f"--mesh-graph 0 trains on one device")
-
-
 def cmd_train(args) -> None:
     from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
     from gcn_song_embeddings_tpu_torch.train.trainer import PinSageTrainer
     from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
 
-    refuse_mesh(args.mesh_graph)
+    if args.mesh_graph:
+        cmd_train_sharded(args)
+        return
     dev = resolve_device(args.device)
     cfg = run_config(args.run_name, args.config, args.set)
     graph = load_graph(args.dataset, args.features)
@@ -238,6 +235,76 @@ def cmd_train(args) -> None:
                              load_save=not args.no_resume)
     trainer.train()
     print(f"embeddings -> {trainer.save_embeddings()}")
+
+
+def join_world(args):
+    """Join the ``torch.distributed`` world (``torchrun``'s, or a world of
+    one) and lay it out as a (dp, ``--mesh-graph``) mesh, before any
+    work: a mesh that does not fit the world raises here.  Returns (rank,
+    mesh)."""
+    from gcn_song_embeddings_tpu_torch.parallel import multihost
+    from gcn_song_embeddings_tpu_torch.parallel.mesh import make_mesh
+
+    rank = multihost.initialize_multihost(device=args.device)
+    try:
+        return rank, make_mesh(n_graph=args.mesh_graph)
+    except Exception:
+        multihost.shutdown()
+        raise
+
+
+def cmd_train_sharded(args) -> None:
+    """``train --mesh-graph N``: every rank of the world (``torchrun``, or
+    a world of one) sweeps its share of the neighborhoods (rank 0 writes
+    the cache), then ``ShardedTrainer`` trains on a (dp, N) mesh,
+    resuming from and checkpointing to ``<run>/state.npz``; rank 0 writes
+    ``config.json`` and ``emb.npy``."""
+    from gcn_song_embeddings_tpu_torch.data.device import (
+        DeviceGraph,
+        apply_colisten_config,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.ppr import (
+        precompute_neighborhoods_multichip,
+    )
+    from gcn_song_embeddings_tpu_torch.parallel import multihost
+    from gcn_song_embeddings_tpu_torch.parallel.train_step import (
+        ShardedTrainer,
+    )
+
+    rank, mesh = join_world(args)
+    try:
+        dev = multihost.rank_device()
+        cfg = run_config(args.run_name, args.config, args.set)
+        graph = load_graph(args.dataset, args.features)
+        if graph.features is None:
+            raise SystemExit(f"no features found in {args.dataset}")
+        train_pos, _ = graph.load_positives_split(
+            positives_path(args.dataset, args.positives))
+        dg, nb_path = apply_colisten_config(
+            DeviceGraph.from_graph(graph, dev), train_pos, cfg.walk,
+            graph.nbhds_path)
+        nbhds = precompute_neighborhoods_multichip(
+            dg, cfg.walk, nb_path, seed=cfg.train.seed, verbose=rank == 0)
+        trainer = ShardedTrainer(mesh, cfg, graph.n_items, graph.features,
+                                 nbhds, train_pos)
+        run_dir = os.path.join(args.run_dir, cfg.run_name)
+        state_path = os.path.join(run_dir, "state.npz")
+        if rank == 0:
+            os.makedirs(run_dir, exist_ok=True)
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                f.write(trainer.cfg.to_json())
+        if not args.no_resume:
+            trainer.load(state_path)
+        trainer.train_epochs(verbose=rank == 0, save_path=state_path)
+        trainer.save(state_path)
+        emb = trainer.embed()
+        if rank == 0:
+            path = os.path.join(run_dir, "emb.npy")
+            np.save(path, emb)
+            print(f"[sharded mesh {mesh.shape}, {dev}] embeddings -> "
+                  f"{path}")
+    finally:
+        multihost.shutdown()
 
 
 def checkpoint_config(checkpoint: str | None):
@@ -411,18 +478,35 @@ def cmd_eval(args) -> None:
 def cmd_all(args) -> dict:
     """prepare, train, then eval with ``PinSage:<run-name>`` appended
     (``--models`` filters every row, that one too, as in the JAX CLI).
-    Returns its walls (s)."""
-    refuse_mesh(args.mesh_graph)
+    With ``--mesh-graph`` the world is joined first: rank 0 prepares and
+    evaluates, every rank trains.  Returns its walls (s)."""
+    if not args.mesh_graph:
+        return _all_stages(args, lead=True)
+    from gcn_song_embeddings_tpu_torch.parallel import multihost
+
+    try:
+        return _all_stages(args, lead=join_world(args)[0] == 0)
+    finally:
+        multihost.shutdown()
+
+
+def _all_stages(args, lead: bool) -> dict:
     walls = {}
     t = time.perf_counter()
-    walls["prepare"] = cmd_prepare(args)
+    if lead:
+        walls["prepare"] = cmd_prepare(args)
+    if args.mesh_graph:
+        from gcn_song_embeddings_tpu_torch.parallel import multihost
+
+        multihost.wait_for_rank_0()       # prepare's files are written
     walls["prepare_s"] = time.perf_counter() - t
     t = time.perf_counter()
     cmd_train(args)
     walls["train_s"] = time.perf_counter() - t
     args.pinsage_runs = (args.pinsage_runs or []) + [args.run_name]
     t = time.perf_counter()
-    cmd_eval(args)
+    if lead:
+        cmd_eval(args)
     walls["eval_s"] = time.perf_counter() - t
     return walls
 
@@ -508,8 +592,10 @@ def parser() -> argparse.ArgumentParser:
                         help="config override, e.g. --set train.lr=0.001")
         sp.add_argument("--no-resume", action="store_true")
         sp.add_argument("--mesh-graph", type=int, default=0,
-                        help="sharded training's graph-axis size; only 0 "
-                             "(one device) until the parallel/ slice")
+                        help="train sharded over the ranks of a "
+                             "torch.distributed world (torchrun, or a "
+                             "world of one) with this graph-axis size "
+                             "(0 = one device, no process group)")
 
     def eval_options(sp):
         sp.add_argument("--eval-dir", default=None,

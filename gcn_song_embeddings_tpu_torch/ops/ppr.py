@@ -14,7 +14,9 @@ The neighborhood cache (``.npz`` of ``weights``/``nodes``/``meta``/
 ``alpha``) is byte-compatible with the JAX package's: each package loads
 what the other wrote.  ``refresh_neighborhoods`` re-sweeps only the
 origins a graph augmentation can reach and saves the result under the
-augmented graph's cache meta.
+augmented graph's cache meta.  ``precompute_neighborhoods_multichip``
+deals the sweep's blocks to the ranks of a ``torch.distributed`` world
+and gives the same artifact.
 """
 
 from __future__ import annotations
@@ -152,6 +154,71 @@ def precompute_neighborhoods(graph: DeviceGraph, cfg: WalkConfig,
     out_w, out_n = all_w.cpu().numpy(), all_n.cpu().numpy()
     _save_cache(path, out_w, out_n, cfg, seed, graph.n_edges)
     return out_w, out_n
+
+
+def precompute_neighborhoods_multichip(graph: DeviceGraph, cfg: WalkConfig,
+                                       path: str | None = None,
+                                       seed: int = 0, group=None,
+                                       verbose: bool = False
+                                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Multi-device all-node PPR sweep: every rank of ``group`` (None:
+    the world of ``torch.distributed``) holds the whole graph and runs
+    K1 on its share of the sweep blocks, dealt round-robin.
+
+    Block ``start`` draws from ``block_generator(seed, start, device)``
+    as in ``precompute_neighborhoods``, so on one device type the
+    artifact equals the single-process sweep's bit for bit and its cache
+    meta holds for both.  The blocks' rows are summed over the ranks
+    (every row comes from one rank, the others add exact zeros); every
+    rank returns the numpy (weights, nodes) and rank 0 writes the cache.
+    Outside a process group, or in a world of one, this is
+    ``precompute_neighborhoods``."""
+    import torch.distributed as dist
+
+    from gcn_song_embeddings_tpu_torch.parallel import collectives as C
+
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return precompute_neighborhoods(graph, cfg, path, seed=seed,
+                                        verbose=verbose)
+    n_items, T, dev = graph.n_items, cfg.t_precompute, graph.device
+    cached = agreed_cache(path, n_items, T, cfg, seed, graph.n_edges, dev,
+                          group)
+    if cached is not None:
+        return cached
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    chains = effective_chains(cfg.n_hops, cfg.parallel_chains)
+    tables = fused_walk_tables(graph)
+    all_w = torch.zeros((n_items, T), dtype=torch.float32, device=dev)
+    all_n = torch.zeros((n_items, T), dtype=torch.int32, device=dev)
+    bs = cfg.batch_walkers
+    for block, start in enumerate(range(0, n_items, bs)):
+        if block % world != rank:
+            continue
+        stop = min(start + bs, n_items)
+        nodeset = torch.arange(start, stop, dtype=torch.int32, device=dev)
+        trace = random_walks(tables, nodeset, cfg.n_hops, cfg.alpha,
+                             block_generator(seed, start, dev),
+                             n_chains=chains)
+        all_w[start:stop], all_n[start:stop] = visit_counts_topt(
+            trace, nodeset, T)
+        if verbose:
+            print(f"neighborhoods[rank {rank}/{world}]: block "
+                  f"{start}-{stop} of {n_items} done")
+    out_w = C.all_reduce(all_w, group).cpu().numpy()
+    out_n = C.all_reduce(all_n, group).cpu().numpy()
+    if rank == 0:
+        _save_cache(path, out_w, out_n, cfg, seed, graph.n_edges)
+    dist.barrier(group=group)
+    return out_w, out_n
+
+
+def agreed_cache(path, n_items, T, cfg, seed, n_edges, device, group=None):
+    """``_load_cache`` on every rank, used only where it loads on every
+    rank (a rank that would sweep alone would hang its peers)."""
+    from gcn_song_embeddings_tpu_torch.parallel import collectives as C
+
+    cached = _load_cache(path, n_items, T, cfg, seed, n_edges)
+    return cached if C.all_true(cached is not None, device, group) else None
 
 
 def affected_origins(old_w: np.ndarray, old_n: np.ndarray,

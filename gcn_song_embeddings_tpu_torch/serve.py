@@ -41,8 +41,9 @@ update, where the JAX package's handler threads race updates against
 queries, and ``remove_tracks`` gives a track id the row path's errors
 (a second removal is "already removed", a row named twice in one call
 raises) where the JAX package reports "unknown track" and dedupes.
-Still to come with a later slice of the port: catalog-sharded serving
-(``--sharded``).
+``--sharded`` serves a catalog row-sharded over the ranks of a
+``torch.distributed`` world (``parallel/serve_sharded.py``; run it under
+``torchrun``, or alone as a world of one).
 """
 
 from __future__ import annotations
@@ -720,7 +721,7 @@ def cached_head_artifacts(dataset_dir: str, colisten: int,
     )
     from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
     from gcn_song_embeddings_tpu_torch.ops.ppr import (
-        precompute_neighborhoods,
+        precompute_neighborhoods_multichip,
     )
 
     graph = SongGraph(dataset_dir)
@@ -730,7 +731,9 @@ def cached_head_artifacts(dataset_dir: str, colisten: int,
     dg, nb_path = apply_colisten_config(
         DeviceGraph.from_graph(graph, device), train_pos, wcfg,
         os.path.join(dataset_dir, "neighborhoods.npz"))
-    nbhds = precompute_neighborhoods(dg, wcfg, nb_path, verbose=True)
+    # in a process group the ranks share the sweep (rank 0 writes it)
+    nbhds = precompute_neighborhoods_multichip(dg, wcfg, nb_path,
+                                               verbose=True)
     return graph, train_pos, nbhds
 
 
@@ -763,14 +766,24 @@ def main(argv=None) -> None:
                     help="serve an int8 table (a quarter of the f32 device "
                          "bytes); the f32 rows stay on the host")
     ap.add_argument("--sharded", action="store_true",
-                    help="catalog-sharded serving arrives with a later "
-                         "slice of the port")
+                    help="row-shard the catalog over the ranks of a "
+                         "torch.distributed world (run under torchrun; "
+                         "alone it is a world of one).  Combines with "
+                         "--int8 and, via --hybrid --cached-head, with the "
+                         "hybrid ranker")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("--sharded serving arrives with the "
-                                  "sharded-serving slice of the port")
-    device = resolve_device(args.device)
+    if args.sharded and args.hybrid and not args.cached_head:
+        ap.error("--sharded --hybrid requires --cached-head (per-query "
+                 "walks do not shard)")
     graph = SongGraph(args.dataset) if args.dataset else None
+    if args.sharded:
+        from gcn_song_embeddings_tpu_torch.parallel import serve_sharded
+
+        if args.hybrid and graph is None:
+            ap.error("--hybrid requires --dataset")
+        serve_sharded.serve_main(args, graph)
+        return
+    device = resolve_device(args.device)
     if args.hybrid:
         if graph is None:
             ap.error("--hybrid requires --dataset (the graph to walk)")

@@ -89,7 +89,11 @@ def test_every_port_module_imports_with_jax_blocked():
                    "models.baselines.pinsage_wrapper", "models.gnnlib",
                    "ops.graph_ops", "ops.node2vec", "train.grid_search",
                    "features", "models.audio_embedders", "data.positives",
-                   "native.audiodec", "convert_audio_weights"):
+                   "native.audiodec", "convert_audio_weights",
+                   "parallel.mesh", "parallel.multihost",
+                   "parallel.collectives", "parallel.gather",
+                   "parallel.walks_sharded", "parallel.train_step",
+                   "parallel.serve_sharded"):
         assert prefix + module in names
 
 
@@ -102,6 +106,7 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "audio_embedders as ae\n"
         "from gcn_song_embeddings_tpu_torch.models import gnnlib\n"
         "from gcn_song_embeddings_tpu_torch.models.baselines import mf\n"
+        "from gcn_song_embeddings_tpu_torch.parallel import multihost\n"
         "from gcn_song_embeddings_tpu_torch.ops.node2vec import "
         "build_alias_graph\n"
         "from gcn_song_embeddings_tpu_torch.train.grid_search import "
@@ -130,7 +135,13 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "         lambda: ae.MusicNNNet.build(),\n"
         "         lambda: ae.openl3_mel_windows(np.zeros((1, 16000))),\n"
         "         lambda: ae.vggish_log_mel_patches(np.zeros((1, 16000))),\n"
-        "         lambda: ae.musicnn_log_mel_patches(np.zeros((1, 16000)))]\n"
+        "         lambda: ae.musicnn_log_mel_patches(np.zeros((1, 16000))),\n"
+        "         lambda: multihost.initialize_multihost(),\n"
+        "         lambda: cli.main(['train', '--dataset', 'nowhere',\n"
+        "                           '--mesh-graph', '1']),\n"
+        "         lambda: cli.main(['all', '--dataset', 'nowhere',\n"
+        "                           '--mesh-graph', '1']),\n"
+        "         lambda: serve.main(['--emb', 'x.npy', '--sharded'])]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"

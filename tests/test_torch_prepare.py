@@ -130,10 +130,15 @@ def test_cli_all_writes_a_pinsage_row(dataset_dir, tmp_path):
 
 
 def test_mesh_graph_refused_before_any_work(tmp_path):
+    """A (dp, 2) mesh does not fit a world of one: both verbs refuse it
+    before touching the dataset, and leave no process group behind."""
+    import torch.distributed as dist
+
     for verb in ("train", "all"):
-        with pytest.raises(SystemExit, match="item 6"):
+        with pytest.raises(ValueError, match="mesh 0x2 != 1 ranks"):
             cli.main([verb, "--dataset", str(tmp_path / "none"),
                       "--mesh-graph", "2", "--device", "cpu"])
+        assert not dist.is_initialized()
     assert not os.path.exists(tmp_path / "none")
 
 

@@ -138,10 +138,26 @@ def test_hybrid_index_live_walk_serves(graph, positives):
 
 
 def test_later_slices_raise_not_implemented(graph, positives):
-    """Catalog-sharded serving is a later slice; the hybrid index takes no
-    online adds, as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="slice"):
-        ts.main(["--emb", "x.npy", "--sharded", "--device", "cpu"])
+    """What neither package does: a catalog-sharded index takes no online
+    adds or removals (it would need a re-shard), sharded hybrid serving
+    needs the cached head, and the hybrid index takes no online adds."""
+    import torch
+
+    from gcn_song_embeddings_tpu_torch.parallel.mesh import Mesh
+    from gcn_song_embeddings_tpu_torch.parallel.serve_sharded import (
+        ShardedServeIndex,
+        ShardedServingFrontend,
+    )
+
+    front = ShardedServingFrontend(ShardedServeIndex(
+        _emb(16), Mesh(1, 1, 0, torch.device("cpu"), None)))
+    with pytest.raises(NotImplementedError, match="re-shard"):
+        front.add_tracks(_emb(1))
+    with pytest.raises(NotImplementedError, match="re-shard"):
+        front.remove_tracks([0])
+    with pytest.raises(SystemExit):
+        ts.main(["--emb", "x.npy", "--sharded", "--hybrid", "--dataset",
+                 "nowhere", "--device", "cpu"])
     ix = ts.HybridIndex(_emb(graph.n_items, 8), DeviceGraph.from_graph(
         graph, "cpu"), train_pairs=positives, n_hops=64, k_cap=16,
         device="cpu")
