@@ -37,6 +37,19 @@
    CPU (the plain versions), losses, G1_w and embeddings as
    tests/test_trainer.py holds them.  Then the train step's wall at B=128
    and a ``torch.profiler`` pass over it (device busy share, launches).
+   Then, with the counters set to 0 again, the bf16 phase: ``cli train
+   --set train.dtype="bfloat16"`` on the same schedule (run
+   ``smoke_bf16``; K3's bf16 form on the deepest layer) and ``cli embed``
+   of its checkpoint: 50 finite rows with a falling loss, f32 master
+   leaves and Adam moments, the embed within 1e-4 of the CPU path on 64
+   nodes; then (counters at 0) 3 bf16 frontier steps on the card against
+   the CPU (tests/test_torch_bf16.py's bars) and 3 bf16 full-graph steps
+   (K2's bf16 form, forward and backward); the step's wall and profile in
+   both dtypes and both forwards.  Then the tail (counters at 0):
+   ``explore.crawl_walk_counts`` from 4 tracks of the catalog (K1),
+   ``profiling.Timer`` phases on CUDA events, a ``profiling.
+   device_profile`` trace, the recommendation lists and figure of 3
+   queries from the f32 and bf16 runs' embeddings.
 6. Drives the eval path with the counters set to 0 again: ``SongGraph``
    through the native ``graph.json`` reader (its ``load_graph_s`` beside
    the ``json`` module's time for the same file), then ``cli eval`` of
@@ -105,7 +118,12 @@
    library composition); each kernel's ``host_ms`` is its time per call
    as the host issues them, its wrapper included.  K2's
    and K3's bounds count their products on the TF32 tensor cores in
-   three passes (3xTF32); ``bound_f32_simt_ms`` keeps the f32 one.
+   three passes (3xTF32); ``bound_f32_simt_ms`` keeps the f32 one.  The
+   bf16 forms (K3 at the deepest conv of a bf16 step, K2 at both
+   full-graph layers on bf16 tables and weights) are held within 1e-4 of
+   their plain versions, their errors against float64 on the same bf16
+   inputs logged, and their bounds count one pass on the bf16 tensor
+   cores.
 11. Right after the int8 path, the multi-device layer (``parallel/``)
    with the counters set to 0 again in each process, held to two
    single-process runs of 3 steps from one seeded init on 3 global
@@ -160,6 +178,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_FP32_FLOPS = 67e12   # f32 outside the tensor cores (data sheet, SXM)
 H100_TF32_FLOPS = 495e12  # TF32 tensor cores, dense (data sheet, SXM)
 H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s (data sheet, SXM)
+H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense (data sheet, SXM)
 K2_ATOL = 1e-4  # f32 sums of Din products in another order: ~1e-6 expected
 # the aggregation's backward: the relative Frobenius error of each
 # gradient against autograd through the plain version in float64.  One
@@ -171,6 +190,11 @@ K2_ATOL = 1e-4  # f32 sums of Din products in another order: ~1e-6 expected
 GRAD_RTOL = 1e-3
 TRAJ = {"rtol": 1e-4, "atol": 1e-5}  # tests/test_trainer.py's 3-step bar
 TRAIN_EPOCHS, TRAIN_BATCHES, TRAIN_CHUNK = 2, 25, 20
+# tests/test_torch_bf16.py's bars for bf16 against a reference: losses
+# within 1e-3 relative, master leaves within one bf16 ulp plus 2 lr (Adam
+# moves an entry by at most about lr a step)
+BF16_LOSS_RTOL, BF16_ULP = 1e-3, 2.0 ** -7
+N_CRAWLS, N_EXPORTS = 4, 3
 
 # the README's 100k scale: ~1M directed playlist edges
 N_TRACKS, N_COLLECTIONS, TRACKS_PER_COLLECTION = 100_000, 25_000, 20
@@ -1015,13 +1039,14 @@ def step_conv_inputs(torch, trainer, batch):
 
 
 def agg_work(torch, nb_idx, nb_wt, din: int, hdim: int, n_rows: int,
-             backward: bool = False, need_dh: bool = False):
+             backward: bool = False, need_dh: bool = False, elem: int = 4):
     """(operations, bytes) the aggregation needs on this data: each
     distinct weighted id projected once (+bq, leaky_relu), each weighted
     entry's multiply-add, one divide per output; inputs read once, output
-    written once.  The backward recomputes the projection of the distinct
-    rows, forms dWq (and dh) from them, and reads the forward's inputs
-    plus the incoming gradient."""
+    written once (table rows and Wq of ``elem`` bytes, the rest f32).
+    The backward recomputes the projection of the distinct rows, forms
+    dWq (and dh) from them, and reads the forward's inputs plus the
+    incoming gradient."""
     b, t = nb_idx.shape
     live = nb_wt != 0
     distinct = int(nb_idx[live].unique().numel())
@@ -1029,8 +1054,8 @@ def agg_work(torch, nb_idx, nb_wt, din: int, hdim: int, n_rows: int,
     if not backward:
         flops = (2.0 * distinct * (din + 1) * hdim + 2.0 * entries * hdim
                  + b * hdim)
-        nbytes = 4.0 * (distinct * din + 2 * b * t + hdim * din + hdim
-                        + b * hdim)
+        nbytes = (elem * (distinct * din + hdim * din)
+                  + 4.0 * (2 * b * t + hdim + b * hdim))
         return flops, nbytes, distinct, entries
     products = 3 if need_dh else 2
     flops = (products * 2.0 * distinct * din * hdim
@@ -1041,12 +1066,13 @@ def agg_work(torch, nb_idx, nb_wt, din: int, hdim: int, n_rows: int,
     return flops, nbytes, distinct, entries
 
 
-def bound(flops: float, nbytes: float, products: float = 0.0):
+def bound(flops: float, nbytes: float, products: float = 0.0,
+          rate: float = H100_TF32_FLOPS, passes: int = 3):
     """(ms, what bounds it): the larger of the bytes over HBM's rate and
     the operations over the peak rate of their type: ``products`` (of
-    ``flops``) on the TF32 tensor cores, three passes each (3xTF32), the
-    rest as f32 outside them."""
-    ops_ms = (3.0 * products / H100_TF32_FLOPS
+    ``flops``) on the tensor cores at ``rate``, ``passes`` each (3xTF32
+    by default; one bf16 pass), the rest as f32 outside them."""
+    ops_ms = (passes * products / rate
               + (flops - products) / H100_FP32_FLOPS) * 1e3
     bytes_ms = nbytes / H100_HBM_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
@@ -1063,8 +1089,13 @@ def float64_error(torch, agg, h, ids, wts, Wq, bq, got, plain):
     for t in range(ids.shape[1]):
         ref += w64[:, t, None] * proj[ids[:, t].long()]
     del proj
-    w_sum = w64.sum(dim=1, keepdim=True)
-    ref /= torch.where(w_sum == 0.0, torch.ones_like(w_sum), w_sum)
+    if wts.dtype == torch.bfloat16:
+        # bf16 weights: the function's denominator is their sum rounded
+        # to bf16 (the JAX package's), taken exactly as it is
+        ref /= agg._denominator(wts).double()
+    else:
+        w_sum = w64.sum(dim=1, keepdim=True)
+        ref /= torch.where(w_sum == 0.0, torch.ones_like(w_sum), w_sum)
     return (float((got.double() - ref).abs().max()),
             float((plain.double() - ref).abs().max()))
 
@@ -1293,8 +1324,10 @@ def kernel_row(name, source, replaces, launches_by_path, bwd_launches, m,
     }
 
 
-def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5):
-    """Frontier train steps at B=128 from a copy of the trainer's params,
+def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5,
+                     fullgraph: bool = False):
+    """Train steps at B=128 (the frontier forward, or with ``fullgraph``
+    the full-graph one) in the trainer's dtype from a copy of its params,
     after two warm-up steps: the synchronized wall per step over ``reps``
     steps, then ``torch.profiler`` over ``profiled`` more: device busy time
     per step, the idle share of the profiled wall (the profiler's own host
@@ -1320,7 +1353,8 @@ def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5):
     def run(batches) -> float:
         t = time.perf_counter()
         for b in batches:
-            train_step(params, opt, b, trainer.tables, tcfg, mcfg, False)
+            train_step(params, opt, b, trainer.tables, tcfg, mcfg,
+                       fullgraph)
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / len(batches)
 
@@ -1342,6 +1376,343 @@ def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5):
         "idle_share": 1.0 - busy / wall_ms,
         "device_launches_per_step": sum(e.count for e in device) / profiled,
         "top_kernels_ms_per_step": {e.key[:80]: dev_ms(e) for e in top}}
+
+
+def run_bf16_train_path(dev, st, work: str):
+    """The bf16 training path, as a user runs it: ``cli train --set
+    train.dtype="bfloat16"`` on the f32 training path's schedule and the
+    main path's dataset (frontier forward: K3's bf16 form on the deepest
+    layer), then ``cli embed`` of its checkpoint.  Returns its state."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import cli
+    from gcn_song_embeddings_tpu_torch.config import config_with_overrides
+
+    cfg, cfg_path = train_config(work)
+    cfg = config_with_overrides(cfg.replace(run_name="smoke_bf16"),
+                                {"train.dtype": "bfloat16"})
+    runs = os.path.join(work, "runs")
+    t = time.perf_counter()
+    cli.main(["train", "--dataset", st.ds, "--run-dir", runs,
+              "--run-name", cfg.run_name, "--config", cfg_path,
+              "--set", 'train.dtype="bfloat16"', "--device", str(dev)])
+    sync(torch, dev)
+    walls = {"train_bf16_s": time.perf_counter() - t}
+    run_dir = os.path.join(runs, cfg.run_name)
+    out = os.path.join(work, "emb_bf16_cli.npy")
+    t = time.perf_counter()
+    cli.main(["embed", "--dataset", st.ds, "--out", out, "--checkpoint",
+              os.path.join(run_dir, "state.npz"), "--device", str(dev)])
+    walls["embed_bf16_cli_s"] = time.perf_counter() - t
+    return SimpleNamespace(cfg=cfg, run_dir=run_dir, walls=walls,
+                           emb=np.load(os.path.join(run_dir, "emb.npy")),
+                           cli_emb=np.load(out), n_items=st.graph.n_items)
+
+
+def check_bf16_run(torch, st, bf) -> dict:
+    """The bf16 run: 50 finite metric rows with a falling loss, every
+    master leaf and Adam moment of its state.npz in f32, its config.json
+    saying bfloat16, and ``cli embed`` of its checkpoint on the card
+    within 1e-4 of the port's CPU path (``pinsage_forward`` on 64 nodes
+    from the same leaves) and equal to the run's own emb.npy."""
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.config import RunConfig
+    from gcn_song_embeddings_tpu_torch.models.pinsage import pinsage_forward
+    from gcn_song_embeddings_tpu_torch.utils.checkpoint import (
+        load_jax_checkpoint,
+    )
+
+    with open(os.path.join(bf.run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    loss = np.array([r["Train Loss"] for r in rows])
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    log(f"train bf16: loss first 10 {first:.5f} -> last 10 {last:.5f}")
+    if not (len(rows) == TRAIN_EPOCHS * TRAIN_BATCHES
+            and np.isfinite(loss).all() and last < first):
+        raise AssertionError(f"bf16 run: {len(rows)} rows, losses {loss}")
+    with np.load(os.path.join(bf.run_dir, "state.npz")) as z:
+        kinds = {k: z[k].dtype for k in z.files
+                 if k.startswith(("['params']", "adam.m", "adam.v"))}
+    if not kinds or any(d != np.float32 for d in kinds.values()):
+        raise AssertionError(f"bf16 checkpoint leaves not f32: {kinds}")
+    with open(os.path.join(bf.run_dir, "config.json")) as f:
+        if RunConfig.from_json(f.read()).train.dtype != "bfloat16":
+            raise AssertionError("the bf16 run's config.json lost its dtype")
+    mcfg = bf.cfg.model
+    probe = torch.arange(0, bf.n_items, bf.n_items // 64)[:64].to(
+        torch.int32)
+    params = load_jax_checkpoint(os.path.join(bf.run_dir, "state.npz"))
+    with torch.inference_mode():
+        ref = pinsage_forward(params, st.feats.cpu(), st.nbw_d.cpu(),
+                              st.nbn_d.cpu(), probe, mcfg.n_layers,
+                              mcfg.T).numpy()
+    cpu_err = float(np.abs(bf.cli_emb[probe.numpy()] - ref).max())
+    own_err = float(np.abs(bf.cli_emb - bf.emb).max())
+    log(f"cli embed of the bf16 run (card) vs the CPU path on 64 nodes: "
+        f"max |diff| {cpu_err:.3g}; vs the run's emb.npy {own_err:.3g}")
+    if not (cpu_err <= 1e-4 and own_err <= 1e-6
+            and bf.cli_emb.shape == (bf.n_items, mcfg.out_dim)):
+        raise AssertionError(f"bf16 run's embeddings: {cpu_err}, {own_err}")
+    return {"loss_first10": first, "loss_last10": last,
+            "f32_leaves": len(kinds), "cli_embed_vs_cpu": cpu_err,
+            "cli_embed_vs_run": own_err}
+
+
+def bf16_three_step_checks(torch, trainer) -> dict:
+    """3 bf16 steps from the trainer's seeded init on the same batches:
+    the frontier forward (K3's bf16 form) on the card against the CPU's
+    plain versions (losses within BF16_LOSS_RTOL, every master leaf
+    within one bf16 ulp plus 2 lr), then the full-graph forward (K2's
+    bf16 form in both layers, forward and backward) on the card: finite
+    losses, f32 masters, and its losses beside the frontier's (they
+    differ by design: the full graph stores each layer's output in bf16,
+    the frontier keeps it f32; held within 1e-2).  Returns the worst
+    differences and the three runs' losses."""
+    import copy
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.models.pinsage import init_pinsage
+    from gcn_song_embeddings_tpu_torch.ops.ppr import block_generator
+    from gcn_song_embeddings_tpu_torch.train.trainer import (
+        TrainTables,
+        make_optimizer,
+        train_step,
+    )
+
+    tcfg, mcfg = trainer.cfg.train, trainer.cfg.model
+    gen = block_generator(12345, 0, trainer.device)
+    batches = [trainer.sample(gen) for _ in range(3)]
+    seeded = torch.Generator(device=trainer.device)
+    seeded.manual_seed(tcfg.seed)
+    init = init_pinsage(seeded, mcfg.n_layers, mcfg.in_dim, mcfg.hidden_dim,
+                        mcfg.out_dim, mcfg.bias_init)
+
+    def run(params, tables, batches, fullgraph):
+        opt = make_optimizer(params, tcfg)
+        losses = [float(train_step(params, opt, b, tables, tcfg, mcfg,
+                                   fullgraph)[0]) for b in batches]
+        return losses, {name: p.detach().cpu().numpy()
+                        for name, p in params.leaves()}
+
+    card = run(copy.deepcopy(init), trainer.tables, batches, False)
+    sync(torch, trainer.device)
+    cpu_tables = TrainTables(*(t.cpu() for t in trainer.tables))
+    cpu = run(copy.deepcopy(init).cpu(), cpu_tables,
+              [b.cpu() for b in batches], False)
+    worst = {leaf: float(np.abs(card[1][leaf] - cpu[1][leaf]).max())
+             for leaf in card[1]}
+    log(f"bf16 three steps, card vs cpu: losses {card[0]} vs {cpu[0]}; "
+        f"max |diff| per leaf {worst}")
+    np.testing.assert_allclose(card[0], cpu[0], rtol=BF16_LOSS_RTOL,
+                               err_msg="bf16 card vs cpu: losses")
+    for leaf in card[1]:
+        np.testing.assert_allclose(card[1][leaf], cpu[1][leaf],
+                                   rtol=BF16_ULP, atol=2 * tcfg.lr,
+                                   err_msg=f"bf16 card vs cpu: {leaf}")
+    full = run(copy.deepcopy(init), trainer.tables, batches, True)
+    sync(torch, trainer.device)
+    log(f"bf16 three steps, full graph (card): losses {full[0]}")
+    if not (np.isfinite(full[0]).all()
+            and all(v.dtype == np.float32 for v in full[1].values())):
+        raise AssertionError(f"bf16 full-graph steps: {full[0]}")
+    np.testing.assert_allclose(full[0], card[0], rtol=1e-2,
+                               err_msg="bf16 full graph vs frontier")
+    return {"card_vs_cpu": worst, "frontier_losses": card[0],
+            "cpu_losses": cpu[0], "fullgraph_losses": full[0]}
+
+
+def bf16_step_shapes(torch, trainer, st):
+    """The bf16 kernels' shapes on this data: K3's at the deepest conv of
+    a frontier step (the gathered bf16 feature rows, f32 weights, Wq in
+    bf16) and K2's at both full-graph layers over the catalog (the bf16
+    features, then the first layer's output stored in bf16; bf16
+    weights).  Each entry is (table, ids, weights, Wq, bq)."""
+    from gcn_song_embeddings_tpu_torch.models.pinsage import (
+        cast_params,
+        conv_from_table,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.ppr import block_generator
+
+    mcfg = trainer.cfg.model
+    pc = cast_params(trainer.params, torch.bfloat16)
+    layer, table, ids, wts, _ = step_conv_inputs(
+        torch, trainer, trainer.sample(block_generator(4242, 0,
+                                                       trainer.device)))[0]
+    k3 = [(table.bfloat16(), ids, wts, pc.layers[0].Wq.detach(),
+           pc.layers[0].bq.detach().float())]
+    nb_idx = st.nbn_d[:, :mcfg.T].to(torch.int32).contiguous()
+    nb_wt = st.nbw_d[:, :mcfg.T].bfloat16().contiguous()
+    feats = st.feats.bfloat16()
+    with torch.inference_mode():
+        h1 = conv_from_table(pc.layers[0], feats, feats, nb_idx,
+                             nb_wt).bfloat16()
+    k2 = [(table, nb_idx, nb_wt, pc.layers[l].Wq.detach(),
+           pc.layers[l].bq.detach().float())
+          for l, table in enumerate((feats, h1))]
+    return k3, k2
+
+
+def measure_bf16_aggregation(torch, agg, mode, shapes) -> dict:
+    """Hold the bf16 form of the aggregation of ``mode`` against its plain
+    version at each (table, ids, weights, Wq, bq) of ``shapes`` (max
+    |diff| within K2_ATOL; bf16 products are exact in f32, so only the
+    order of the f32 sums differs) and time it: kernel (``ms`` back to
+    back on the device, ``host_ms`` as the host issues it), plain version
+    and the library yardstick (one ``torch.einsum`` of the gathered bf16
+    rows with bf16 Wq), summed over the shapes, with the work each needs
+    on this data (bf16 rows and Wq of 2 bytes) and the worst error of
+    kernel and plain version against float64 on the same bf16 inputs."""
+    out = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "flops": 0.0, "products": 0.0, "bytes": 0.0, "err": 0.0,
+           "err64": 0.0, "plain_err64": 0.0}
+    kernel = agg.MODES[mode] + " bf16"
+    for h, ids, wts, Wq, bq in shapes:
+        n, din = h.shape
+        hdim = Wq.shape[0]
+        with torch.inference_mode():
+            got = agg.conv_aggregate(h, ids, wts, Wq, bq, mode=mode)
+            want = agg.conv_aggregate_plain(h, ids, wts, Wq, bq)
+            err = float((got - want).abs().max())
+            log(f"{kernel} B={ids.shape[0]} T={ids.shape[1]} Din={din} "
+                f"H={hdim} (table {n} rows, weights {wts.dtype}): max "
+                f"|diff| {err:.3g}")
+            if not err <= K2_ATOL:
+                raise AssertionError(f"{kernel} differs from the plain "
+                                     f"version by {err} > {K2_ATOL}")
+            err64, plain_err64 = float64_error(torch, agg, h, ids, wts, Wq,
+                                               bq, got, want)
+            log(f"{kernel} max |error| against float64: kernel "
+                f"{err64:.3g}, plain version {plain_err64:.3g}")
+            out["err"] = max(out["err"], err)
+            out["err64"] = max(out["err64"], err64)
+            out["plain_err64"] = max(out["plain_err64"], plain_err64)
+            del got, want
+            out["ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
+                h, ids, wts, Wq, bq, mode=mode), reps=5)
+            out["host_ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
+                h, ids, wts, Wq, bq, mode=mode), reps=5, queued=False)
+            out["plain_ms"] += cuda_ms(torch, lambda: agg.
+                                       conv_aggregate_plain(h, ids, wts, Wq,
+                                                            bq), reps=3)
+            out["library_ms"] += cuda_ms(torch, lambda: torch.einsum(
+                "btd,hd->bth", h[ids.long()], Wq), reps=3)
+        flops, nbytes, distinct, _ = agg_work(torch, ids, wts, din, hdim, n,
+                                              elem=2)
+        out["flops"] += flops
+        out["products"] += 2.0 * distinct * din * hdim
+        out["bytes"] += nbytes
+    return out
+
+
+def bf16_kernel_row(name, source, replaces, launches_by_path, bwd_launches,
+                    m, shape) -> dict:
+    """One bf16 entry of the ``kernels`` line: its products bound on the
+    bf16 tensor cores (one pass each)."""
+    bound_ms, bound_by = bound(m["flops"], m["bytes"], m["products"],
+                               H100_BF16_FLOPS, passes=1)
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path, "max_abs_err": m["err"],
+        "ms": m["ms"], "host_ms": m["host_ms"], "plain_ms": m["plain_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": m["library_ms"],
+        "max_abs_err_vs_float64": m["err64"],
+        "plain_max_abs_err_vs_float64": m["plain_err64"],
+        "backward": {"route": "plain PyTorch (agg.ConvAggregate.backward, "
+                              "pre recomputed in f32)",
+                     "launches_on_bf16_paths": bwd_launches},
+        "shape": shape,
+    }
+
+
+def run_tail_path(dev, st, tr_st, bf, work: str) -> dict:
+    """The tail modules on the card, as a user calls them: the embedding
+    crawl's walks (``explore.crawl_walk_counts``, K1) from N_CRAWLS tracks
+    of the 100k catalog, ``profiling.Timer`` phases timed with CUDA
+    events, a ``profiling.device_profile`` trace written under the work
+    directory, and the recommendation lists and figure of N_EXPORTS
+    queries from the f32 and the bf16 trained embeddings
+    (``qualitative.export_recommendation_lists``).  Returns its walls,
+    launches and checks."""
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch.data import explore
+    from gcn_song_embeddings_tpu_torch.evals import qualitative
+    from gcn_song_embeddings_tpu_torch.ops import walk_kernel
+    from gcn_song_embeddings_tpu_torch.ops.knn import knn_from_emb
+    from gcn_song_embeddings_tpu_torch.utils import profiling
+
+    graph = st.graph
+    timer = profiling.Timer()
+    emb = {"PinSage": torch.as_tensor(tr_st.emb, device=dev),
+           "PinSage bf16": torch.as_tensor(bf.emb, device=dev)}
+    crawl_rows = st.rows[:N_CRAWLS]
+    before = walk_kernel.launches
+    with timer.phase("crawl", sync_value=emb["PinSage"]):
+        crawls = {q: explore.crawl_walk_counts(graph, q, top=10, device=dev)
+                  for q in crawl_rows}
+    crawl_walks = walk_kernel.launches - before
+    queries = np.asarray(st.rows[:N_EXPORTS])
+    knn = {}
+    trace_dir = os.path.join(work, "tail_trace")
+    with profiling.device_profile(trace_dir) as prof:
+        for name, table in emb.items():
+            with timer.phase(f"knn {name}", sync_value=table):
+                w, n = knn_from_emb(table, queries=queries, k=10)
+            full_w = np.zeros((graph.n_items, 10), np.float32)
+            full_n = np.zeros((graph.n_items, 10), np.int32)
+            full_w[queries], full_n[queries] = w, n
+            knn[name] = (full_w, full_n)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in prof.key_averages())
+    traces = os.listdir(trace_dir)
+    out_root = os.path.join(work, "examples")
+    t = time.perf_counter()
+    qualitative.export_recommendation_lists(graph, queries, knn, k=5,
+                                            out_root=out_root)
+    export_s = time.perf_counter() - t
+    lists = 0
+    for q in queries:
+        song = graph.tracks[graph.track_ids[int(q)]]["name"]
+        for name in knn:
+            with open(os.path.join(out_root, song, name, "list.json")) as f:
+                lst = json.load(f)
+            if len(lst) != 6 or lst[0]["title"] != song:
+                raise AssertionError(f"list of {q} / {name}: {lst}")
+            lists += 1
+        with open(os.path.join(out_root, song, "figure.tex")) as f:
+            if "<title_" in f.read():
+                raise AssertionError(f"figure of {q} left placeholders")
+    bad = {q: c for q, c in crawls.items()
+           if not c or any(n == q or s <= 0 for n, s in c)}
+    if bad or crawl_walks != len(crawl_rows):
+        raise AssertionError(f"crawl: {crawl_walks} K1 launches for "
+                             f"{len(crawl_rows)} crawls; bad lists {bad}")
+    if not (len(traces) == 1 and device_us > 0
+            and all(v > 0 for v in timer.times.values())):
+        raise AssertionError(f"profiling: traces {traces}, device "
+                             f"{device_us} us, timer {timer.times}")
+    overlap = float(np.mean([len(set(knn["PinSage"][1][q][:10])
+                                 & set(knn["PinSage bf16"][1][q][:10]))
+                             / 10 for q in queries]))
+    log(f"tail: {len(crawl_rows)} crawls ({crawl_walks} K1 launches), "
+        f"{lists} lists exported in {export_s:.3f} s, trace {traces[0]} "
+        f"({device_us / 1e3:.3f} ms on the device), timer {timer.times}; "
+        f"top-10 overlap of the f32 and bf16 runs' lists {overlap:.2f}")
+    return {"walls": {**{f"{k}_s": v for k, v in timer.times.items()},
+                      "export_s": export_s},
+            "crawl_walks": crawl_walks,
+            "checks": {"crawls": {str(q): c[:3] for q, c in crawls.items()},
+                       "lists": lists, "trace": traces[0],
+                       "trace_device_ms": device_us / 1e3,
+                       "f32_bf16_top10_overlap": overlap}}
 
 
 EVAL_K, EVAL_QUERIES = 100, 256
@@ -2074,11 +2445,13 @@ def kernel_modules() -> dict:
 
 
 def reset_kernel_counts() -> None:
-    from gcn_song_embeddings_tpu_torch.ops import agg
+    from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
 
     for mod in kernel_modules().values():
         mod.launches = 0
-    for counts in (agg.backward_launches, agg.kernel_launches):
+    agg.launches_bf16 = dma_agg.launches_bf16 = 0
+    for counts in (agg.backward_launches, agg.kernel_launches,
+                   agg.kernel_launches_bf16):
         for key in counts:
             counts[key] = 0
 
@@ -2086,11 +2459,17 @@ def reset_kernel_counts() -> None:
 def kernel_counts() -> dict:
     from gcn_song_embeddings_tpu_torch.ops import agg
 
+    from gcn_song_embeddings_tpu_torch.ops import dma_agg
+
     counts = {name: mod.launches for name, mod in kernel_modules().items()}
+    counts["agg_bf16"] = agg.launches_bf16
+    counts["dma_agg_bf16"] = dma_agg.launches_bf16
     counts.update({f"agg_backward_{mode}": n
                    for mode, n in agg.backward_launches.items()})
     counts.update({f"agg_{name}": n
                    for name, n in agg.kernel_launches.items()})
+    counts.update({f"agg_bf16_{name}": n
+                   for name, n in agg.kernel_launches_bf16.items()})
     return counts
 
 
@@ -3006,6 +3385,51 @@ def main() -> int:
     st.walls["train_step_ms"], step_profile = time_train_steps(torch,
                                                                 trainer)
 
+    # ---- bf16 training: cli train in bf16, then 3 full-graph steps ------
+    phases_t = time.perf_counter()
+    reset_counts()
+    bf = run_bf16_train_path(dev, st, work)
+    bf16_launches = read_counts(("dma_agg_bf16", "agg_backward_dma_bf16",
+                                 "agg_bf16_tile"))
+    log(f"launches on the bf16 training path: {bf16_launches}")
+    bf16_checks = check_bf16_run(torch, st, bf)
+    trainer16 = PinSageTrainer(
+        DeviceGraph.from_graph(graph, dev), graph.n_items, graph.features,
+        st.train_pos, cfg=bf.cfg, base_run_dir=os.path.dirname(bf.run_dir),
+        nbhds_path=graph.nbhds_path, log=False, load_save=True,
+        verbose=False)
+    if trainer16.tables.step_features.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 trainer's step table is not bf16")
+    reset_counts()
+    bf16_checks["three_steps"] = bf16_three_step_checks(torch, trainer16)
+    bf16_full_launches = read_counts(("agg_bf16", "agg_bf16_project",
+                                      "agg_backward_stream_bf16",
+                                      "dma_agg_bf16"))
+    log(f"launches on the bf16 three-step checks (frontier card and CPU, "
+        f"full graph card): {bf16_full_launches}")
+    step_ms = {"f32_frontier": st.walls["train_step_ms"]}
+    step_ms["f32_fullgraph"], fg_profile = time_train_steps(
+        torch, trainer, fullgraph=True)
+    step_ms["bf16_frontier"], bf_profile = time_train_steps(torch,
+                                                             trainer16)
+    step_ms["bf16_fullgraph"], bf_fg_profile = time_train_steps(
+        torch, trainer16, fullgraph=True)
+    step_profile = {"f32_frontier": step_profile,
+                    "f32_fullgraph": fg_profile,
+                    "bf16_frontier": bf_profile,
+                    "bf16_fullgraph": bf_fg_profile}
+    st.walls["train_step_ms_by_form"] = step_ms
+    st.walls.update(bf.walls)
+    log(json.dumps({"train_step_ms": step_ms}))
+
+    # ---- the tail: crawl (K1), profiling, recommendation lists ----------
+    reset_counts()
+    tail = run_tail_path(dev, st, tr_st, bf, work)
+    tail_launches = read_counts(("walk",))
+    log(f"launches on the tail path: {tail_launches}")
+    st.walls["tail"] = tail["walls"]
+    st.walls["bf16_and_tail_phases_s"] = time.perf_counter() - phases_t
+
     # ---- the eval path, on the trained embeddings -----------------------
     reset_counts()
     ev = run_eval_path(dev, st, tr_st, work)
@@ -3044,6 +3468,8 @@ def main() -> int:
 
     log(json.dumps({"phase_walls": st.walls}))
     log(json.dumps({"prepare_checks": prepare_checks}))
+    log(json.dumps({"bf16_checks": bf16_checks}))
+    log(json.dumps({"tail_checks": tail["checks"]}))
     log(json.dumps({"train_step_profile": step_profile}))
     log(json.dumps({"int8_checks": int8_checks}))
     log(json.dumps({"eval_checks": eval_checks}))
@@ -3124,6 +3550,7 @@ def main() -> int:
          "int8_live_walk": int8_launches["walk"],
          "prepare": pp.prepare_k1,
          "all_eval_PageRank": pp.all_k1["cmd_eval"],
+         "tail_crawl": tail_launches["walk"],
          **{f"sharded_{w}": c["walk"] for w, c in sharded.items()}})]
     if sum(ev.row_walks.values()) != eval_launches["walk"]:
         raise AssertionError(f"eval K1 launches by row {ev.row_walks} do "
@@ -3184,6 +3611,34 @@ def main() -> int:
     results.append(measure_k4(torch, quant_kernel, it["table"],
                               it["stochastic"],
                               {"int8": int8_launches["quant"]}))
+
+    # the bf16 forms: K3's at the deepest conv of a bf16 frontier step,
+    # K2's at both full-graph layers over the 100k catalog
+    k3_shapes, k2_shapes = bf16_step_shapes(torch, trainer16, st)
+    k3_16 = measure_bf16_aggregation(torch, agg, "dma", k3_shapes)
+    k2_16 = measure_bf16_aggregation(torch, agg, "stream", k2_shapes)
+    results.append(bf16_kernel_row(
+        "K3 bf16 fused gather + Q-MLP + weighted mean "
+        "(agg.conv_aggregate on a bf16 table, mode dma)", dma_agg.SOURCE,
+        dma_agg.REPLACES,
+        {"train_bf16": bf16_launches["dma_agg_bf16"],
+         "train_bf16_three_steps": bf16_full_launches["dma_agg_bf16"]},
+        bf16_launches["agg_backward_dma_bf16"]
+        + bf16_full_launches["agg_backward_dma_bf16"], k3_16,
+        f"the deepest conv of a bf16 frontier step at B=128: "
+        f"{k3_shapes[0][1].shape[0]} nodes x T={mcfg.T}, Din=512, "
+        f"H={mcfg.hidden_dim}; bf16 rows and Wq, f32 weights"))
+    results.append(bf16_kernel_row(
+        "K2 bf16 Q-MLP of every table row, then gather + weighted mean "
+        "(agg.conv_aggregate on a bf16 table, mode stream)", agg.SOURCE,
+        agg.REPLACES,
+        {"train_bf16_fullgraph": bf16_full_launches["agg_bf16"]},
+        bf16_full_launches["agg_backward_stream_bf16"], k2_16,
+        f"both full-graph layers, N={graph.n_items} T={mcfg.T}: Din=512 "
+        f"and Din=128 (the first layer's output stored in bf16), "
+        f"H={mcfg.hidden_dim}; bf16 rows, Wq and weights (the bf16 "
+        f"denominator)"))
+    results[-1]["header"] = agg.HEADER
     shutil.rmtree(work, ignore_errors=True)
     log(card_line())
     log(json.dumps({"kernels": results}))

@@ -14,7 +14,8 @@ function:
 * ``ops.agg.conv_aggregate`` -- the neighbor gather + Q-MLP +
   importance-weighted mean (K2: every table row projected once, then
   gathered; with ``mode="dma"`` K3, fused over the gathered rows; both
-  on the 3xTF32 tensor-core core ``csrc/agg_tc.cuh``);
+  on the 3xTF32 tensor-core core ``csrc/agg_tc.cuh``, with bf16
+  forms for the bf16 tables of ``train.dtype="bfloat16"``);
 * ``ops.quant_kernel.quantize_rows_stochastic`` -- the stochastic int8
   row quantizer (K4).
 

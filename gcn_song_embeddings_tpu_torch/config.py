@@ -71,7 +71,7 @@ class TrainConfig:
     exact_batch_sampling: bool = False
     seed: int = 0
     checkpoint_every_batches: int = 2500
-    dtype: str = "float32"       # the port trains in float32 only so far
+    dtype: str = "float32"       # "float32", or "bfloat16": mixed precision
     fullgraph_forward: str = "auto"  # "auto" | "on" | "off"
 
 

@@ -27,6 +27,14 @@
 // guarded divide.  Blocks of one node tile are adjacent in launch order,
 // so the H / 128 column tiles that re-read the same gathered rows find
 // them in L2.  Rows past the batch are zero-filled, not stored.
+//
+// The bf16 form (train.dtype="bfloat16": layer 0 of the frontier train
+// step reads the bf16 feature table) is the same kernel on the bf16 core
+// of agg_tc.cuh: h and Wq in bf16 (Wq tiled by `wq_tile_bf16_kernel`,
+// no split), bq and the weights f32, out f32; one bf16 pass per product,
+// exact in f32.  Its bound at the step's layer 0 (4,224 nodes x T = 10,
+// Din = H = 512): 22.7 GFLOP at 989 TFLOP/s of bf16 = 0.023 ms against
+// 43 MB of bf16 rows (0.013 ms), so the tensor cores bound it.
 
 #include "agg_tc.cuh"
 
@@ -34,22 +42,29 @@ using namespace agg_tc;
 
 constexpr int QS_LD = BN + 4;
 constexpr int SMEM_BYTES = SMEM_ALIGN_SLACK + RING_BYTES + 3 * BM * 4;
+constexpr int SMEM_BYTES16 = SMEM_ALIGN_SLACK + RING_BYTES16 + 3 * BM * 4;
 
 static_assert(BM * QS_LD * 4 <= RING_BYTES, "epilogue tile must fit the ring");
+static_assert(BM * QS_LD * 4 <= RING_BYTES16, "epilogue tile must fit the ring");
 
+// E = float: the 3xTF32 core, Wq as its big and small parts; E = uint16_t
+// (bf16 bits): the bf16 core, Wq tiled in big_t, small_t unused
+template <typename E>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-dma_agg_kernel(const float* __restrict__ h,      // [N, Din]
+dma_agg_kernel(const E* __restrict__ h,          // [N, Din]
                const int* __restrict__ nb,       // [B, T]
                const float* __restrict__ w,      // [B, T]
-               const float* __restrict__ big_t,  // Wq big, tiled
-               const float* __restrict__ small_t,
+               const E* __restrict__ big_t,      // Wq big, tiled
+               const E* __restrict__ small_t,
                const float* __restrict__ bq,     // [H]
                float* __restrict__ out,          // [B, H]
                int n_nodes, int T, int din, int hdim, int nodes_per_tile,
                int n_col_tiles) {
+  constexpr bool BF16 = sizeof(E) == 2;
   extern __shared__ unsigned char smem_raw[];
   float* ring = aligned_ring(smem_raw);
-  int* rows_s = reinterpret_cast<int*>(ring + RING_BYTES / 4);
+  int* rows_s = reinterpret_cast<int*>(
+      ring + (BF16 ? RING_BYTES16 : RING_BYTES) / 4);
   float* w_s = reinterpret_cast<float*>(rows_s + BM);
   float* denom_s = w_s + BM;
 
@@ -73,7 +88,10 @@ dma_agg_kernel(const float* __restrict__ h,      // [N, Din]
   }
 
   float acc[64];
-  tile_product(acc, ring, rows_s, h, din, big_t, small_t, col_tile);
+  if constexpr (BF16)
+    tile_product_bf16(acc, ring, rows_s, h, din, big_t, col_tile);
+  else
+    tile_product(acc, ring, rows_s, h, din, big_t, small_t, col_tile);
 
   // epilogue 1: weighted activations of every row into Qs (the ring is
   // free: tile_product ended on a barrier after its last product)
@@ -117,7 +135,7 @@ extern "C" int dma_agg_launch(const void* h, const void* nb, const void* w,
     return (int)cudaErrorInvalidValue;
   if (n_nodes < 1) return (int)cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      dma_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dma_agg_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int nodes_per_tile = BM / T;
@@ -125,10 +143,36 @@ extern "C" int dma_agg_launch(const void* h, const void* nb, const void* w,
   const long long n_node_tiles =
       (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
   const unsigned blocks = (unsigned)(n_node_tiles * n_col_tiles);
-  dma_agg_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const float*)h, (const int*)nb, (const float*)w, (const float*)big_t,
-      (const float*)small_t, (const float*)bq, (float*)out, n_nodes, T, din,
-      hdim, nodes_per_tile, n_col_tiles);
+  dma_agg_kernel<float>
+      <<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+          (const float*)h, (const int*)nb, (const float*)w,
+          (const float*)big_t, (const float*)small_t, (const float*)bq,
+          (float*)out, n_nodes, T, din, hdim, nodes_per_tile, n_col_tiles);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dma_agg_bf16_launch(const void* h, const void* nb,
+                                   const void* w, const void* tiles,
+                                   const void* bq, void* out, int n_nodes,
+                                   int T, int din, int hdim, void* stream) {
+  if (T < 1 || T > BM || din < 1 || hdim < 1 || din % 8 != 0 ||
+      hdim % 4 != 0 || (uintptr_t)h % 16 != 0 || (uintptr_t)tiles % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_nodes < 1) return (int)cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      dma_agg_kernel<uint16_t>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES16);
+  if (err != cudaSuccess) return (int)err;
+  const int nodes_per_tile = BM / T;
+  const int n_col_tiles = (hdim + BN - 1) / BN;
+  const long long n_node_tiles =
+      (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
+  const unsigned blocks = (unsigned)(n_node_tiles * n_col_tiles);
+  dma_agg_kernel<uint16_t>
+      <<<blocks, THREADS, SMEM_BYTES16, (cudaStream_t)stream>>>(
+          (const uint16_t*)h, (const int*)nb, (const float*)w,
+          (const uint16_t*)tiles, nullptr, (const float*)bq, (float*)out,
+          n_nodes, T, din, hdim, nodes_per_tile, n_col_tiles);
   return (int)cudaGetLastError();
 }
 

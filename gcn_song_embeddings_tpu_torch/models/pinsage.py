@@ -18,11 +18,20 @@ does: it pads Din and H with zero columns to the kernels' multiples of 4
 and cuts K3's neighbor columns into slices of at most 64.  The dense
 products of the W half and the head stay ``torch.matmul``.  Layer 0
 consumes raw features; every layer outputs ``out_dim``.
+
+Mixed precision (``train.dtype="bfloat16"``) follows the JAX package:
+``cast_params`` gives the step bf16 copies of the f32 master weights,
+the feature table is bf16, and every product accumulates in f32 and
+returns f32 (bf16 operands upcast exactly before a dense product, the
+bf16 forms of K2 and K3 inside the aggregation).  A layer's output is
+f32; ``fullgraph_embeddings`` stores it back in the features' dtype.
+With f32 params and features every function here runs as before.
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -32,10 +41,12 @@ from torch import nn
 from gcn_song_embeddings_tpu_torch.ops.agg import (
     MAX_T,
     _denominator,
+    _f32,
     conv_aggregate,
 )
 
-WIDTH_MULTIPLE = 4  # the aggregation kernels' 16-byte loads
+WIDTH_MULTIPLE = 4  # the aggregation kernels' 16-byte loads (f32)
+WIDTH_MULTIPLE_BF16 = 8  # the same loads of bf16 rows
 
 
 class ConvParams(nn.Module):
@@ -69,6 +80,19 @@ class PinSageParams(nn.Module):
                for i, layer in enumerate(self.layers)
                for f in ("Wq", "bq", "Ww", "bw")]
         return out + [(f, getattr(self, f)) for f in ("G1_w", "G1_b", "G2_w")]
+
+
+def cast_params(params: PinSageParams, dtype: torch.dtype):
+    """Copies of ``params`` in ``dtype`` under autograd (the gradient of
+    each master leaf flows back through the cast, rounded to ``dtype`` as
+    in the JAX package), with the attributes the model functions read."""
+    def cast(module, names):
+        return {f: getattr(module, f).to(dtype) for f in names}
+
+    return SimpleNamespace(
+        layers=[SimpleNamespace(**cast(layer, ("Wq", "bq", "Ww", "bw")))
+                for layer in params.layers],
+        **cast(params, ("G1_w", "G1_b", "G2_w")))
 
 
 def _xavier_uniform(shape: tuple[int, int], generator: torch.Generator
@@ -138,16 +162,24 @@ def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor,
               ) -> torch.Tensor:
     """``conv_aggregate`` at any Din, H and T.
 
-    A Din or H that is not a multiple of 4 is padded with zero columns
-    (of the table and Wq, and zero entries of bq): a zero column adds
-    exactly 0 to each product and projects to leaky_relu(0) = 0, and the
-    padded output columns are cut off, so their gradient is dropped.  For
-    mode "dma" past K3's T <= 64 the neighbor columns are cut into slices
-    of at most 64: each slice's mean times its denominator is its
+    A bf16 table with a bf16 Wq aggregates in the bf16 form; an f32
+    table takes Wq upcast, as the JAX package promotes the product's
+    operands; bq is upcast either way.  A Din that is not a multiple of 4
+    (8 for a bf16 table) or an H that is not one of 4 is padded with zero
+    columns (of the table and Wq, and zero entries of bq): a zero column
+    adds exactly 0 to each product and projects to leaky_relu(0) = 0, and
+    the padded output columns are cut off, so their gradient is dropped.
+    For mode "dma" past K3's T <= 64 the neighbor columns are cut into
+    slices of at most 64: each slice's mean times its denominator is its
     weighted sum, and the sums over the row's whole denominator give the
     mean (an all-zero row keeps denominator 1)."""
+    bf16 = table.dtype == Wq.dtype == torch.bfloat16
+    if not bf16:
+        table, Wq = _f32(table), _f32(Wq)
+    bq = _f32(bq)
     din, hdim = table.shape[1], Wq.shape[0]
-    pad_d, pad_h = -din % WIDTH_MULTIPLE, -hdim % WIDTH_MULTIPLE
+    pad_d = -din % (WIDTH_MULTIPLE_BF16 if bf16 else WIDTH_MULTIPLE)
+    pad_h = -hdim % WIDTH_MULTIPLE
     if pad_d or pad_h:
         table = F.pad(table, (0, pad_d))
         Wq = F.pad(Wq, (0, pad_d, 0, pad_h))
@@ -172,13 +204,14 @@ def conv_from_table(p: ConvParams, h_self: torch.Tensor,
                     block_rows: int | None = None) -> torch.Tensor:
     """One conv layer whose neighbors are rows ``nb_nodes`` [B, T] of
     ``table``: the aggregation never materializes them on the GPU (K2 for
-    mode "stream", K3 for "dma")."""
+    mode "stream", K3 for "dma").  Returns f32 (bf16 operands of the
+    dense products upcast: products exact, sums in f32)."""
     agg = aggregate(table, nb_nodes, nb_w, p.Wq, p.bq, mode, block_rows)
     d = h_self.shape[1]
     # split-W product: [a, b] @ M^T == a @ M[:, :d]^T + b @ M[:, d:]^T,
     # without materializing the [B, Din + hidden] concat
-    new_h = F.leaky_relu(h_self @ p.Ww[:, :d].t() + agg @ p.Ww[:, d:].t()
-                         + p.bw, 0.01)
+    new_h = F.leaky_relu(_f32(h_self) @ _f32(p.Ww[:, :d]).t()
+                         + agg @ _f32(p.Ww[:, d:]).t() + _f32(p.bw), 0.01)
     norm = torch.linalg.vector_norm(new_h, dim=1, keepdim=True)
     return new_h / torch.where(norm == 0.0, torch.ones_like(norm), norm)
 
@@ -197,9 +230,10 @@ def conv_apply(p: ConvParams, h_self: torch.Tensor, h_nb: torch.Tensor,
 
 
 def head_apply(params: PinSageParams, x: torch.Tensor) -> torch.Tensor:
-    """G2(leaky_relu(G1(x))), not re-normalized."""
-    hidden = F.leaky_relu(x @ params.G1_w.t() + params.G1_b, 0.01)
-    return hidden @ params.G2_w.t()
+    """G2(leaky_relu(G1(x))) in f32, not re-normalized."""
+    hidden = F.leaky_relu(_f32(x) @ _f32(params.G1_w).t()
+                          + _f32(params.G1_b), 0.01)
+    return hidden @ _f32(params.G2_w).t()
 
 
 def forward_with_gather(params: PinSageParams, gather_features,
@@ -254,13 +288,17 @@ def fullgraph_embeddings(params: PinSageParams, features: torch.Tensor,
     layer runs once over the catalog: on the GPU K2 projects every row of
     the previous layer once, then gathers the nodes in blocks of
     ``block_rows`` (the plain version gathers and projects block by
-    block, bounding its [block, T, Din] gather)."""
+    block, bounding its [block, T, Din] gather).  Each layer's f32 output
+    is stored back in the features' dtype, so under bf16 every layer
+    aggregates a bf16 table (the JAX package's ``store_dtype``)."""
     nb_w = nbhd_weights[:, :T].contiguous()
     nb_n = nbhd_nodes[:, :T].to(torch.int32).contiguous()
     h = features
     for l in range(n_layers):
         h = conv_from_table(params.layers[l], h, h, nb_n, nb_w,
                             block_rows=block_rows)
+        if h.dtype != features.dtype:
+            h = h.to(features.dtype)
     return h
 
 

@@ -26,6 +26,17 @@ T.  With ``block_rows`` K2 projects the table once and gathers the nodes
 in blocks of that many rows.  A CUDA call either launches its kernels or
 raises: there is no fallback, and no CUDA call returns a tensor that
 gradients do not reach.
+
+The bf16 forms (``train.dtype="bfloat16"``) take a bf16 table and a bf16
+Wq (bq stays f32), accumulate in f32 and return f32, as the JAX
+package's products with ``preferred_element_type=f32`` do; the plain
+versions upcast the bf16 operands (exactly) and multiply in f32.  On
+CUDA, ``tile_wq_bf16`` lays Wq out in the tensor cores' tiles without a
+split and one bf16 pass per product runs (K2: ``project_table_bf16``,
+then ``gather_mean``; K3: ``dma_agg.launch_bf16``); Din must then be a
+multiple of 8.  Weights may be bf16 in mode "stream" only (the
+full-graph forward's): their sum is taken in f32 and rounded to bf16
+(``_denominator``), as the JAX package's sum of a bf16 array is.
 """
 
 from __future__ import annotations
@@ -45,45 +56,69 @@ REPLACES = "gcn_song_embeddings_tpu/ops/pallas_agg.py:52"
 MAX_T = 64  # K3's: a block (192 rows) holds whole nodes, 3 at T = 64
 MODES = {"stream": "K2", "dma": "K3"}
 BN, BK, SLAB = 128, 32, 64  # Wq tile rows and floats (agg_tc.cuh); P slab
+BK16 = 64  # bf16 elements of a Wq tile row (agg_tc.cuh's bf16 form)
 
-launches = 0  # K2 op calls on CUDA tensors since the last reset
-# launches of each K2 kernel (the split also runs for every K3 call)
+launches = 0  # K2 op calls on f32 CUDA tables since the last reset
+launches_bf16 = 0  # K2 op calls on bf16 CUDA tables since the last reset
+# launches of each K2 kernel (the split also runs for every K3 call; the
+# gather serves both forms)
 kernel_launches = {"split": 0, "project": 0, "gather_mean": 0}
-# ConvAggregate.backward calls on CUDA tensors, by forward mode
-backward_launches = {"stream": 0, "dma": 0}
+# launches of the bf16 form's own kernels (the tiling also runs for every
+# bf16 K3 call)
+kernel_launches_bf16 = {"tile": 0, "project": 0}
+# ConvAggregate.backward calls on CUDA tensors, by forward mode and form
+backward_launches = {"stream": 0, "dma": 0, "stream_bf16": 0, "dma_bf16": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"split": [_P] * 3 + [_I] * 2 + [_P],
              "project": [_P] * 5 + [_I] * 3 + [_P],
-             "gather": [_P] * 4 + [_I] * 4 + [_P]}
+             "gather": [_P] * 4 + [_I] * 5 + [_P],
+             "tile_bf16": [_P] * 2 + [_I] * 2 + [_P],
+             "project_bf16": [_P] * 4 + [_I] * 3 + [_P]}
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor upcast to f32 (exactly); any other as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def _denominator(nb_weights: torch.Tensor) -> torch.Tensor:
-    """[B, 1]: each node's weight sum, or 1 where that sum is 0."""
-    w_sum = nb_weights.sum(dim=1, keepdim=True)
+    """[B, 1]: each node's weight sum, or 1 where that sum is 0.  Of
+    bf16 weights the sum is taken in f32 and rounded to bf16, as the JAX
+    package's ``nb_w.sum(axis=1)`` of a bf16 array (returned in f32)."""
+    if nb_weights.dtype != torch.bfloat16:
+        w_sum = nb_weights.sum(dim=1, keepdim=True)
+    else:
+        w_sum = nb_weights.sum(dim=1, keepdim=True, dtype=torch.float32).to(
+            nb_weights.dtype).float()
     return torch.where(w_sum == 0.0, torch.ones_like(w_sum), w_sum)
 
 
 def conv_aggregate_plain(h: torch.Tensor, nb_nodes: torch.Tensor,
                          nb_weights: torch.Tensor, Wq: torch.Tensor,
                          bq: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: materialized gather, einsum, weighted mean."""
+    """Plain PyTorch version: materialized gather, einsum, weighted mean
+    (bf16 operands upcast, products and sums in f32)."""
     nb = h[nb_nodes.reshape(-1).long()].reshape(*nb_nodes.shape, h.shape[1])
-    q = F.leaky_relu(torch.einsum("btd,hd->bth", nb, Wq) + bq, 0.01)
-    return (nb_weights[:, :, None] * q).sum(dim=1) / _denominator(nb_weights)
+    q = F.leaky_relu(torch.einsum("btd,hd->bth", _f32(nb), _f32(Wq))
+                     + _f32(bq), 0.01)
+    return ((_f32(nb_weights)[:, :, None] * q).sum(dim=1)
+            / _denominator(nb_weights))
 
 
 def project_table_plain(h: torch.Tensor, Wq: torch.Tensor,
                         bq: torch.Tensor) -> torch.Tensor:
-    """K2's first phase, plain: every table row projected once, [N, H]."""
-    return F.leaky_relu(torch.addmm(bq, h, Wq.t()), 0.01)
+    """K2's first phase, plain: every table row projected once, [N, H]
+    f32 (bf16 operands upcast)."""
+    return F.leaky_relu(torch.addmm(_f32(bq), _f32(h), _f32(Wq).t()), 0.01)
 
 
 def gather_mean_plain(proj: torch.Tensor, nb_nodes: torch.Tensor,
                       nb_weights: torch.Tensor) -> torch.Tensor:
-    """K2's second phase, plain: the weighted mean of rows of ``proj``."""
+    """K2's second phase, plain: the weighted mean of rows of ``proj``
+    (bf16 weights: the bf16-rounded denominator)."""
     rows = proj[nb_nodes.reshape(-1).long()].reshape(*nb_nodes.shape, -1)
-    return ((nb_weights[:, :, None] * rows).sum(dim=1)
+    return ((_f32(nb_weights)[:, :, None] * rows).sum(dim=1)
             / _denominator(nb_weights))
 
 
@@ -102,18 +137,21 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def tile_wq_plain(x: torch.Tensor) -> torch.Tensor:
-    """[H, Din] -> the kernels' tile layout [ceil(H/128), ceil(Din/32),
-    128, 32]: tile (i, j) holds rows 128i.., columns 32j.., zero-padded,
-    with the 16-byte chunk c of row r stored at chunk c ^ (r % 8) (the
-    128-byte swizzle the tensor cores read)."""
+    """[H, Din] -> the kernels' tile layout [ceil(H/128), ceil(Din/k),
+    128, k], k the elements of 128 bytes (32 f32, 64 bf16): tile (i, j)
+    holds rows 128i.., columns kj.., zero-padded, with the 16-byte chunk
+    c of row r stored at chunk c ^ (r % 8) (the 128-byte swizzle the
+    tensor cores read)."""
+    per = 16 // x.element_size()              # elements of a 16-byte chunk
+    bk = 8 * per
     hdim, din = x.shape
-    nt, kt = -(-hdim // BN), -(-din // BK)
-    pad = x.new_zeros((nt * BN, kt * BK))
+    nt, kt = -(-hdim // BN), -(-din // bk)
+    pad = x.new_zeros((nt * BN, kt * bk))
     pad[:hdim, :din] = x
-    tiles = pad.reshape(nt, BN, kt, BK // 4, 4).permute(0, 2, 1, 3, 4)
+    tiles = pad.reshape(nt, BN, kt, 8, per).permute(0, 2, 1, 3, 4)
     r = torch.arange(BN, device=x.device)
-    chunk = torch.arange(BK // 4, device=x.device)[None, :] ^ (r % 8)[:, None]
-    return tiles[:, :, r[:, None], chunk].reshape(nt, kt, BN, BK)
+    chunk = torch.arange(8, device=x.device)[None, :] ^ (r % 8)[:, None]
+    return tiles[:, :, r[:, None], chunk].reshape(nt, kt, BN, bk)
 
 
 def slabs_to_rows(proj: torch.Tensor, hdim: int) -> torch.Tensor:
@@ -150,15 +188,18 @@ def _check_tensors(specs) -> None:
 
 
 def _check_widths(kernel: str, hdim: int, din: int | None = None,
-                  t: int | None = None, max_t: int | None = None) -> None:
+                  t: int | None = None, max_t: int | None = None,
+                  din_multiple: int = 4) -> None:
     if t is not None and max_t is not None and not 1 <= t <= max_t:
         raise ValueError(f"{kernel} takes 1 <= T <= {max_t}, got T={t}")
     if t is not None and t < 1:
         raise ValueError(f"{kernel} takes T >= 1, got T={t}")
     widths = (hdim,) if din is None else (din, hdim)
-    if min(widths) < 1 or any(x % 4 for x in widths):
-        raise ValueError(f"{kernel} takes Din and H positive multiples of 4 "
-                         f"(16-byte loads), got Din={din}, H={hdim}")
+    if (min(widths) < 1 or hdim % 4
+            or (din is not None and din % din_multiple)):
+        raise ValueError(f"{kernel} takes Din and H positive multiples of "
+                         f"{din_multiple} and 4 (16-byte loads), got "
+                         f"Din={din}, H={hdim}")
 
 
 def _check_aligned(**tensors: torch.Tensor) -> None:
@@ -178,8 +219,9 @@ def _mismatch(**tensors: torch.Tensor) -> ValueError:
         f"{name} {list(t.shape)}" for name, t in tensors.items()))
 
 
-def _tiles_shape(hdim: int, din: int) -> tuple[int, int, int, int]:
-    return -(-hdim // BN), -(-din // BK), BN, BK
+def _tiles_shape(hdim: int, din: int, bk: int = BK
+                 ) -> tuple[int, int, int, int]:
+    return -(-hdim // BN), -(-din // bk), BN, bk
 
 
 def _split_wq(Wq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -208,13 +250,39 @@ def _project_table(h: torch.Tensor, big: torch.Tensor, small: torch.Tensor,
     return proj
 
 
+def _tile_wq_bf16(Wq: torch.Tensor) -> torch.Tensor:
+    if Wq.data_ptr() % 16:
+        Wq = Wq.clone()                       # 16-byte loads
+    tiles = torch.empty(_tiles_shape(*Wq.shape, BK16), dtype=torch.bfloat16,
+                        device=Wq.device)
+    with torch.cuda.device(Wq.device):
+        _launch("tile_bf16", Wq.data_ptr(), tiles.data_ptr(), *Wq.shape)
+    kernel_launches_bf16["tile"] += 1
+    return tiles
+
+
+def _project_table_bf16(h: torch.Tensor, tiles: torch.Tensor,
+                        bq: torch.Tensor) -> torch.Tensor:
+    n, din = h.shape
+    hdim = bq.shape[0]
+    proj = torch.empty((-(-hdim // SLAB), n, SLAB), dtype=torch.float32,
+                       device=h.device)
+    with torch.cuda.device(h.device):
+        _launch("project_bf16", h.data_ptr(), tiles.data_ptr(),
+                bq.data_ptr(), proj.data_ptr(), n, din, hdim)
+    kernel_launches_bf16["project"] += 1
+    return proj
+
+
 def _gather_mean(proj: torch.Tensor, nb_nodes: torch.Tensor,
                  nb_weights: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     b, t = nb_nodes.shape
+    bf16_den = int(nb_weights.dtype == torch.bfloat16)
+    w = _f32(nb_weights)                      # bf16 weights upcast exactly
     with torch.cuda.device(out.device):
         _launch("gather", proj.data_ptr(), nb_nodes.data_ptr(),
-                nb_weights.data_ptr(), out.data_ptr(), b, t, proj.shape[1],
-                out.shape[1])
+                w.data_ptr(), out.data_ptr(), b, t, proj.shape[1],
+                out.shape[1], bf16_den)
     kernel_launches["gather_mean"] += 1
     return out
 
@@ -259,12 +327,14 @@ def gather_mean(proj: torch.Tensor, nb_nodes: torch.Tensor,
                 nb_weights: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """K2's gather on CUDA: out [B, H] = the weighted mean of the rows of
     ``project_table``'s slabs [ceil(H/64), N, 64] that nb_nodes [B, T]
-    int32 names (ids in [0, N))."""
+    int32 names (ids in [0, N)); of bf16 weights with the bf16-rounded
+    denominator."""
     kernel = "K2's gather-mean"
     _refuse_grad(kernel, proj, nb_weights, out)
+    _check_weights(kernel, nb_weights, bf16_ok=True)
     _check_tensors((("proj", proj, torch.float32, 3),
                     ("nb_nodes", nb_nodes, torch.int32, 2),
-                    ("nb_weights", nb_weights, torch.float32, 2),
+                    ("nb_weights", nb_weights, nb_weights.dtype, 2),
                     ("out", out, torch.float32, 2)))
     (b, t), hdim = nb_nodes.shape, out.shape[1]
     if (nb_weights.shape != nb_nodes.shape or out.shape[0] != b
@@ -279,26 +349,72 @@ def gather_mean(proj: torch.Tensor, nb_nodes: torch.Tensor,
     return _gather_mean(proj, nb_nodes, nb_weights, out)
 
 
+def tile_wq_bf16(Wq: torch.Tensor) -> torch.Tensor:
+    """Wq [H, Din] bf16 on CUDA -> the bf16 kernels' tiles, equal bit for
+    bit to ``tile_wq_plain(Wq)``."""
+    kernel = "the bf16 Wq tiling"
+    _refuse_grad(kernel, Wq)
+    _check_tensors((("Wq", Wq, torch.bfloat16, 2),))
+    _check_widths(kernel, Wq.shape[0], Wq.shape[1], din_multiple=8)
+    _check_cuda(kernel, Wq.device)
+    return _tile_wq_bf16(Wq)
+
+
+def project_table_bf16(h: torch.Tensor, tiles: torch.Tensor,
+                       bq: torch.Tensor) -> torch.Tensor:
+    """K2's bf16 projection on CUDA: P = leaky_relu(h Wq^T + bq) in f32
+    for every row of h [N, Din] bf16, as [ceil(H/64), N, 64] slabs, from
+    ``tile_wq_bf16``'s tiles of Wq [H, Din] bf16 and bq [H] f32."""
+    kernel = "K2's bf16 projection"
+    _refuse_grad(kernel, h, bq)
+    _check_tensors((("h", h, torch.bfloat16, 2),
+                    ("tiles", tiles, torch.bfloat16, 4),
+                    ("bq", bq, torch.float32, 1)))
+    (n, din), hdim = h.shape, bq.shape[0]
+    if tiles.shape != _tiles_shape(hdim, din, BK16):
+        raise _mismatch(h=h, tiles=tiles, bq=bq)
+    _check_widths(kernel, hdim, din, din_multiple=8)
+    if n == 0:
+        raise ValueError("h has no rows to project")
+    _check_aligned(h=h, tiles=tiles)
+    _check_cuda(kernel, h.device)
+    return _project_table_bf16(h, tiles, bq)
+
+
+def _check_weights(kernel: str, nb_weights: torch.Tensor,
+                   bf16_ok: bool) -> None:
+    ok = (torch.float32, torch.bfloat16) if bf16_ok else (torch.float32,)
+    if nb_weights.dtype not in ok:
+        raise ValueError(f"{kernel} takes nb_weights in "
+                         f"{' or '.join(map(str, ok))}, got "
+                         f"{nb_weights.dtype}")
+
+
 def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
                         nb_weights: torch.Tensor, Wq: torch.Tensor,
                         bq: torch.Tensor, mode: str = "stream",
                         block_rows: int | None = None) -> torch.Tensor:
     """Launch K2 (mode "stream") or K3 (mode "dma") on CUDA tensors: h
-    [N, Din] f32, nb_nodes [B, T] int32 (ids in [0, N)), nb_weights [B, T]
-    f32, Wq [H, Din] f32, bq [H] f32 -> [B, H] f32.  K2 projects the table
-    once, then gathers all B nodes, or with ``block_rows`` one block of
-    that many nodes at a time (the projection is freed on return).
-    Records no graph, so it refuses inputs that need a gradient:
-    ``conv_aggregate`` is the differentiable entry."""
-    global launches
+    [N, Din] f32 or bf16, nb_nodes [B, T] int32 (ids in [0, N)),
+    nb_weights [B, T] f32 (or bf16 in mode "stream"), Wq [H, Din] of h's
+    type, bq [H] f32 -> [B, H] f32.  A bf16 h runs the bf16 form of the
+    kernel.  K2 projects the table once, then gathers all B nodes, or
+    with ``block_rows`` one block of that many nodes at a time (the
+    projection is freed on return).  Records no graph, so it refuses
+    inputs that need a gradient: ``conv_aggregate`` is the differentiable
+    entry."""
+    global launches, launches_bf16
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
     kernel = MODES[mode]
+    bf16 = h.dtype == torch.bfloat16
+    table_dtype = torch.bfloat16 if bf16 else torch.float32
     _refuse_grad(kernel, h, nb_weights, Wq, bq)
-    _check_tensors((("h", h, torch.float32, 2),
+    _check_weights(kernel, nb_weights, bf16_ok=mode == "stream")
+    _check_tensors((("h", h, table_dtype, 2),
                     ("nb_nodes", nb_nodes, torch.int32, 2),
-                    ("nb_weights", nb_weights, torch.float32, 2),
-                    ("Wq", Wq, torch.float32, 2),
+                    ("nb_weights", nb_weights, nb_weights.dtype, 2),
+                    ("Wq", Wq, table_dtype, 2),
                     ("bq", bq, torch.float32, 1)))
     b, t = nb_nodes.shape
     din, hdim = h.shape[1], Wq.shape[0]
@@ -306,7 +422,8 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
             or bq.shape[0] != hdim):
         raise _mismatch(h=h, nb_nodes=nb_nodes, nb_weights=nb_weights, Wq=Wq,
                         bq=bq)
-    _check_widths(kernel, hdim, din, t, MAX_T if mode == "dma" else None)
+    _check_widths(kernel, hdim, din, t, MAX_T if mode == "dma" else None,
+                  din_multiple=8 if bf16 else 4)
     _check_aligned(h=h)
     _check_cuda(kernel, h.device)
     out = torch.empty((b, hdim), dtype=torch.float32, device=h.device)
@@ -314,16 +431,26 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
         return out
     if h.shape[0] == 0:
         raise ValueError("h has no rows for nb_nodes to name")
-    big, small = _split_wq(Wq)
-    if mode == "dma":
-        dma_agg.launch(h, nb_nodes, nb_weights, big, small, bq, out)
-        return out
-    proj = _project_table(h, big, small, bq)
+    if bf16:
+        tiles = _tile_wq_bf16(Wq)
+        if mode == "dma":
+            dma_agg.launch_bf16(h, nb_nodes, nb_weights, tiles, bq, out)
+            return out
+        proj = _project_table_bf16(h, tiles, bq)
+    else:
+        big, small = _split_wq(Wq)
+        if mode == "dma":
+            dma_agg.launch(h, nb_nodes, nb_weights, big, small, bq, out)
+            return out
+        proj = _project_table(h, big, small, bq)
     step = block_rows or b
     for s in range(0, b, step):
         _gather_mean(proj, nb_nodes[s:s + step], nb_weights[s:s + step],
                      out[s:s + step])
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -343,7 +470,10 @@ class ConvAggregate(torch.autograd.Function):
     where ids repeat (the full-graph forward) and about as long where
     they do not (the frontier forward, whose table holds B*T + B rows).
     The neighbor weights get no gradient: they are constants of the
-    neighborhood cache."""
+    neighborhood cache.  For a bf16 table and Wq the pre-activation is
+    recomputed from their f32 upcasts (the JAX package's residual is
+    f32: a bf16 ``addmm`` would round it and move the leaky_relu's
+    branch), and dh and dWq are returned in bf16."""
 
     @staticmethod
     def forward(ctx, h, nb_nodes, nb_weights, Wq, bq, mode, block_rows=None):
@@ -361,18 +491,20 @@ class ConvAggregate(torch.autograd.Function):
     def backward(ctx, dagg):
         h, nb_nodes, nb_weights, Wq, bq = ctx.saved_tensors
         need_h, _, _, need_wq, need_bq = ctx.needs_input_grad[:5]
+        h32, wq32 = _f32(h), _f32(Wq)
         ids = nb_nodes.reshape(-1).long()
-        proj = torch.addmm(bq, h, Wq.t())                    # [N, H]
+        proj = torch.addmm(bq, h32, wq32.t())                # [N, H]
         pre = proj[ids]                                       # [B*T, H]
-        dq = ((nb_weights / _denominator(nb_weights))[:, :, None]
+        dq = ((_f32(nb_weights) / _denominator(nb_weights))[:, :, None]
               * dagg[:, None, :]).reshape(pre.shape)
         dpre = torch.where(pre >= 0.0, dq, 0.01 * dq)
         s = torch.zeros_like(proj).index_add_(0, ids, dpre)  # [N, H]
-        dh = s @ Wq if need_h else None
-        dwq = s.t() @ h if need_wq else None
+        dh = (s @ wq32).to(h.dtype) if need_h else None
+        dwq = (s.t() @ h32).to(Wq.dtype) if need_wq else None
         dbq = s.sum(dim=0) if need_bq else None
         if dagg.device.type == "cuda":
-            backward_launches[ctx.mode] += 1
+            form = "_bf16" if h.dtype == torch.bfloat16 else ""
+            backward_launches[ctx.mode + form] += 1
         return dh, None, None, dwq, dbq, None, None
 
 

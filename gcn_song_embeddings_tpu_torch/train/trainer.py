@@ -13,6 +13,14 @@ back to the host once per chunk and are appended to
 On the GPU the step's frontier forward aggregates with kernel K3 and the
 full-graph forward with K2; both carry gradients through
 ``ops.agg.ConvAggregate``.
+
+``train.dtype="bfloat16"`` trains in mixed precision, as the JAX package
+does: the master weights and Adam's state stay f32, the step reads a
+bf16 copy of the feature table and bf16 casts of the weights (their
+gradients flow back through the cast, rounded to bf16), and every
+product accumulates in f32 (``models.pinsage``; the bf16 forms of K3 and
+K2 on the GPU).  ``embed`` and the checkpoints read the f32 table and
+the f32 master weights whatever the dtype.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from gcn_song_embeddings_tpu_torch.data.device import (
 )
 from gcn_song_embeddings_tpu_torch.models.pinsage import (
     PinSageParams,
+    cast_params,
     embed_all,
     forward_with_gather,
     fullgraph_embeddings,
@@ -67,6 +76,7 @@ BASE_RUN_DIR = "./runs"
 # per-batch metrics, in the order of train_step's output
 METRICS = ("Train Loss", "Node Features Loss", "Batch Variance",
            "Learning Rate", "Gradient Norm")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def make_optimizer(params: PinSageParams, tcfg: TrainConfig) -> Adam:
@@ -77,20 +87,35 @@ def make_optimizer(params: PinSageParams, tcfg: TrainConfig) -> Adam:
 
 
 class TrainTables(NamedTuple):
-    """The step's device tables: features [N, in], top-T neighborhood
-    weights and nodes [N, >=T], and their packed [N, 2T] form."""
+    """The step's device tables: features [N, in] f32, top-T neighborhood
+    weights and nodes [N, >=T], their packed [N, 2T] form, and the
+    features in the step's dtype (``features`` itself under f32, a bf16
+    copy under bf16; ``embed`` reads ``features``)."""
     features: torch.Tensor
     nbhd_w: torch.Tensor
     nbhd_n: torch.Tensor
     packed: torch.Tensor
+    step_features: torch.Tensor
 
     @staticmethod
     def build(features, nbhd_w, nbhd_n, T: int,
-              device: str | torch.device = "cpu") -> "TrainTables":
+              device: str | torch.device = "cpu",
+              dtype: str = "float32") -> "TrainTables":
         f = torch.as_tensor(features, dtype=torch.float32, device=device)
         w = torch.as_tensor(nbhd_w, dtype=torch.float32, device=device)
         n = torch.as_tensor(nbhd_n, dtype=torch.int32, device=device)
-        return TrainTables(f, w, n, pack_nbhds(w, n, T))
+        return TrainTables(f, w, n, pack_nbhds(w, n, T),
+                           f.to(step_dtype(dtype)))
+
+
+def step_dtype(dtype: str) -> torch.dtype:
+    """``train.dtype`` -> the step's compute type.  The port trains in
+    "float32" or "bfloat16", the two types the JAX package's suite
+    trains in; any other name raises."""
+    if dtype not in DTYPES:
+        raise ValueError(f"train.dtype={dtype!r}: the port trains in "
+                         f"{' or '.join(DTYPES)}")
+    return DTYPES[dtype]
 
 
 def use_fullgraph(tcfg: TrainConfig, mcfg: PinSageConfig,
@@ -109,16 +134,21 @@ def use_fullgraph(tcfg: TrainConfig, mcfg: PinSageConfig,
 def triple_loss(params: PinSageParams, tables: TrainTables,
                 batch: torch.Tensor, tcfg: TrainConfig, mcfg: PinSageConfig,
                 fullgraph: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Max-margin loss of a [B, 3] batch through one [3B] forward;
-    returns (loss, h_q)."""
+    """Max-margin loss of a [B, 3] batch through one [3B] forward in the
+    step's dtype (that of ``tables.step_features``); returns (loss,
+    h_q)."""
     nodes = torch.cat([batch[:, 0], batch[:, 1], batch[:, 2]])
+    feats = tables.step_features
+    if feats.dtype != torch.float32:
+        params = cast_params(params, feats.dtype)
     if fullgraph:
-        h_all = fullgraph_embeddings(params, tables.features, tables.nbhd_w,
-                                     tables.nbhd_n, mcfg.n_layers, mcfg.T)
+        h_all = fullgraph_embeddings(
+            params, feats, tables.nbhd_w.to(feats.dtype), tables.nbhd_n,
+            mcfg.n_layers, mcfg.T)
         emb = head_apply(params, h_all[nodes.long()])
     else:
         emb = forward_with_gather(
-            params, lambda ids: tables.features[ids.long()],
+            params, lambda ids: feats[ids.long()],
             packed_nbhd_gather(tables.packed, mcfg.T), nodes, mcfg.n_layers,
             mcfg.T)
     h_q, h_pos, h_neg = emb.chunk(3)
@@ -138,8 +168,8 @@ def train_step(params: PinSageParams, opt: Adam, batch: torch.Tensor,
         torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     opt.step(grads)
     with torch.no_grad():
-        f_rows = tables.features[batch.reshape(-1).long()].reshape(
-            batch.shape[0], 3, -1)
+        f_rows = tables.step_features[batch.reshape(-1).long()].float()
+        f_rows = f_rows.reshape(batch.shape[0], 3, -1)
         f_rows = f_rows / torch.clamp(torch.linalg.vector_norm(
             f_rows, dim=-1, keepdim=True), min=1e-12)
         node_feat_loss = cosine_triplet_loss(f_rows[:, 0], f_rows[:, 1],
@@ -168,11 +198,7 @@ class PinSageTrainer:
                 cfg.model, in_dim=features.shape[1]))
         self.cfg = cfg
         tcfg, mcfg = cfg.train, cfg.model
-        if tcfg.dtype != "float32":
-            raise ValueError(
-                f"train.dtype={tcfg.dtype!r}: the port trains in float32 "
-                f"only (kernels K2 and K3 take f32); bf16 training with "
-                f"bf16 kernels is queued in ROADMAP.md, queue 1")
+        step_dtype(tcfg.dtype)
         if tcfg.hard_negatives and tcfg.hn_max > cfg.walk.t_precompute:
             raise ValueError(
                 f"train.hn_max={tcfg.hn_max} exceeds walk.t_precompute="
@@ -189,7 +215,7 @@ class PinSageTrainer:
             nbhds = precompute_neighborhoods(graph, cfg.walk, nbhds_path,
                                              seed=tcfg.seed, verbose=verbose)
         self.tables = TrainTables.build(features, nbhds[0], nbhds[1],
-                                        mcfg.T, self.device)
+                                        mcfg.T, self.device, tcfg.dtype)
         self.positives = torch.as_tensor(positives, dtype=torch.int32,
                                          device=self.device)
         gen = torch.Generator(device=self.device)

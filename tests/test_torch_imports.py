@@ -93,7 +93,9 @@ def test_every_port_module_imports_with_jax_blocked():
                    "parallel.mesh", "parallel.multihost",
                    "parallel.collectives", "parallel.gather",
                    "parallel.walks_sharded", "parallel.train_step",
-                   "parallel.serve_sharded"):
+                   "parallel.serve_sharded", "data.explore",
+                   "data.collector", "evals.qualitative",
+                   "utils.profiling"):
         assert prefix + module in names
 
 
@@ -107,6 +109,7 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "from gcn_song_embeddings_tpu_torch.models import gnnlib\n"
         "from gcn_song_embeddings_tpu_torch.models.baselines import mf\n"
         "from gcn_song_embeddings_tpu_torch.parallel import multihost\n"
+        "from gcn_song_embeddings_tpu_torch.data import explore\n"
         "from gcn_song_embeddings_tpu_torch.ops.node2vec import "
         "build_alias_graph\n"
         "from gcn_song_embeddings_tpu_torch.train.grid_search import "
@@ -141,7 +144,8 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "                           '--mesh-graph', '1']),\n"
         "         lambda: cli.main(['all', '--dataset', 'nowhere',\n"
         "                           '--mesh-graph', '1']),\n"
-        "         lambda: serve.main(['--emb', 'x.npy', '--sharded'])]\n"
+        "         lambda: serve.main(['--emb', 'x.npy', '--sharded']),\n"
+        "         lambda: explore.crawl_walk_counts(None, 0)]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"

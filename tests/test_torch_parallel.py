@@ -441,7 +441,6 @@ def test_sharded_trainer_refuses_bad_configs():
     feat, nb_w, nb_n, pos = _toy()
     for over, match in (({"train.hard_negatives": True, "train.hn_max": 9},
                          "hn_max"),
-                        ({"train.dtype": "bfloat16"}, "float32"),
                         ({"train.fullgraph_forward": "maybe"}, "auto"),
                         ({"train.batch_size": 63}, "divide")):
         cfg = config_with_overrides(RunConfig(), {**TOY, **over})
@@ -453,6 +452,40 @@ def test_sharded_trainer_refuses_bad_configs():
         ShardedTrainer(_fake_mesh(), config_with_overrides(RunConfig(), TOY),
                        feat.shape[0], feat, (nb_w, nb_n), pos,
                        gather_impl="nope")
+
+
+@pytest.mark.parametrize("name", ["frontier", "fullgraph"])
+def test_sharded_bf16_config_trains_in_f32(world4, name):
+    """``train.dtype="bfloat16"`` on the sharded step: one warning, then
+    the f32 run bit for bit on every rank (JAX's sharded step never reads
+    the dtype; ``test_jax_sharded_step_ignores_train_dtype``)."""
+    _, _, results = world4
+    for out in results:
+        losses, leaves, warned = out[("train_bf16", name)]
+        want_losses, want_leaves, _, _ = out[("train", name)]
+        assert len(warned) == 1 and "does not apply" in warned[0]
+        np.testing.assert_array_equal(losses, want_losses)
+        for leaf, value in want_leaves.items():
+            assert leaves[leaf].dtype == np.float32
+            np.testing.assert_array_equal(leaves[leaf], value)
+
+
+def test_jax_sharded_step_ignores_train_dtype(world4):
+    """The behaviour the port copies: JAX's ShardedTrainer with
+    train.dtype="bfloat16" trains bit-equal to its f32 run on the same
+    virtual mesh."""
+    p, ref, _ = world4
+    feat, nb_w, nb_n, pos = p["toy"]
+    over = dict((name, o) for name, o, _ in TRAINERS)["frontier"]
+    jtr = JShardedTrainer(_jmesh(), j_overrides(JRunConfig(), {
+        **over, "train.dtype": "bfloat16"}), feat.shape[0], feat,
+        (nb_w, nb_n), pos)
+    losses = np.asarray(jtr.train_chunk(3))
+    want_losses, want_leaves, _ = ref["train"]["frontier"]
+    np.testing.assert_array_equal(losses, want_losses)
+    for leaf, value in _flat(_tree(jtr.params)).items():
+        assert value.dtype == np.float32
+        np.testing.assert_array_equal(value, want_leaves[leaf])
 
 
 def test_multihost_world_of_one_and_refusals(monkeypatch):

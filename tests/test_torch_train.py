@@ -372,9 +372,12 @@ def test_fullgraph_forward_training_equivalence(port_graph, port_positives,
 
 def test_trainer_refuses_bf16_and_bad_hn_band(port_graph, port_positives,
                                               tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP"):
+    """A train.dtype other than float32 and bfloat16 (bf16 training is
+    held to JAX in tests/test_torch_bf16.py), and a hard-negative band
+    past the stored neighborhood ranks."""
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         _trainer(port_graph, port_positives, tmp_path,
-                 **{"train.dtype": "bfloat16"})
+                 **{"train.dtype": "float16"})
     with pytest.raises(ValueError, match="t_precompute"):
         _trainer(port_graph, port_positives, tmp_path,
                  **{"train.hard_negatives": True, "train.hn_max": 101})

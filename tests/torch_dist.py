@@ -197,6 +197,8 @@ def _leaves(params) -> dict:
 
 def parallel_checks(rank: int, world: int, p: dict, d: str) -> dict:
     """tests/test_torch_parallel.py's port side, on a world of 4."""
+    import warnings
+
     import torch
 
     from gcn_song_embeddings_tpu_torch.config import (
@@ -291,6 +293,20 @@ def parallel_checks(rank: int, world: int, p: dict, d: str) -> dict:
                                             p["batches"][name]])
         out[("train", name)] = (losses, _leaves(tr.params),
                                 tr.embed(batch_size=64), tr.fullgraph)
+    # train.dtype="bfloat16" does not apply to the sharded step: it
+    # trains in f32 after one warning, as the JAX package's
+    for name, over, gather_impl in p["trainers"][:2]:
+        cfg = config_with_overrides(RunConfig(), {
+            **over, "train.dtype": "bfloat16"})
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tr = ShardedTrainer(mesh, cfg, feats.shape[0], feats,
+                                (nb_w, nb_n), pos, gather_impl=gather_impl,
+                                params=params_from_numpy(p["jparams"]))
+        losses = tr.train_chunk(3, batches=[b[rank] for b in
+                                            p["batches"][name]])
+        out[("train_bf16", name)] = (losses, _leaves(tr.params),
+                                     [str(w.message) for w in caught])
 
     # -- the port's own draws: hard negatives through the sharded table,
     #    the hn_start_epoch gate, and a resume in the middle of an epoch
