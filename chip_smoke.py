@@ -37,15 +37,16 @@
    CPU (the plain versions), losses, G1_w and embeddings as
    tests/test_trainer.py holds them.  Then the train step's wall at B=128
    and a ``torch.profiler`` pass over it (device busy share, launches).
-   Then, with the counters set to 0 again, the bf16 phase: ``cli train
-   --set train.dtype="bfloat16"`` on the same schedule (run
-   ``smoke_bf16``; K3's bf16 form on the deepest layer) and ``cli embed``
-   of its checkpoint: 50 finite rows with a falling loss, f32 master
-   leaves and Adam moments, the embed within 1e-4 of the CPU path on 64
-   nodes; then (counters at 0) 3 bf16 frontier steps on the card against
-   the CPU (tests/test_torch_bf16.py's bars) and 3 bf16 full-graph steps
-   (K2's bf16 form, forward and backward); the step's wall and profile in
-   both dtypes and both forwards.  Then the tail (counters at 0):
+   Then, with the counters set to 0 again, the 16-bit phases, bf16 then
+   f16: ``cli train --set train.dtype="bfloat16"`` (``"float16"``) on
+   the same schedule (run ``smoke_bf16``, ``smoke_f16``; K3's 16-bit form
+   on the deepest layer) and ``cli embed`` of its checkpoint: 50 finite
+   rows with a falling loss, f32 master leaves and Adam moments, the
+   embed within 1e-4 of the CPU path on 64 nodes; then (counters at 0) 3
+   frontier steps on the card against the CPU (tests/test_torch_bf16.py's
+   and test_torch_f16.py's bars) and 3 full-graph steps (K2's 16-bit
+   form, forward and backward); the step's wall and profile in every
+   dtype and both forwards.  Then the tail (counters at 0):
    ``explore.crawl_walk_counts`` from 4 tracks of the catalog (K1),
    ``profiling.Timer`` phases on CUDA events, a ``profiling.
    device_profile`` trace, the recommendation lists and figure of 3
@@ -119,11 +120,13 @@
    as the host issues them, its wrapper included.  K2's
    and K3's bounds count their products on the TF32 tensor cores in
    three passes (3xTF32); ``bound_f32_simt_ms`` keeps the f32 one.  The
-   bf16 forms (K3 at the deepest conv of a bf16 step, K2 at both
-   full-graph layers on bf16 tables and weights) are held within 1e-4 of
-   their plain versions, their errors against float64 on the same bf16
-   inputs logged, and their bounds count one pass on the bf16 tensor
-   cores.
+   bf16 and f16 forms (K3 at the deepest conv of a 16-bit step, K2 at
+   both full-graph layers on 16-bit tables and weights) are held within
+   1e-4 of their plain versions and, against float64 on the same 16-bit
+   inputs, within 4x the plain version's error; their bounds count one
+   pass on the 16-bit tensor cores; K2's 16-bit rows carry their tiling,
+   projection and gather one by one (``parts``) and the gather's L2
+   read rate beside the same gather over ids in table order.
 11. Right after the int8 path, the multi-device layer (``parallel/``)
    with the counters set to 0 again in each process, held to two
    single-process runs of 3 steps from one seeded init on 3 global
@@ -190,10 +193,12 @@ K2_ATOL = 1e-4  # f32 sums of Din products in another order: ~1e-6 expected
 GRAD_RTOL = 1e-3
 TRAJ = {"rtol": 1e-4, "atol": 1e-5}  # tests/test_trainer.py's 3-step bar
 TRAIN_EPOCHS, TRAIN_BATCHES, TRAIN_CHUNK = 2, 25, 20
-# tests/test_torch_bf16.py's bars for bf16 against a reference: losses
-# within 1e-3 relative, master leaves within one bf16 ulp plus 2 lr (Adam
-# moves an entry by at most about lr a step)
-BF16_LOSS_RTOL, BF16_ULP = 1e-3, 2.0 ** -7
+# tests/test_torch_bf16.py's and test_torch_f16.py's bars for 16-bit
+# training against a reference: losses within 1e-3 relative, master
+# leaves within one ulp of the dtype plus 2 lr (Adam moves an entry by at
+# most about lr a step)
+LOSS_RTOL16 = 1e-3
+ULP16 = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}  # one ulp, relative
 N_CRAWLS, N_EXPORTS = 4, 3
 
 # the README's 100k scale: ~1M directed playlist edges
@@ -1089,9 +1094,9 @@ def float64_error(torch, agg, h, ids, wts, Wq, bq, got, plain):
     for t in range(ids.shape[1]):
         ref += w64[:, t, None] * proj[ids[:, t].long()]
     del proj
-    if wts.dtype == torch.bfloat16:
-        # bf16 weights: the function's denominator is their sum rounded
-        # to bf16 (the JAX package's), taken exactly as it is
+    if wts.dtype in agg.SIXTEEN:
+        # 16-bit weights: the function's denominator is their sum rounded
+        # to their type (the JAX package's), taken exactly as it is
         ref /= agg._denominator(wts).double()
     else:
         w_sum = w64.sum(dim=1, keepdim=True)
@@ -1378,11 +1383,17 @@ def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5,
         "top_kernels_ms_per_step": {e.key[:80]: dev_ms(e) for e in top}}
 
 
-def run_bf16_train_path(dev, st, work: str):
-    """The bf16 training path, as a user runs it: ``cli train --set
-    train.dtype="bfloat16"`` on the f32 training path's schedule and the
-    main path's dataset (frontier forward: K3's bf16 form on the deepest
-    layer), then ``cli embed`` of its checkpoint.  Returns its state."""
+def short16(dtype: str) -> str:
+    """"bfloat16" -> "bf16", "float16" -> "f16": the forms' names."""
+    return {"bfloat16": "bf16", "float16": "f16"}[dtype]
+
+
+def run_train_path16(dev, st, work: str, dtype: str):
+    """A 16-bit training path, as a user runs it: ``cli train --set
+    train.dtype=...`` (bfloat16 or float16) on the f32 training path's
+    schedule and the main path's dataset (frontier forward: K3's 16-bit
+    form on the deepest layer), then ``cli embed`` of its checkpoint.
+    Returns its state."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -1391,31 +1402,32 @@ def run_bf16_train_path(dev, st, work: str):
     from gcn_song_embeddings_tpu_torch import cli
     from gcn_song_embeddings_tpu_torch.config import config_with_overrides
 
+    name = short16(dtype)
     cfg, cfg_path = train_config(work)
-    cfg = config_with_overrides(cfg.replace(run_name="smoke_bf16"),
-                                {"train.dtype": "bfloat16"})
+    cfg = config_with_overrides(cfg.replace(run_name=f"smoke_{name}"),
+                                {"train.dtype": dtype})
     runs = os.path.join(work, "runs")
     t = time.perf_counter()
     cli.main(["train", "--dataset", st.ds, "--run-dir", runs,
               "--run-name", cfg.run_name, "--config", cfg_path,
-              "--set", 'train.dtype="bfloat16"', "--device", str(dev)])
+              "--set", f'train.dtype="{dtype}"', "--device", str(dev)])
     sync(torch, dev)
-    walls = {"train_bf16_s": time.perf_counter() - t}
+    walls = {f"train_{name}_s": time.perf_counter() - t}
     run_dir = os.path.join(runs, cfg.run_name)
-    out = os.path.join(work, "emb_bf16_cli.npy")
+    out = os.path.join(work, f"emb_{name}_cli.npy")
     t = time.perf_counter()
     cli.main(["embed", "--dataset", st.ds, "--out", out, "--checkpoint",
               os.path.join(run_dir, "state.npz"), "--device", str(dev)])
-    walls["embed_bf16_cli_s"] = time.perf_counter() - t
+    walls[f"embed_{name}_cli_s"] = time.perf_counter() - t
     return SimpleNamespace(cfg=cfg, run_dir=run_dir, walls=walls,
                            emb=np.load(os.path.join(run_dir, "emb.npy")),
                            cli_emb=np.load(out), n_items=st.graph.n_items)
 
 
-def check_bf16_run(torch, st, bf) -> dict:
-    """The bf16 run: 50 finite metric rows with a falling loss, every
+def check_run16(torch, st, bf) -> dict:
+    """A 16-bit run: 50 finite metric rows with a falling loss, every
     master leaf and Adam moment of its state.npz in f32, its config.json
-    saying bfloat16, and ``cli embed`` of its checkpoint on the card
+    saying its dtype, and ``cli embed`` of its checkpoint on the card
     within 1e-4 of the port's CPU path (``pinsage_forward`` on 64 nodes
     from the same leaves) and equal to the run's own emb.npy."""
     import numpy as np
@@ -1426,22 +1438,25 @@ def check_bf16_run(torch, st, bf) -> dict:
         load_jax_checkpoint,
     )
 
+    dtype = bf.cfg.train.dtype
+    name = short16(dtype)
     with open(os.path.join(bf.run_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     loss = np.array([r["Train Loss"] for r in rows])
     first, last = float(loss[:10].mean()), float(loss[-10:].mean())
-    log(f"train bf16: loss first 10 {first:.5f} -> last 10 {last:.5f}")
+    log(f"train {name}: loss first 10 {first:.5f} -> last 10 {last:.5f}")
     if not (len(rows) == TRAIN_EPOCHS * TRAIN_BATCHES
             and np.isfinite(loss).all() and last < first):
-        raise AssertionError(f"bf16 run: {len(rows)} rows, losses {loss}")
+        raise AssertionError(f"{name} run: {len(rows)} rows, losses {loss}")
     with np.load(os.path.join(bf.run_dir, "state.npz")) as z:
         kinds = {k: z[k].dtype for k in z.files
                  if k.startswith(("['params']", "adam.m", "adam.v"))}
     if not kinds or any(d != np.float32 for d in kinds.values()):
-        raise AssertionError(f"bf16 checkpoint leaves not f32: {kinds}")
+        raise AssertionError(f"{name} checkpoint leaves not f32: {kinds}")
     with open(os.path.join(bf.run_dir, "config.json")) as f:
-        if RunConfig.from_json(f.read()).train.dtype != "bfloat16":
-            raise AssertionError("the bf16 run's config.json lost its dtype")
+        if RunConfig.from_json(f.read()).train.dtype != dtype:
+            raise AssertionError(f"the {name} run's config.json lost its "
+                                 f"dtype")
     mcfg = bf.cfg.model
     probe = torch.arange(0, bf.n_items, bf.n_items // 64)[:64].to(
         torch.int32)
@@ -1452,26 +1467,28 @@ def check_bf16_run(torch, st, bf) -> dict:
                               mcfg.T).numpy()
     cpu_err = float(np.abs(bf.cli_emb[probe.numpy()] - ref).max())
     own_err = float(np.abs(bf.cli_emb - bf.emb).max())
-    log(f"cli embed of the bf16 run (card) vs the CPU path on 64 nodes: "
+    log(f"cli embed of the {name} run (card) vs the CPU path on 64 nodes: "
         f"max |diff| {cpu_err:.3g}; vs the run's emb.npy {own_err:.3g}")
     if not (cpu_err <= 1e-4 and own_err <= 1e-6
             and bf.cli_emb.shape == (bf.n_items, mcfg.out_dim)):
-        raise AssertionError(f"bf16 run's embeddings: {cpu_err}, {own_err}")
+        raise AssertionError(f"{name} run's embeddings: {cpu_err}, "
+                             f"{own_err}")
     return {"loss_first10": first, "loss_last10": last,
             "f32_leaves": len(kinds), "cli_embed_vs_cpu": cpu_err,
             "cli_embed_vs_run": own_err}
 
 
-def bf16_three_step_checks(torch, trainer) -> dict:
-    """3 bf16 steps from the trainer's seeded init on the same batches:
-    the frontier forward (K3's bf16 form) on the card against the CPU's
-    plain versions (losses within BF16_LOSS_RTOL, every master leaf
-    within one bf16 ulp plus 2 lr), then the full-graph forward (K2's
-    bf16 form in both layers, forward and backward) on the card: finite
-    losses, f32 masters, and its losses beside the frontier's (they
-    differ by design: the full graph stores each layer's output in bf16,
-    the frontier keeps it f32; held within 1e-2).  Returns the worst
-    differences and the three runs' losses."""
+def three_step_checks16(torch, trainer) -> dict:
+    """3 steps in the trainer's 16-bit dtype from its seeded init on the
+    same batches: the frontier forward (K3's 16-bit form) on the card
+    against the CPU's plain versions (losses within LOSS_RTOL16, every
+    master leaf within one ulp of the dtype plus 2 lr), then the
+    full-graph forward (K2's 16-bit form in both layers, forward and
+    backward) on the card: finite losses, f32 masters, and its losses
+    beside the frontier's (they differ by design: the full graph stores
+    each layer's output in 16 bits, the frontier keeps it f32; held
+    within 1e-2).  Returns the worst differences and the three runs'
+    losses."""
     import copy
 
     import numpy as np
@@ -1485,6 +1502,7 @@ def bf16_three_step_checks(torch, trainer) -> dict:
     )
 
     tcfg, mcfg = trainer.cfg.train, trainer.cfg.model
+    name = short16(tcfg.dtype)
     gen = block_generator(12345, 0, trainer.device)
     batches = [trainer.sample(gen) for _ in range(3)]
     seeded = torch.Generator(device=trainer.device)
@@ -1496,8 +1514,8 @@ def bf16_three_step_checks(torch, trainer) -> dict:
         opt = make_optimizer(params, tcfg)
         losses = [float(train_step(params, opt, b, tables, tcfg, mcfg,
                                    fullgraph)[0]) for b in batches]
-        return losses, {name: p.detach().cpu().numpy()
-                        for name, p in params.leaves()}
+        return losses, {leaf: p.detach().cpu().numpy()
+                        for leaf, p in params.leaves()}
 
     card = run(copy.deepcopy(init), trainer.tables, batches, False)
     sync(torch, trainer.device)
@@ -1506,32 +1524,33 @@ def bf16_three_step_checks(torch, trainer) -> dict:
               [b.cpu() for b in batches], False)
     worst = {leaf: float(np.abs(card[1][leaf] - cpu[1][leaf]).max())
              for leaf in card[1]}
-    log(f"bf16 three steps, card vs cpu: losses {card[0]} vs {cpu[0]}; "
+    log(f"{name} three steps, card vs cpu: losses {card[0]} vs {cpu[0]}; "
         f"max |diff| per leaf {worst}")
-    np.testing.assert_allclose(card[0], cpu[0], rtol=BF16_LOSS_RTOL,
-                               err_msg="bf16 card vs cpu: losses")
+    np.testing.assert_allclose(card[0], cpu[0], rtol=LOSS_RTOL16,
+                               err_msg=f"{name} card vs cpu: losses")
     for leaf in card[1]:
         np.testing.assert_allclose(card[1][leaf], cpu[1][leaf],
-                                   rtol=BF16_ULP, atol=2 * tcfg.lr,
-                                   err_msg=f"bf16 card vs cpu: {leaf}")
+                                   rtol=ULP16[tcfg.dtype], atol=2 * tcfg.lr,
+                                   err_msg=f"{name} card vs cpu: {leaf}")
     full = run(copy.deepcopy(init), trainer.tables, batches, True)
     sync(torch, trainer.device)
-    log(f"bf16 three steps, full graph (card): losses {full[0]}")
+    log(f"{name} three steps, full graph (card): losses {full[0]}")
     if not (np.isfinite(full[0]).all()
             and all(v.dtype == np.float32 for v in full[1].values())):
-        raise AssertionError(f"bf16 full-graph steps: {full[0]}")
+        raise AssertionError(f"{name} full-graph steps: {full[0]}")
     np.testing.assert_allclose(full[0], card[0], rtol=1e-2,
-                               err_msg="bf16 full graph vs frontier")
+                               err_msg=f"{name} full graph vs frontier")
     return {"card_vs_cpu": worst, "frontier_losses": card[0],
             "cpu_losses": cpu[0], "fullgraph_losses": full[0]}
 
 
-def bf16_step_shapes(torch, trainer, st):
-    """The bf16 kernels' shapes on this data: K3's at the deepest conv of
-    a frontier step (the gathered bf16 feature rows, f32 weights, Wq in
-    bf16) and K2's at both full-graph layers over the catalog (the bf16
-    features, then the first layer's output stored in bf16; bf16
-    weights).  Each entry is (table, ids, weights, Wq, bq)."""
+def step_shapes16(torch, trainer, st, dtype):
+    """The 16-bit kernels' shapes on this data in ``dtype`` (torch's):
+    K3's at the deepest conv of a frontier step (the gathered 16-bit
+    feature rows, f32 weights, 16-bit Wq) and K2's at both full-graph
+    layers over the catalog (the 16-bit features, then the first layer's
+    output stored in 16 bits; 16-bit weights).  Each entry is (table,
+    ids, weights, Wq, bq)."""
     from gcn_song_embeddings_tpu_torch.models.pinsage import (
         cast_params,
         conv_from_table,
@@ -1539,39 +1558,108 @@ def bf16_step_shapes(torch, trainer, st):
     from gcn_song_embeddings_tpu_torch.ops.ppr import block_generator
 
     mcfg = trainer.cfg.model
-    pc = cast_params(trainer.params, torch.bfloat16)
+    pc = cast_params(trainer.params, dtype)
     layer, table, ids, wts, _ = step_conv_inputs(
         torch, trainer, trainer.sample(block_generator(4242, 0,
                                                        trainer.device)))[0]
-    k3 = [(table.bfloat16(), ids, wts, pc.layers[0].Wq.detach(),
+    k3 = [(table.to(dtype), ids, wts, pc.layers[0].Wq.detach(),
            pc.layers[0].bq.detach().float())]
     nb_idx = st.nbn_d[:, :mcfg.T].to(torch.int32).contiguous()
-    nb_wt = st.nbw_d[:, :mcfg.T].bfloat16().contiguous()
-    feats = st.feats.bfloat16()
+    nb_wt = st.nbw_d[:, :mcfg.T].to(dtype).contiguous()
+    feats = st.feats.to(dtype)
     with torch.inference_mode():
         h1 = conv_from_table(pc.layers[0], feats, feats, nb_idx,
-                             nb_wt).bfloat16()
+                             nb_wt).to(dtype)
     k2 = [(table, nb_idx, nb_wt, pc.layers[l].Wq.detach(),
            pc.layers[l].bq.detach().float())
           for l, table in enumerate((feats, h1))]
     return k3, k2
 
 
-def measure_bf16_aggregation(torch, agg, mode, shapes) -> dict:
-    """Hold the bf16 form of the aggregation of ``mode`` against its plain
+def k2_parts16(torch, agg, h, ids, wts, Wq, bq, got) -> dict:
+    """K2's 16-bit kernels one by one, each held against its plain version
+    and timed beside it: the Wq tiling (bit for bit), the projection and
+    the gather-mean (max |diff|), with the gather's L2 read rate, beside
+    the same gather-mean over the same projection with ids that walk the
+    table in order (node b reads rows T b .. T b + T - 1), and beside
+    ``agg.l2_read_probe`` streaming one 25.6 MB slab of P through L2 as
+    many times as the gather reads slab rows: the rate at which this
+    card's L2 serves a plain streaming read of that many bytes."""
+    tile, project = agg.tile_wq16, agg.project_table16
+    hdim = Wq.shape[0]
+    tiles = tile(Wq)
+    if not torch.equal(tiles.view(torch.int16),
+                       agg.tile_wq_plain(Wq).view(torch.int16)):
+        raise AssertionError("the 16-bit Wq tiling differs from "
+                             "tile_wq_plain")
+    proj = project(h, tiles, bq)
+    rows = agg.slabs_to_rows(proj, hdim)
+    proj_err = float((rows - agg.project_table_plain(h, Wq, bq))
+                     .abs().max())
+    out = torch.empty_like(got)
+    mean = agg.gather_mean(proj, ids, wts, out)
+    mean_err = float((mean - agg.gather_mean_plain(rows, ids, wts))
+                     .abs().max())
+    if not (proj_err <= K2_ATOL and mean_err <= K2_ATOL
+            and torch.equal(mean, got)):
+        raise AssertionError(f"K2 16-bit parts: projection {proj_err}, "
+                             f"gather-mean {mean_err}")
+    b, t = ids.shape
+    seq = (torch.arange(b * t, device=ids.device, dtype=torch.int32)
+           % h.shape[0]).reshape(b, t)
+    # the L2 probe: one slab of P (25.6 MB at the 100k catalog), read as
+    # many times as the gather reads slab rows
+    bytes_read = 4.0 * b * t * proj.shape[0] * 64
+    slab = proj[0]
+    passes = max(1, round(bytes_read / (4.0 * slab.numel())))
+    return {
+        "tile": {"max_abs_err": 0.0,
+                 "ms": cuda_ms(torch, lambda: tile(Wq), reps=10),
+                 "plain_ms": cuda_ms(torch, lambda: agg.tile_wq_plain(Wq),
+                                     reps=3)},
+        "project": {"max_abs_err": proj_err,
+                    "ms": cuda_ms(torch, lambda: project(h, tiles, bq),
+                                  reps=5),
+                    "plain_ms": cuda_ms(torch, lambda: agg.
+                                        project_table_plain(h, Wq, bq),
+                                        reps=3)},
+        "gather_mean": {"max_abs_err": mean_err,
+                        "ms": cuda_ms(torch, lambda: agg.gather_mean(
+                            proj, ids, wts, out), reps=5),
+                        "plain_ms": cuda_ms(torch, lambda: agg.
+                                            gather_mean_plain(rows, ids,
+                                                              wts), reps=3),
+                        "table_order_ms": cuda_ms(
+                            torch, lambda: agg.gather_mean(proj, seq, wts,
+                                                           out), reps=5),
+                        "bytes_read": bytes_read,
+                        "l2_probe_ms": cuda_ms(
+                            torch, lambda: agg.l2_read_probe(slab, passes),
+                            reps=5),
+                        "l2_probe_bytes": 4.0 * slab.numel() * passes},
+    }
+
+
+def measure_aggregation16(torch, agg, mode, shapes) -> dict:
+    """Hold a 16-bit form of the aggregation of ``mode`` against its plain
     version at each (table, ids, weights, Wq, bq) of ``shapes`` (max
-    |diff| within K2_ATOL; bf16 products are exact in f32, so only the
-    order of the f32 sums differs) and time it: kernel (``ms`` back to
-    back on the device, ``host_ms`` as the host issues it), plain version
-    and the library yardstick (one ``torch.einsum`` of the gathered bf16
-    rows with bf16 Wq), summed over the shapes, with the work each needs
-    on this data (bf16 rows and Wq of 2 bytes) and the worst error of
-    kernel and plain version against float64 on the same bf16 inputs."""
+    |diff| within K2_ATOL; 16-bit products are exact in f32, so only the
+    order of the f32 sums differs; the error against float64 on the same
+    16-bit inputs within 4x the plain version's) and time it: kernel
+    (``ms`` back to back on the device, ``host_ms`` as the host issues
+    it), plain version and the library yardstick (one ``torch.einsum`` of
+    the gathered 16-bit rows with the 16-bit Wq), summed over the shapes,
+    with the work each needs on this data (16-bit rows and Wq of 2
+    bytes).  Mode "stream" also holds K2's 16-bit kernels to their plain
+    versions one by one and times them (``parts``, with the gather's L2
+    read rates)."""
     out = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "flops": 0.0, "products": 0.0, "bytes": 0.0, "err": 0.0,
            "err64": 0.0, "plain_err64": 0.0}
-    kernel = agg.MODES[mode] + " bf16"
+    if mode == "stream":
+        out["parts"] = {}
     for h, ids, wts, Wq, bq in shapes:
+        kernel = f"{agg.MODES[mode]} {agg._form(h.dtype)}"
         n, din = h.shape
         hdim = Wq.shape[0]
         with torch.inference_mode():
@@ -1588,9 +1676,21 @@ def measure_bf16_aggregation(torch, agg, mode, shapes) -> dict:
                                                bq, got, want)
             log(f"{kernel} max |error| against float64: kernel "
                 f"{err64:.3g}, plain version {plain_err64:.3g}")
+            if not err64 <= 4 * plain_err64:
+                raise AssertionError(f"{kernel} errs {err64} against "
+                                     f"float64, > 4x the plain version's "
+                                     f"{plain_err64}")
             out["err"] = max(out["err"], err)
             out["err64"] = max(out["err64"], err64)
             out["plain_err64"] = max(out["plain_err64"], plain_err64)
+            if mode == "stream":
+                for name, part in k2_parts16(torch, agg, h, ids, wts, Wq,
+                                             bq, got).items():
+                    acc = out["parts"].setdefault(name, {})
+                    for key, value in part.items():
+                        acc[key] = (max(acc.get(key, 0.0), value)
+                                    if key == "max_abs_err"
+                                    else acc.get(key, 0.0) + value)
             del got, want
             out["ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
                 h, ids, wts, Wq, bq, mode=mode), reps=5)
@@ -1606,13 +1706,21 @@ def measure_bf16_aggregation(torch, agg, mode, shapes) -> dict:
         out["flops"] += flops
         out["products"] += 2.0 * distinct * din * hdim
         out["bytes"] += nbytes
+    if mode == "stream":
+        g = out["parts"]["gather_mean"]
+        g["read_TBps"] = g["bytes_read"] / (g["ms"] * 1e9)
+        g["table_order_read_TBps"] = g["bytes_read"] / (g["table_order_ms"]
+                                                        * 1e9)
+        g["l2_probe_read_TBps"] = g["l2_probe_bytes"] / (g["l2_probe_ms"]
+                                                         * 1e9)
     return out
 
 
-def bf16_kernel_row(name, source, replaces, launches_by_path, bwd_launches,
-                    m, shape) -> dict:
-    """One bf16 entry of the ``kernels`` line: its products bound on the
-    bf16 tensor cores (one pass each)."""
+def kernel_row16(name, source, replaces, launches_by_path, bwd_launches,
+                 m, shape) -> dict:
+    """One 16-bit entry of the ``kernels`` line: its products bound on the
+    16-bit tensor cores (one pass each, 989 TFLOP/s for bf16 and f16
+    alike)."""
     bound_ms, bound_by = bound(m["flops"], m["bytes"], m["products"],
                                H100_BF16_FLOPS, passes=1)
     return {
@@ -1626,8 +1734,9 @@ def bf16_kernel_row(name, source, replaces, launches_by_path, bwd_launches,
         "plain_max_abs_err_vs_float64": m["plain_err64"],
         "backward": {"route": "plain PyTorch (agg.ConvAggregate.backward, "
                               "pre recomputed in f32)",
-                     "launches_on_bf16_paths": bwd_launches},
+                     "launches_on_16bit_paths": bwd_launches},
         "shape": shape,
+        **({"parts": m["parts"]} if "parts" in m else {}),
     }
 
 
@@ -2450,26 +2559,26 @@ def reset_kernel_counts() -> None:
     for mod in kernel_modules().values():
         mod.launches = 0
     agg.launches_bf16 = dma_agg.launches_bf16 = 0
+    agg.launches_f16 = dma_agg.launches_f16 = 0
     for counts in (agg.backward_launches, agg.kernel_launches,
-                   agg.kernel_launches_bf16):
+                   agg.kernel_launches_bf16, agg.kernel_launches_f16):
         for key in counts:
             counts[key] = 0
 
 
 def kernel_counts() -> dict:
-    from gcn_song_embeddings_tpu_torch.ops import agg
-
-    from gcn_song_embeddings_tpu_torch.ops import dma_agg
+    from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
 
     counts = {name: mod.launches for name, mod in kernel_modules().items()}
-    counts["agg_bf16"] = agg.launches_bf16
-    counts["dma_agg_bf16"] = dma_agg.launches_bf16
+    for form in ("bf16", "f16"):
+        counts[f"agg_{form}"] = getattr(agg, f"launches_{form}")
+        counts[f"dma_agg_{form}"] = getattr(dma_agg, f"launches_{form}")
+        counts.update({f"agg_{form}_{name}": n for name, n in getattr(
+            agg, f"kernel_launches_{form}").items()})
     counts.update({f"agg_backward_{mode}": n
                    for mode, n in agg.backward_launches.items()})
     counts.update({f"agg_{name}": n
                    for name, n in agg.kernel_launches.items()})
-    counts.update({f"agg_bf16_{name}": n
-                   for name, n in agg.kernel_launches_bf16.items()})
     return counts
 
 
@@ -3385,41 +3494,50 @@ def main() -> int:
     st.walls["train_step_ms"], step_profile = time_train_steps(torch,
                                                                 trainer)
 
-    # ---- bf16 training: cli train in bf16, then 3 full-graph steps ------
+    # ---- 16-bit training: cli train in bf16, then in f16, each with 3 ----
+    # ---- frontier steps card vs CPU and 3 full-graph steps --------------
     phases_t = time.perf_counter()
-    reset_counts()
-    bf = run_bf16_train_path(dev, st, work)
-    bf16_launches = read_counts(("dma_agg_bf16", "agg_backward_dma_bf16",
-                                 "agg_bf16_tile"))
-    log(f"launches on the bf16 training path: {bf16_launches}")
-    bf16_checks = check_bf16_run(torch, st, bf)
-    trainer16 = PinSageTrainer(
-        DeviceGraph.from_graph(graph, dev), graph.n_items, graph.features,
-        st.train_pos, cfg=bf.cfg, base_run_dir=os.path.dirname(bf.run_dir),
-        nbhds_path=graph.nbhds_path, log=False, load_save=True,
-        verbose=False)
-    if trainer16.tables.step_features.dtype != torch.bfloat16:
-        raise AssertionError("the bf16 trainer's step table is not bf16")
-    reset_counts()
-    bf16_checks["three_steps"] = bf16_three_step_checks(torch, trainer16)
-    bf16_full_launches = read_counts(("agg_bf16", "agg_bf16_project",
-                                      "agg_backward_stream_bf16",
-                                      "dma_agg_bf16"))
-    log(f"launches on the bf16 three-step checks (frontier card and CPU, "
-        f"full graph card): {bf16_full_launches}")
     step_ms = {"f32_frontier": st.walls["train_step_ms"]}
     step_ms["f32_fullgraph"], fg_profile = time_train_steps(
         torch, trainer, fullgraph=True)
-    step_ms["bf16_frontier"], bf_profile = time_train_steps(torch,
-                                                             trainer16)
-    step_ms["bf16_fullgraph"], bf_fg_profile = time_train_steps(
-        torch, trainer16, fullgraph=True)
     step_profile = {"f32_frontier": step_profile,
-                    "f32_fullgraph": fg_profile,
-                    "bf16_frontier": bf_profile,
-                    "bf16_fullgraph": bf_fg_profile}
+                    "f32_fullgraph": fg_profile}
+    runs16, checks16, trainers16 = {}, {}, {}
+    launches16, full_launches16 = {}, {}
+    for dtype in ("bfloat16", "float16"):
+        form = short16(dtype)
+        reset_counts()
+        run16 = run_train_path16(dev, st, work, dtype)
+        launches16[form] = read_counts((f"dma_agg_{form}",
+                                        f"agg_backward_dma_{form}",
+                                        f"agg_{form}_tile"))
+        log(f"launches on the {form} training path: {launches16[form]}")
+        checks16[form] = check_run16(torch, st, run16)
+        trainer16 = PinSageTrainer(
+            DeviceGraph.from_graph(graph, dev), graph.n_items,
+            graph.features, st.train_pos, cfg=run16.cfg,
+            base_run_dir=os.path.dirname(run16.run_dir),
+            nbhds_path=graph.nbhds_path, log=False, load_save=True,
+            verbose=False)
+        if trainer16.tables.step_features.dtype != getattr(torch, dtype):
+            raise AssertionError(f"the {form} trainer's step table is not "
+                                 f"{form}")
+        reset_counts()
+        checks16[form]["three_steps"] = three_step_checks16(torch,
+                                                            trainer16)
+        full_launches16[form] = read_counts((
+            f"agg_{form}", f"agg_{form}_project",
+            f"agg_backward_stream_{form}", f"dma_agg_{form}"))
+        log(f"launches on the {form} three-step checks (frontier card and "
+            f"CPU, full graph card): {full_launches16[form]}")
+        step_ms[f"{form}_frontier"], step_profile[f"{form}_frontier"] = (
+            time_train_steps(torch, trainer16))
+        step_ms[f"{form}_fullgraph"], step_profile[f"{form}_fullgraph"] = (
+            time_train_steps(torch, trainer16, fullgraph=True))
+        st.walls.update(run16.walls)
+        runs16[form], trainers16[form] = run16, trainer16
+    bf = runs16["bf16"]
     st.walls["train_step_ms_by_form"] = step_ms
-    st.walls.update(bf.walls)
     log(json.dumps({"train_step_ms": step_ms}))
 
     # ---- the tail: crawl (K1), profiling, recommendation lists ----------
@@ -3428,7 +3546,7 @@ def main() -> int:
     tail_launches = read_counts(("walk",))
     log(f"launches on the tail path: {tail_launches}")
     st.walls["tail"] = tail["walls"]
-    st.walls["bf16_and_tail_phases_s"] = time.perf_counter() - phases_t
+    st.walls["16bit_and_tail_phases_s"] = time.perf_counter() - phases_t
 
     # ---- the eval path, on the trained embeddings -----------------------
     reset_counts()
@@ -3468,7 +3586,8 @@ def main() -> int:
 
     log(json.dumps({"phase_walls": st.walls}))
     log(json.dumps({"prepare_checks": prepare_checks}))
-    log(json.dumps({"bf16_checks": bf16_checks}))
+    log(json.dumps({"bf16_checks": checks16["bf16"]}))
+    log(json.dumps({"f16_checks": checks16["f16"]}))
     log(json.dumps({"tail_checks": tail["checks"]}))
     log(json.dumps({"train_step_profile": step_profile}))
     log(json.dumps({"int8_checks": int8_checks}))
@@ -3612,33 +3731,39 @@ def main() -> int:
                               it["stochastic"],
                               {"int8": int8_launches["quant"]}))
 
-    # the bf16 forms: K3's at the deepest conv of a bf16 frontier step,
+    # the 16-bit forms: K3's at the deepest conv of a 16-bit frontier step,
     # K2's at both full-graph layers over the 100k catalog
-    k3_shapes, k2_shapes = bf16_step_shapes(torch, trainer16, st)
-    k3_16 = measure_bf16_aggregation(torch, agg, "dma", k3_shapes)
-    k2_16 = measure_bf16_aggregation(torch, agg, "stream", k2_shapes)
-    results.append(bf16_kernel_row(
-        "K3 bf16 fused gather + Q-MLP + weighted mean "
-        "(agg.conv_aggregate on a bf16 table, mode dma)", dma_agg.SOURCE,
-        dma_agg.REPLACES,
-        {"train_bf16": bf16_launches["dma_agg_bf16"],
-         "train_bf16_three_steps": bf16_full_launches["dma_agg_bf16"]},
-        bf16_launches["agg_backward_dma_bf16"]
-        + bf16_full_launches["agg_backward_dma_bf16"], k3_16,
-        f"the deepest conv of a bf16 frontier step at B=128: "
-        f"{k3_shapes[0][1].shape[0]} nodes x T={mcfg.T}, Din=512, "
-        f"H={mcfg.hidden_dim}; bf16 rows and Wq, f32 weights"))
-    results.append(bf16_kernel_row(
-        "K2 bf16 Q-MLP of every table row, then gather + weighted mean "
-        "(agg.conv_aggregate on a bf16 table, mode stream)", agg.SOURCE,
-        agg.REPLACES,
-        {"train_bf16_fullgraph": bf16_full_launches["agg_bf16"]},
-        bf16_full_launches["agg_backward_stream_bf16"], k2_16,
-        f"both full-graph layers, N={graph.n_items} T={mcfg.T}: Din=512 "
-        f"and Din=128 (the first layer's output stored in bf16), "
-        f"H={mcfg.hidden_dim}; bf16 rows, Wq and weights (the bf16 "
-        f"denominator)"))
-    results[-1]["header"] = agg.HEADER
+    for form, dtype in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        k3_shapes, k2_shapes = step_shapes16(torch, trainers16[form], st,
+                                             dtype)
+        k3_16 = measure_aggregation16(torch, agg, "dma", k3_shapes)
+        k2_16 = measure_aggregation16(torch, agg, "stream", k2_shapes)
+        results.append(kernel_row16(
+            f"K3 {form} fused gather + Q-MLP + weighted mean "
+            f"(agg.conv_aggregate on a {form} table, mode dma)",
+            dma_agg.SOURCE, dma_agg.REPLACES,
+            {f"train_{form}": launches16[form][f"dma_agg_{form}"],
+             f"train_{form}_three_steps":
+                 full_launches16[form][f"dma_agg_{form}"]},
+            launches16[form][f"agg_backward_dma_{form}"]
+            + full_launches16[form][f"agg_backward_dma_{form}"], k3_16,
+            f"the deepest conv of a {form} frontier step at B=128: "
+            f"{k3_shapes[0][1].shape[0]} nodes x T={mcfg.T}, Din=512, "
+            f"H={mcfg.hidden_dim}; {form} rows and Wq, f32 weights"))
+        results[-1]["header"] = agg.HEADER
+        results.append(kernel_row16(
+            f"K2 {form} Q-MLP of every table row, then gather + weighted "
+            f"mean (agg.conv_aggregate on a {form} table, mode stream)",
+            agg.SOURCE, agg.REPLACES,
+            {f"train_{form}_fullgraph":
+                 full_launches16[form][f"agg_{form}"]},
+            full_launches16[form][f"agg_backward_stream_{form}"], k2_16,
+            f"both full-graph layers, N={graph.n_items} T={mcfg.T}: "
+            f"Din=512 and Din=128 (the first layer's output stored in "
+            f"{form}), H={mcfg.hidden_dim}; {form} rows, Wq and weights "
+            f"(the {form}-rounded denominator)"))
+        results[-1]["header"] = agg.HEADER
+        results[-1]["ms_over_f32_k2_ms"] = k2_16["ms"] / k2["ms"]
     shutil.rmtree(work, ignore_errors=True)
     log(card_line())
     log(json.dumps({"kernels": results}))

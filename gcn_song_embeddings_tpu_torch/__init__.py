@@ -14,8 +14,9 @@ function:
 * ``ops.agg.conv_aggregate`` -- the neighbor gather + Q-MLP +
   importance-weighted mean (K2: every table row projected once, then
   gathered; with ``mode="dma"`` K3, fused over the gathered rows; both
-  on the 3xTF32 tensor-core core ``csrc/agg_tc.cuh``, with bf16
-  forms for the bf16 tables of ``train.dtype="bfloat16"``);
+  on the 3xTF32 tensor-core core ``csrc/agg_tc.cuh``, with bf16 and
+  f16 forms on its 16-bit core for the tables of
+  ``train.dtype="bfloat16"`` and ``"float16"``);
 * ``ops.quant_kernel.quantize_rows_stochastic`` -- the stochastic int8
   row quantizer (K4).
 

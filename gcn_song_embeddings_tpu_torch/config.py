@@ -71,7 +71,8 @@ class TrainConfig:
     exact_batch_sampling: bool = False
     seed: int = 0
     checkpoint_every_batches: int = 2500
-    dtype: str = "float32"       # "float32", or "bfloat16": mixed precision
+    dtype: str = "float32"       # "float32"; "bfloat16" / "float16": mixed
+    # precision; "float64" trains as float32 (the JAX package without x64)
     fullgraph_forward: str = "auto"  # "auto" | "on" | "off"
 
 

@@ -30,16 +30,29 @@
 // K2 projects all N table rows whatever B is (where B*T < N some of that
 // work is not needed).  No fallback: each launch is checked.
 //
-// The bf16 form (train.dtype="bfloat16": the full-graph train step
-// aggregates a bf16 table in both layers) takes the table and Wq in bf16
-// and projects with the bf16 core of agg_tc.cuh (`wq_tile_bf16_kernel`
-// then `project_kernel<uint16_t>`), one pass per product, exact in f32;
-// P stays f32.  Its bound at the 100k catalog: 2*U*Din*H = 52 GFLOP at
-// 989 TFLOP/s of bf16 = 0.053 ms of products against 102 MB of bf16 rows
-// and 205 MB of f32 P (0.09 ms at 3.35 TB/s), so bytes bound it.  The
-// gather is the f32 one; with `bf16_den` the weight sum is rounded to
-// bf16 before the divide, as the JAX package's sum of a bf16 weight
-// array is.
+// The 16-bit forms (train.dtype "bfloat16" or "float16": the
+// full-graph train step aggregates a 16-bit table in both layers) take
+// the table and Wq in bf16 or f16 (`wq_tile16_kernel` lays Wq out, no
+// split) and project with the 16-bit core of agg_tc.cuh
+// (`project16_kernel`: the warp-specialized core, a producer warpgroup
+// and two consumer warpgroups on alternate 64-row x 256-column tiles, a
+// persistent grid of block pairs), one pass per product, exact in f32; P
+// stays f32, as the JAX package's q is (a 16-bit P would move each
+// value by up to 2^-9 relative).  Their bound at the 100k catalog, both
+// layers (Din 512 and 128, H 512): 65 GFLOP at 989 TFLOP/s = 0.066 ms of
+// products against the function's 554 MB (16-bit rows, ids and weights
+// read once, the f32 output written once) = 0.165 ms at 3.35 TB/s, so
+// bytes bound it.  This design adds P: 410 MB written and 4.1 GB
+// gathered back (2.05 GB a layer, served by L2).  The projection's own
+// bytes (rows read, P written, 538 MB) bound it at 0.16 ms; writing P
+// from the accumulator fragment (32-byte pieces of 8 rows a store)
+// cost more than its products, so each 64-column slab of a tile is
+// staged in shared memory and written with coalesced 16-byte stores.
+// The gather is the f32 one; `den_round` rounds the weight sum to bf16
+// (1) or f16 (2) before the divide, as the JAX package's sum of a
+// 16-bit weight array is (an f32 sum cast back).
+
+#include <cuda_fp16.h>
 
 #include "agg_tc.cuh"
 
@@ -47,24 +60,18 @@ using namespace agg_tc;
 
 constexpr int SLAB = 64;                      // P columns per slab
 constexpr int PROJECT_SMEM = SMEM_ALIGN_SLACK + RING_BYTES + BM * 4;
-constexpr int PROJECT_SMEM16 = SMEM_ALIGN_SLACK + RING_BYTES16 + BM * 4;
 constexpr int GATHER_NODES = 16;              // nodes per gather block
 
-// E = float: the 3xTF32 core, Wq as its big and small parts; E = uint16_t
-// (bf16 bits): the bf16 core, Wq tiled in big_t, small_t unused
-template <typename E>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-project_kernel(const E* __restrict__ h,          // [N, Din]
-               const E* __restrict__ big_t,      // Wq big, tiled
-               const E* __restrict__ small_t,
+project_kernel(const float* __restrict__ h,      // [N, Din]
+               const float* __restrict__ big_t,  // Wq big, tiled
+               const float* __restrict__ small_t,
                const float* __restrict__ bq,     // [H]
                float* __restrict__ P,            // [S][N][64]
                int n_rows, int din, int hdim, int n_slabs, int n_col_tiles) {
-  constexpr bool BF16 = sizeof(E) == 2;
   extern __shared__ unsigned char smem_raw[];
   float* ring = aligned_ring(smem_raw);
-  int* rows_s = reinterpret_cast<int*>(
-      ring + (BF16 ? RING_BYTES16 : RING_BYTES) / 4);
+  int* rows_s = reinterpret_cast<int*>(ring + RING_BYTES / 4);
 
   const int tid = threadIdx.x;
   const int col_tile = blockIdx.x % n_col_tiles;
@@ -74,10 +81,7 @@ project_kernel(const E* __restrict__ h,          // [N, Din]
   __syncthreads();
 
   float acc[64];
-  if constexpr (BF16)
-    tile_product_bf16(acc, ring, rows_s, h, din, big_t, col_tile);
-  else
-    tile_product(acc, ring, rows_s, h, din, big_t, small_t, col_tile);
+  tile_product(acc, ring, rows_s, h, din, big_t, small_t, col_tile);
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -98,20 +102,107 @@ project_kernel(const E* __restrict__ h,          // [N, Din]
   }
 }
 
+// ---- the 16-bit projection ------------------------------------------------
+
+// Row r of tile `tile`: table row m0 + r of the dense table, -1 past it
+struct TableRows {
+  int n_rows, n_col_tiles;
+  __device__ __forceinline__ int operator()(int tile, int r) const {
+    const int row = (tile / n_col_tiles) * BM16 + r;
+    return row < n_rows ? row : -1;
+  }
+};
+
+// P = leaky_relu(acc + bq), column-slab-major: each 64-column slab of a
+// warpgroup's tile is one contiguous run of P, staged in its shared
+// memory (rows EPI_LD16 floats apart) and stored with coalesced 16-byte
+// stores; the tile's bq is prefetched while it multiplies
+struct SlabEpilogue {
+  const float* bq;
+  float* P;
+  unsigned char* smem;
+  int n_rows, hdim, n_slabs, n_col_tiles;
+  __device__ __forceinline__ void prefetch(int tile, int wg) const {
+    prefetch_bq16(reinterpret_cast<float*>(smem + WG_OFF16 +
+                                           wg * WG_BYTES16 + BQ16),
+                  bq, (tile % n_col_tiles) * BN16, hdim);
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void operator()(int tile, float* acc,
+                                             int wg) const {
+    const int t = threadIdx.x % 128;
+    unsigned char* mine = smem + WG_OFF16 + wg * WG_BYTES16;
+    float* stage = reinterpret_cast<float*>(mine + EPI16);
+    const float* bq_s = reinterpret_cast<const float*>(mine + BQ16);
+    const int m0 = (tile / n_col_tiles) * BM16;
+    const int n0 = (tile % n_col_tiles) * BN16;
+    const int rows = min(BM16, n_rows - m0);
+    cp_async_wait<0>();
+    consumer_sync(wg);
+#pragma unroll
+    for (int q = 0; q < BN16 / SLAB; ++q) {
+      const int slab = n0 / SLAB + q;
+      if (slab >= n_slabs) break;                    // the same for all
+#pragma unroll
+      for (int ii = 0; ii < SLAB / 8; ++ii) {
+        const int i = q * (SLAB / 8) + ii;
+        const int cl = 8 * ii + 2 * (t % 4);       // column in the slab
+        const float2 b = *reinterpret_cast<const float2*>(
+            bq_s + frag_col(t, i));
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float q0 = acc[4 * i + 2 * half] + b.x;
+          float q1 = acc[4 * i + 2 * half + 1] + b.y;
+          q0 = (q0 >= 0.f) ? q0 : 0.01f * q0;
+          q1 = (q1 >= 0.f) ? q1 : 0.01f * q1;
+          *reinterpret_cast<float2*>(stage + frag_row(t, half) * EPI_LD16 +
+                                     cl) = make_float2(q0, q1);
+        }
+      }
+      consumer_sync(wg);
+      float* dst = P + ((size_t)slab * n_rows + m0) * SLAB;
+      for (int f = t; f < rows * (SLAB / 4); f += 128) {
+        const int r = f / (SLAB / 4), c4 = 4 * (f % (SLAB / 4));
+        *reinterpret_cast<float4*>(dst + r * SLAB + c4) =
+            *reinterpret_cast<const float4*>(stage + r * EPI_LD16 + c4);
+      }
+      consumer_sync(wg);
+    }
+  }
+};
+
+template <bool F16>
+__global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
+project16_kernel(const uint16_t* __restrict__ h,     // [N, Din] bf16 / f16
+                 const uint16_t* __restrict__ wq_t,  // Wq, tiled
+                 const float* __restrict__ bq,       // [H]
+                 float* __restrict__ P,              // [S][N][64]
+                 int n_rows, int din, int hdim, int n_slabs, int n_col_tiles,
+                 int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      aligned_ring(smem_raw));
+  run_tiles16<F16>(smem, h, din, wq_t, (hdim + BN - 1) / BN, n_col_tiles,
+                   n_tiles, TableRows{n_rows, n_col_tiles},
+                   SlabEpilogue{bq, P, smem, n_rows, hdim, n_slabs,
+                                n_col_tiles});
+}
+
 // x rounded to the nearest bf16 (ties to even), as f32 bits; finite x
 __device__ __forceinline__ uint32_t bf16_round_bits(float x) {
   const uint32_t u = __float_as_uint(x);
   return (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
 }
 
-// block = GATHER_NODES nodes x 16 lanes, each lane one float4 of a slab
+// block = GATHER_NODES nodes x 16 lanes, each lane one float4 of a slab;
+// den_round: the weight sum as it is (0), rounded to bf16 (1) or f16 (2)
 __global__ void __launch_bounds__(GATHER_NODES * 16)
 gather_mean_kernel(const float* __restrict__ P,   // [S][N][64]
                    const int* __restrict__ nb,    // [B, T]
                    const float* __restrict__ w,   // [B, T]
                    float* __restrict__ out,       // [B, H]
                    int n_nodes, int T, int n_rows, int hdim, int n_groups,
-                   int bf16_den) {
+                   int den_round) {
   const int slab = blockIdx.x / n_groups;
   const int node = (blockIdx.x % n_groups) * GATHER_NODES + threadIdx.x / 16;
   const int lane = threadIdx.x % 16;
@@ -132,11 +223,35 @@ gather_mean_kernel(const float* __restrict__ P,   // [S][N][64]
     acc.w = fmaf(wt, v.w, acc.w);
     den += wt;
   }
-  if (bf16_den) den = __uint_as_float(bf16_round_bits(den));
+  if (den_round == 1)
+    den = __uint_as_float(bf16_round_bits(den));
+  else if (den_round == 2)
+    den = __half2float(__float2half_rn(den));
   if (den == 0.f) den = 1.f;
   if (c < hdim)
     *reinterpret_cast<float4*>(out + (size_t)node * hdim + c) =
         make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
+}
+
+// Not part of K2: a yardstick for the gather's reads.  `passes` streaming
+// reads of `src` (n4 float4s, small enough that L2 holds them) through
+// L2 only (ld.global.cg), each thread's sum written to `sink` so that no
+// load is dropped; chip_smoke.py times it over as many bytes as the
+// gather reads.
+__global__ void __launch_bounds__(256)
+l2_probe_kernel(const float4* __restrict__ src, int n4, int passes,
+                float* __restrict__ sink) {
+  const int stride = gridDim.x * blockDim.x;
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  float s = 0.f;
+  for (int p = 0; p < passes; ++p) {
+#pragma unroll 4
+    for (int i = i0; i < n4; i += stride) {
+      const float4 v = __ldcg(src + i);
+      s += (v.x + v.y) + (v.z + v.w);
+    }
+  }
+  sink[i0] = s;
 }
 
 extern "C" int agg_split_launch(const void* wq, void* big_t, void* small_t,
@@ -162,23 +277,22 @@ extern "C" int agg_project_launch(const void* h, const void* big_t,
       (uintptr_t)h % 16 != 0 || (uintptr_t)P % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      project_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       PROJECT_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int n_col_tiles = (hdim + BN - 1) / BN;
   const int n_slabs = (hdim + SLAB - 1) / SLAB;
   const long long n_row_tiles = (n_rows + BM - 1) / BM;
   const unsigned blocks = (unsigned)(n_row_tiles * n_col_tiles);
-  project_kernel<float>
-      <<<blocks, THREADS, PROJECT_SMEM, (cudaStream_t)stream>>>(
-          (const float*)h, (const float*)big_t, (const float*)small_t,
-          (const float*)bq, (float*)P, n_rows, din, hdim, n_slabs,
-          n_col_tiles);
+  project_kernel<<<blocks, THREADS, PROJECT_SMEM, (cudaStream_t)stream>>>(
+      (const float*)h, (const float*)big_t, (const float*)small_t,
+      (const float*)bq, (float*)P, n_rows, din, hdim, n_slabs, n_col_tiles);
   return (int)cudaGetLastError();
 }
 
-extern "C" int agg_tile_bf16_launch(const void* wq, void* tiles, int hdim,
-                                    int din, void* stream) {
+// Wq bf16 or f16 (the layout does not depend on which) -> its tiles
+extern "C" int agg_tile16_launch(const void* wq, void* tiles, int hdim,
+                                 int din, void* stream) {
   if (hdim < 1 || din < 1 || din % 8 != 0 || (uintptr_t)wq % 16 != 0 ||
       (uintptr_t)tiles % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -186,39 +300,50 @@ extern "C" int agg_tile_bf16_launch(const void* wq, void* tiles, int hdim,
   const long long n_chunks =
       (long long)((hdim + BN - 1) / BN) * k_tiles * BN * 8;
   const unsigned blocks = (unsigned)((n_chunks + 255) / 256);
-  wq_tile_bf16_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+  wq_tile16_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
       (const uint16_t*)wq, (uint16_t*)tiles, hdim, din, k_tiles, n_chunks);
   return (int)cudaGetLastError();
 }
 
-extern "C" int agg_project_bf16_launch(const void* h, const void* tiles,
-                                       const void* bq, void* P, int n_rows,
-                                       int din, int hdim, void* stream) {
+// f16 != 0: h and the tiles are f16, else bf16
+extern "C" int agg_project16_launch(const void* h, const void* tiles,
+                                    const void* bq, void* P, int n_rows,
+                                    int din, int hdim, int f16,
+                                    void* stream) {
   if (n_rows < 1 || din < 1 || hdim < 1 || din % 8 != 0 ||
       (uintptr_t)h % 16 != 0 || (uintptr_t)tiles % 16 != 0 ||
       (uintptr_t)P % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  const void* kernel = f16 ? (const void*)project16_kernel<true>
+                           : (const void*)project16_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      project_kernel<uint16_t>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      PROJECT_SMEM16);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
   if (err != cudaSuccess) return (int)err;
-  const int n_col_tiles = (hdim + BN - 1) / BN;
+  const int n_col_tiles = (hdim + BN16 - 1) / BN16;
   const int n_slabs = (hdim + SLAB - 1) / SLAB;
-  const long long n_row_tiles = (n_rows + BM - 1) / BM;
-  const unsigned blocks = (unsigned)(n_row_tiles * n_col_tiles);
-  project_kernel<uint16_t>
-      <<<blocks, THREADS, PROJECT_SMEM16, (cudaStream_t)stream>>>(
-          (const uint16_t*)h, (const uint16_t*)tiles, nullptr,
-          (const float*)bq, (float*)P, n_rows, din, hdim, n_slabs,
-          n_col_tiles);
+  const long long n_row_tiles = (n_rows + BM16 - 1) / BM16;
+  const long long n_tiles = n_row_tiles * n_col_tiles;
+  unsigned blocks = 0;
+  err = grid16(kernel,
+               (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * n_col_tiles,
+               &blocks);
+  if (err != cudaSuccess) return (int)err;
+  if (f16)
+    project16_kernel<true><<<blocks, THREADS16, SMEM16, (cudaStream_t)stream>>>(
+        (const uint16_t*)h, (const uint16_t*)tiles, (const float*)bq,
+        (float*)P, n_rows, din, hdim, n_slabs, n_col_tiles, (int)n_tiles);
+  else
+    project16_kernel<false><<<blocks, THREADS16, SMEM16, (cudaStream_t)stream>>>(
+        (const uint16_t*)h, (const uint16_t*)tiles, (const float*)bq,
+        (float*)P, n_rows, din, hdim, n_slabs, n_col_tiles, (int)n_tiles);
   return (int)cudaGetLastError();
 }
 
 extern "C" int agg_gather_launch(const void* P, const void* nb, const void* w,
                                  void* out, int n_nodes, int T, int n_rows,
-                                 int hdim, int bf16_den, void* stream) {
-  if (T < 1 || hdim < 1 || hdim % 4 != 0 || (uintptr_t)P % 16 != 0 ||
-      (uintptr_t)out % 16 != 0)
+                                 int hdim, int den_round, void* stream) {
+  if (T < 1 || hdim < 1 || hdim % 4 != 0 || den_round < 0 || den_round > 2 ||
+      (uintptr_t)P % 16 != 0 || (uintptr_t)out % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (n_nodes < 1) return (int)cudaSuccess;
   const int n_slabs = (hdim + SLAB - 1) / SLAB;
@@ -226,7 +351,17 @@ extern "C" int agg_gather_launch(const void* P, const void* nb, const void* w,
   const unsigned blocks = (unsigned)((long long)n_slabs * n_groups);
   gather_mean_kernel<<<blocks, GATHER_NODES * 16, 0, (cudaStream_t)stream>>>(
       (const float*)P, (const int*)nb, (const float*)w, (float*)out, n_nodes,
-      T, n_rows, hdim, n_groups, bf16_den);
+      T, n_rows, hdim, n_groups, den_round);
+  return (int)cudaGetLastError();
+}
+
+// sink: blocks x 256 floats
+extern "C" int agg_l2_probe_launch(const void* src, int n4, int passes,
+                                   void* sink, int blocks, void* stream) {
+  if (n4 < 1 || passes < 1 || blocks < 1 || (uintptr_t)src % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  l2_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float4*)src, n4, passes, (float*)sink);
   return (int)cudaGetLastError();
 }
 

@@ -28,13 +28,28 @@
 // so the H / 128 column tiles that re-read the same gathered rows find
 // them in L2.  Rows past the batch are zero-filled, not stored.
 //
-// The bf16 form (train.dtype="bfloat16": layer 0 of the frontier train
-// step reads the bf16 feature table) is the same kernel on the bf16 core
-// of agg_tc.cuh: h and Wq in bf16 (Wq tiled by `wq_tile_bf16_kernel`,
-// no split), bq and the weights f32, out f32; one bf16 pass per product,
-// exact in f32.  Its bound at the step's layer 0 (4,224 nodes x T = 10,
-// Din = H = 512): 22.7 GFLOP at 989 TFLOP/s of bf16 = 0.023 ms against
-// 43 MB of bf16 rows (0.013 ms), so the tensor cores bound it.
+// The 16-bit forms (train.dtype "bfloat16" or "float16": layer 0 of
+// the frontier train step reads the 16-bit feature table) take h and Wq
+// in bf16 or f16 (Wq tiled by `wq_tile16_kernel`, no split), bq and the
+// weights f32, out f32; one pass per product, exact in f32.  Their bound
+// at the step's layer 0 (4,224 nodes x T = 10, Din = H = 512): 22.7
+// GFLOP at 989 TFLOP/s = 0.023 ms against 43 MB of 16-bit rows (0.013
+// ms), so the tensor cores bound it.  `dma_agg16_kernel` runs the 16-bit
+// core of agg_tc.cuh (`run_tiles16`): a producer warpgroup gathers each
+// 64-row tile's rows into a 4-stage ring while two consumer warpgroups
+// take alternate tiles (64 rows x 256 columns, m64n256k16 from shared
+// memory), so one tile's epilogue runs under the other warpgroup's
+// products; block pairs share Wq's chunks by multicast.  A tile holds
+// whole nodes, floor(64 / T) of them (60 rows at T = 10).  Its epilogue
+// keeps K3's order: + bq, leaky_relu 0.01, x w, the sum over the node's
+// T rows (through the warpgroup's shared memory, 64 columns a pass),
+// then the guarded divide; the tile's weights and bq are prefetched
+// while it multiplies.  It takes any ids in [0, N), T <= 64 and any B:
+// no branch for the frontier's contiguous ids.  What the H100 shows of
+// the steps: with two consumer warpgroups on one 128-row tile the
+// tensor cores idled through every epilogue and K3-bf16 stayed slower
+// than its gather + einsum yardstick; with the tiles alternating it is
+// below it, at about three times its bound (PERF.md, the kernel table).
 
 #include "agg_tc.cuh"
 
@@ -42,29 +57,23 @@ using namespace agg_tc;
 
 constexpr int QS_LD = BN + 4;
 constexpr int SMEM_BYTES = SMEM_ALIGN_SLACK + RING_BYTES + 3 * BM * 4;
-constexpr int SMEM_BYTES16 = SMEM_ALIGN_SLACK + RING_BYTES16 + 3 * BM * 4;
+constexpr int MAX_T16 = 64;
 
 static_assert(BM * QS_LD * 4 <= RING_BYTES, "epilogue tile must fit the ring");
-static_assert(BM * QS_LD * 4 <= RING_BYTES16, "epilogue tile must fit the ring");
 
-// E = float: the 3xTF32 core, Wq as its big and small parts; E = uint16_t
-// (bf16 bits): the bf16 core, Wq tiled in big_t, small_t unused
-template <typename E>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-dma_agg_kernel(const E* __restrict__ h,          // [N, Din]
+dma_agg_kernel(const float* __restrict__ h,      // [N, Din]
                const int* __restrict__ nb,       // [B, T]
                const float* __restrict__ w,      // [B, T]
-               const E* __restrict__ big_t,      // Wq big, tiled
-               const E* __restrict__ small_t,
+               const float* __restrict__ big_t,  // Wq big, tiled
+               const float* __restrict__ small_t,
                const float* __restrict__ bq,     // [H]
                float* __restrict__ out,          // [B, H]
                int n_nodes, int T, int din, int hdim, int nodes_per_tile,
                int n_col_tiles) {
-  constexpr bool BF16 = sizeof(E) == 2;
   extern __shared__ unsigned char smem_raw[];
   float* ring = aligned_ring(smem_raw);
-  int* rows_s = reinterpret_cast<int*>(
-      ring + (BF16 ? RING_BYTES16 : RING_BYTES) / 4);
+  int* rows_s = reinterpret_cast<int*>(ring + RING_BYTES / 4);
   float* w_s = reinterpret_cast<float*>(rows_s + BM);
   float* denom_s = w_s + BM;
 
@@ -88,10 +97,7 @@ dma_agg_kernel(const E* __restrict__ h,          // [N, Din]
   }
 
   float acc[64];
-  if constexpr (BF16)
-    tile_product_bf16(acc, ring, rows_s, h, din, big_t, col_tile);
-  else
-    tile_product(acc, ring, rows_s, h, din, big_t, small_t, col_tile);
+  tile_product(acc, ring, rows_s, h, din, big_t, small_t, col_tile);
 
   // epilogue 1: weighted activations of every row into Qs (the ring is
   // free: tile_product ended on a barrier after its last product)
@@ -125,6 +131,140 @@ dma_agg_kernel(const E* __restrict__ h,          // [N, Din]
   }
 }
 
+// ---- the 16-bit form ------------------------------------------------------
+
+// Row r of tile `tile`: the r-th gathered id of its node tile, -1 past it
+struct NodeTileRows {
+  const int* nb;
+  int n_nodes, T, nodes_per_tile, n_col_tiles;
+  __device__ __forceinline__ int operator()(int tile, int r) const {
+    const int b0 = (tile / n_col_tiles) * nodes_per_tile;
+    const int tile_rows = min(nodes_per_tile, n_nodes - b0) * T;
+    return r < tile_rows ? nb[(size_t)b0 * T + r] : -1;
+  }
+};
+
+// K3's epilogue on one warpgroup's accumulator fragment, 64 columns a
+// pass through its shared memory: + bq, leaky_relu, x w, the sum over
+// each node's T rows, the guarded divide.  The tile's weights and bq are
+// prefetched while it multiplies.
+struct NodeMeanEpilogue {
+  const float* w;
+  const float* bq;
+  float* out;
+  unsigned char* smem;
+  int n_nodes, T, hdim, nodes_per_tile, n_col_tiles;
+  __device__ __forceinline__ void prefetch(int tile, int wg) const {
+    const int t = threadIdx.x % 128;
+    unsigned char* mine = smem + WG_OFF16 + wg * WG_BYTES16;
+    const int b0 = (tile / n_col_tiles) * nodes_per_tile;
+    const int tile_rows = min(nodes_per_tile, n_nodes - b0) * T;
+    if (t < BM16) {
+      const bool ok = t < tile_rows;
+      cp_async4(mine + W16 + 4 * t, ok ? w + (size_t)b0 * T + t : w,
+                ok ? 4 : 0);
+    }
+    prefetch_bq16(reinterpret_cast<float*>(mine + BQ16), bq,
+                  (tile % n_col_tiles) * BN16, hdim);
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void operator()(int tile, float* acc,
+                                             int wg) const {
+    const int t = threadIdx.x % 128;
+    unsigned char* mine = smem + WG_OFF16 + wg * WG_BYTES16;
+    float* epi = reinterpret_cast<float*>(mine + EPI16);
+    const float* bq_s = reinterpret_cast<const float*>(mine + BQ16);
+    const float* w_s = reinterpret_cast<const float*>(mine + W16);
+    float* den_s = reinterpret_cast<float*>(mine + DEN16);
+    const int b0 = (tile / n_col_tiles) * nodes_per_tile;
+    const int n0 = (tile % n_col_tiles) * BN16;
+    const int tile_nodes = min(nodes_per_tile, n_nodes - b0);
+    cp_async_wait<0>();
+    consumer_sync(wg);
+    if (t < tile_nodes) {
+      float s = 0.f;
+      for (int r = 0; r < T; ++r) s += w_s[t * T + r];
+      den_s[t] = (s == 0.f) ? 1.f : s;
+    }
+    const float wr[2] = {w_s[frag_row(t, 0)], w_s[frag_row(t, 1)]};
+#pragma unroll
+    for (int pass = 0; pass < BN16 / EPI_COLS16; ++pass) {
+      if (n0 + pass * EPI_COLS16 >= hdim) break;    // the same for all
+#pragma unroll
+      for (int ii = 0; ii < EPI_COLS16 / 8; ++ii) {
+        const int i = pass * (EPI_COLS16 / 8) + ii;
+        const int cl = 8 * ii + 2 * (t % 4);       // column in the pass
+        const float2 b = *reinterpret_cast<const float2*>(
+            bq_s + frag_col(t, i));
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float q0 = acc[4 * i + 2 * half] + b.x;
+          float q1 = acc[4 * i + 2 * half + 1] + b.y;
+          q0 = (q0 >= 0.f) ? q0 : 0.01f * q0;
+          q1 = (q1 >= 0.f) ? q1 : 0.01f * q1;
+          *reinterpret_cast<float2*>(epi + frag_row(t, half) * EPI_LD16 +
+                                     cl) =
+              make_float2(wr[half] * q0, wr[half] * q1);
+        }
+      }
+      consumer_sync(wg);
+      // a warp per node, a column pair per lane; two nodes 4 apart at a
+      // time, so their loads are in flight together
+      const int pair = 2 * (t % 32);
+      const int c = n0 + pass * EPI_COLS16 + pair;   // H % 4 == 0: c + 1 too
+      for (int node = t / 32; node < tile_nodes; node += 2 * 4) {
+        const int other = node + 4;
+        const bool two = other < tile_nodes;
+        const float* r0 = epi + node * T * EPI_LD16 + pair;
+        const float* r1 = epi + (two ? other : node) * T * EPI_LD16 + pair;
+        float2 s0 = make_float2(0.f, 0.f), s1 = s0;
+#pragma unroll 4
+        for (int r = 0; r < T; ++r) {
+          const float2 v0 =
+              *reinterpret_cast<const float2*>(r0 + r * EPI_LD16);
+          const float2 v1 =
+              *reinterpret_cast<const float2*>(r1 + r * EPI_LD16);
+          s0.x += v0.x;
+          s0.y += v0.y;
+          s1.x += v1.x;
+          s1.y += v1.y;
+        }
+        if (c < hdim) {
+          const float d0 = den_s[node];
+          *reinterpret_cast<float2*>(out + (size_t)(b0 + node) * hdim + c) =
+              make_float2(s0.x / d0, s0.y / d0);
+          if (two) {
+            const float d1 = den_s[other];
+            *reinterpret_cast<float2*>(out + (size_t)(b0 + other) * hdim +
+                                       c) = make_float2(s1.x / d1, s1.y / d1);
+          }
+        }
+      }
+      consumer_sync(wg);
+    }
+  }
+};
+
+template <bool F16>
+__global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
+dma_agg16_kernel(const uint16_t* __restrict__ h,   // [N, Din] bf16 / f16
+                 const int* __restrict__ nb,       // [B, T]
+                 const float* __restrict__ w,      // [B, T]
+                 const uint16_t* __restrict__ wq_t,  // Wq, tiled
+                 const float* __restrict__ bq,     // [H]
+                 float* __restrict__ out,          // [B, H]
+                 int n_nodes, int T, int din, int hdim, int nodes_per_tile,
+                 int n_col_tiles, int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      aligned_ring(smem_raw));
+  const NodeTileRows rows{nb, n_nodes, T, nodes_per_tile, n_col_tiles};
+  const NodeMeanEpilogue epilogue{w, bq, out, smem, n_nodes, T, hdim,
+                                  nodes_per_tile, n_col_tiles};
+  run_tiles16<F16>(smem, h, din, wq_t, (hdim + BN - 1) / BN, n_col_tiles,
+                   n_tiles, rows, epilogue);
+}
+
 extern "C" int dma_agg_launch(const void* h, const void* nb, const void* w,
                               const void* big_t, const void* small_t,
                               const void* bq, void* out, int n_nodes, int T,
@@ -135,7 +275,7 @@ extern "C" int dma_agg_launch(const void* h, const void* nb, const void* w,
     return (int)cudaErrorInvalidValue;
   if (n_nodes < 1) return (int)cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      dma_agg_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dma_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int nodes_per_tile = BM / T;
@@ -143,36 +283,48 @@ extern "C" int dma_agg_launch(const void* h, const void* nb, const void* w,
   const long long n_node_tiles =
       (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
   const unsigned blocks = (unsigned)(n_node_tiles * n_col_tiles);
-  dma_agg_kernel<float>
-      <<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-          (const float*)h, (const int*)nb, (const float*)w,
-          (const float*)big_t, (const float*)small_t, (const float*)bq,
-          (float*)out, n_nodes, T, din, hdim, nodes_per_tile, n_col_tiles);
+  dma_agg_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const float*)h, (const int*)nb, (const float*)w, (const float*)big_t,
+      (const float*)small_t, (const float*)bq, (float*)out, n_nodes, T, din,
+      hdim, nodes_per_tile, n_col_tiles);
   return (int)cudaGetLastError();
 }
 
-extern "C" int dma_agg_bf16_launch(const void* h, const void* nb,
-                                   const void* w, const void* tiles,
-                                   const void* bq, void* out, int n_nodes,
-                                   int T, int din, int hdim, void* stream) {
-  if (T < 1 || T > BM || din < 1 || hdim < 1 || din % 8 != 0 ||
-      hdim % 4 != 0 || (uintptr_t)h % 16 != 0 || (uintptr_t)tiles % 16 != 0)
+// f16 != 0: h and the tiles are f16, else bf16
+extern "C" int dma_agg_launch16(const void* h, const void* nb, const void* w,
+                                const void* tiles, const void* bq, void* out,
+                                int n_nodes, int T, int din, int hdim,
+                                int f16, void* stream) {
+  if (T < 1 || T > MAX_T16 || din < 1 || hdim < 1 || din % 8 != 0 ||
+      hdim % 4 != 0 || (uintptr_t)h % 16 != 0 || (uintptr_t)tiles % 16 != 0 ||
+      (uintptr_t)out % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (n_nodes < 1) return (int)cudaSuccess;
+  const void* kernel = f16 ? (const void*)dma_agg16_kernel<true>
+                           : (const void*)dma_agg16_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      dma_agg_kernel<uint16_t>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES16);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
   if (err != cudaSuccess) return (int)err;
-  const int nodes_per_tile = BM / T;
-  const int n_col_tiles = (hdim + BN - 1) / BN;
-  const long long n_node_tiles =
+  const int nodes_per_tile = BM16 / T;
+  const int n_col_tiles = (hdim + BN16 - 1) / BN16;
+  const long long n_row_tiles =
       (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
-  const unsigned blocks = (unsigned)(n_node_tiles * n_col_tiles);
-  dma_agg_kernel<uint16_t>
-      <<<blocks, THREADS, SMEM_BYTES16, (cudaStream_t)stream>>>(
-          (const uint16_t*)h, (const int*)nb, (const float*)w,
-          (const uint16_t*)tiles, nullptr, (const float*)bq, (float*)out,
-          n_nodes, T, din, hdim, nodes_per_tile, n_col_tiles);
+  const long long n_tiles = n_row_tiles * n_col_tiles;
+  unsigned blocks = 0;
+  err = grid16(kernel,
+               (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * n_col_tiles,
+               &blocks);
+  if (err != cudaSuccess) return (int)err;
+  if (f16)
+    dma_agg16_kernel<true><<<blocks, THREADS16, SMEM16, (cudaStream_t)stream>>>(
+        (const uint16_t*)h, (const int*)nb, (const float*)w,
+        (const uint16_t*)tiles, (const float*)bq, (float*)out, n_nodes, T,
+        din, hdim, nodes_per_tile, n_col_tiles, (int)n_tiles);
+  else
+    dma_agg16_kernel<false><<<blocks, THREADS16, SMEM16, (cudaStream_t)stream>>>(
+        (const uint16_t*)h, (const int*)nb, (const float*)w,
+        (const uint16_t*)tiles, (const float*)bq, (float*)out, n_nodes, T,
+        din, hdim, nodes_per_tile, n_col_tiles, (int)n_tiles);
   return (int)cudaGetLastError();
 }
 

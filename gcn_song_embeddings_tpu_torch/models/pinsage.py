@@ -19,11 +19,12 @@ and cuts K3's neighbor columns into slices of at most 64.  The dense
 products of the W half and the head stay ``torch.matmul``.  Layer 0
 consumes raw features; every layer outputs ``out_dim``.
 
-Mixed precision (``train.dtype="bfloat16"``) follows the JAX package:
-``cast_params`` gives the step bf16 copies of the f32 master weights,
-the feature table is bf16, and every product accumulates in f32 and
-returns f32 (bf16 operands upcast exactly before a dense product, the
-bf16 forms of K2 and K3 inside the aggregation).  A layer's output is
+Mixed precision (``train.dtype="bfloat16"`` or ``"float16"``) follows
+the JAX package: ``cast_params`` gives the step 16-bit copies of the f32
+master weights, the feature table is 16-bit, and every product
+accumulates in f32 and returns f32 (16-bit operands upcast exactly
+before a dense product, the 16-bit forms of K2 and K3 inside the
+aggregation).  A layer's output is
 f32; ``fullgraph_embeddings`` stores it back in the features' dtype.
 With f32 params and features every function here runs as before.
 """
@@ -40,13 +41,14 @@ from torch import nn
 
 from gcn_song_embeddings_tpu_torch.ops.agg import (
     MAX_T,
+    SIXTEEN,
     _denominator,
     _f32,
     conv_aggregate,
 )
 
 WIDTH_MULTIPLE = 4  # the aggregation kernels' 16-byte loads (f32)
-WIDTH_MULTIPLE_BF16 = 8  # the same loads of bf16 rows
+WIDTH_MULTIPLE_16 = 8  # the same loads of 16-bit (bf16 or f16) rows
 
 
 class ConvParams(nn.Module):
@@ -162,23 +164,24 @@ def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor,
               ) -> torch.Tensor:
     """``conv_aggregate`` at any Din, H and T.
 
-    A bf16 table with a bf16 Wq aggregates in the bf16 form; an f32
-    table takes Wq upcast, as the JAX package promotes the product's
-    operands; bq is upcast either way.  A Din that is not a multiple of 4
-    (8 for a bf16 table) or an H that is not one of 4 is padded with zero
-    columns (of the table and Wq, and zero entries of bq): a zero column
+    A bf16 or f16 table with a Wq of its type aggregates in that 16-bit
+    form; an f32 table takes Wq upcast, as the JAX package promotes the
+    product's operands; bq is upcast either way.  A Din that is not a
+    multiple of 4 (8 for a 16-bit table) or an H that is not one of 4 is
+    padded with zero columns (of the table and Wq, and zero entries of
+    bq): a zero column
     adds exactly 0 to each product and projects to leaky_relu(0) = 0, and
     the padded output columns are cut off, so their gradient is dropped.
     For mode "dma" past K3's T <= 64 the neighbor columns are cut into
     slices of at most 64: each slice's mean times its denominator is its
     weighted sum, and the sums over the row's whole denominator give the
     mean (an all-zero row keeps denominator 1)."""
-    bf16 = table.dtype == Wq.dtype == torch.bfloat16
-    if not bf16:
+    sixteen = table.dtype == Wq.dtype and table.dtype in SIXTEEN
+    if not sixteen:
         table, Wq = _f32(table), _f32(Wq)
     bq = _f32(bq)
     din, hdim = table.shape[1], Wq.shape[0]
-    pad_d = -din % (WIDTH_MULTIPLE_BF16 if bf16 else WIDTH_MULTIPLE)
+    pad_d = -din % (WIDTH_MULTIPLE_16 if sixteen else WIDTH_MULTIPLE)
     pad_h = -hdim % WIDTH_MULTIPLE
     if pad_d or pad_h:
         table = F.pad(table, (0, pad_d))
@@ -204,7 +207,7 @@ def conv_from_table(p: ConvParams, h_self: torch.Tensor,
                     block_rows: int | None = None) -> torch.Tensor:
     """One conv layer whose neighbors are rows ``nb_nodes`` [B, T] of
     ``table``: the aggregation never materializes them on the GPU (K2 for
-    mode "stream", K3 for "dma").  Returns f32 (bf16 operands of the
+    mode "stream", K3 for "dma").  Returns f32 (16-bit operands of the
     dense products upcast: products exact, sums in f32)."""
     agg = aggregate(table, nb_nodes, nb_w, p.Wq, p.bq, mode, block_rows)
     d = h_self.shape[1]
@@ -289,8 +292,9 @@ def fullgraph_embeddings(params: PinSageParams, features: torch.Tensor,
     the previous layer once, then gathers the nodes in blocks of
     ``block_rows`` (the plain version gathers and projects block by
     block, bounding its [block, T, Din] gather).  Each layer's f32 output
-    is stored back in the features' dtype, so under bf16 every layer
-    aggregates a bf16 table (the JAX package's ``store_dtype``)."""
+    is stored back in the features' dtype, so under bf16 or f16 every
+    layer aggregates a 16-bit table (the JAX package's
+    ``store_dtype``)."""
     nb_w = nbhd_weights[:, :T].contiguous()
     nb_n = nbhd_nodes[:, :T].to(torch.int32).contiguous()
     h = features

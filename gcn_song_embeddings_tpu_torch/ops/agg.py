@@ -19,24 +19,26 @@ splits Wq into TF32 big and small parts, then
 - ``"dma"``, K3 (``csrc/dma_agg.cu``, ``ops/dma_agg.py``): one fused
   kernel over the gathered rows, each block owning whole nodes.
 
-K2 takes any T >= 1; K3 takes T <= 64 (a block of 192 gathered rows
-holds whole nodes), and both take Din and H in multiples of 4 (16-byte
+K2 takes any T >= 1; K3 takes T <= 64 (a tile of gathered rows holds
+whole nodes: 192 rows in f32, 64 in the 16-bit forms), and both take Din and H in multiples of 4 (16-byte
 loads): ``models.pinsage.aggregate`` meets those limits for any width and
 T.  With ``block_rows`` K2 projects the table once and gathers the nodes
 in blocks of that many rows.  A CUDA call either launches its kernels or
 raises: there is no fallback, and no CUDA call returns a tensor that
 gradients do not reach.
 
-The bf16 forms (``train.dtype="bfloat16"``) take a bf16 table and a bf16
-Wq (bq stays f32), accumulate in f32 and return f32, as the JAX
-package's products with ``preferred_element_type=f32`` do; the plain
-versions upcast the bf16 operands (exactly) and multiply in f32.  On
-CUDA, ``tile_wq_bf16`` lays Wq out in the tensor cores' tiles without a
-split and one bf16 pass per product runs (K2: ``project_table_bf16``,
-then ``gather_mean``; K3: ``dma_agg.launch_bf16``); Din must then be a
-multiple of 8.  Weights may be bf16 in mode "stream" only (the
-full-graph forward's): their sum is taken in f32 and rounded to bf16
-(``_denominator``), as the JAX package's sum of a bf16 array is.
+The 16-bit forms (``train.dtype="bfloat16"`` or ``"float16"``) take a
+bf16 or f16 table and a Wq of the same type (bq stays f32), accumulate
+in f32 and return f32, as the JAX package's products with
+``preferred_element_type=f32`` do; the plain versions upcast the 16-bit
+operands (exactly) and multiply in f32.  On CUDA, ``tile_wq16`` lays
+Wq out in the tensor cores' tiles without a split and one 16-bit pass
+per product runs on the 16-bit core of ``csrc/agg_tc.cuh`` (K2:
+``project_table16``, then ``gather_mean``; K3: ``dma_agg.launch16``),
+each dispatching on the table's type; Din must then be a
+multiple of 8.  Weights may be 16-bit in mode "stream" only (the
+full-graph forward's): their sum is taken in f32 and rounded to their
+type (``_denominator``), as the JAX package's sum of a 16-bit array is.
 """
 
 from __future__ import annotations
@@ -53,40 +55,54 @@ NAME = "agg"
 SOURCE = "gcn_song_embeddings_tpu_torch/csrc/agg.cu"
 HEADER = "gcn_song_embeddings_tpu_torch/csrc/agg_tc.cuh"
 REPLACES = "gcn_song_embeddings_tpu/ops/pallas_agg.py:52"
-MAX_T = 64  # K3's: a block (192 rows) holds whole nodes, 3 at T = 64
+MAX_T = 64  # K3's: a tile (192 rows; 16-bit: 64) holds whole nodes
 MODES = {"stream": "K2", "dma": "K3"}
 BN, BK, SLAB = 128, 32, 64  # Wq tile rows and floats (agg_tc.cuh); P slab
-BK16 = 64  # bf16 elements of a Wq tile row (agg_tc.cuh's bf16 form)
+BK16 = 64  # 16-bit elements of a Wq tile row (agg_tc.cuh's 16-bit core)
+# the 16-bit table types, each with its form's name and the gather's
+# rounding of the weight sum (agg.cu ``den_round``)
+SIXTEEN = {torch.bfloat16: ("bf16", 1), torch.float16: ("f16", 2)}
 
 launches = 0  # K2 op calls on f32 CUDA tables since the last reset
 launches_bf16 = 0  # K2 op calls on bf16 CUDA tables since the last reset
+launches_f16 = 0  # K2 op calls on f16 CUDA tables since the last reset
 # launches of each K2 kernel (the split also runs for every K3 call; the
-# gather serves both forms)
+# gather serves every form)
 kernel_launches = {"split": 0, "project": 0, "gather_mean": 0}
-# launches of the bf16 form's own kernels (the tiling also runs for every
-# bf16 K3 call)
+# launches of the 16-bit forms' own kernels (the tiling also runs for
+# every 16-bit K3 call)
 kernel_launches_bf16 = {"tile": 0, "project": 0}
+kernel_launches_f16 = {"tile": 0, "project": 0}
 # ConvAggregate.backward calls on CUDA tensors, by forward mode and form
-backward_launches = {"stream": 0, "dma": 0, "stream_bf16": 0, "dma_bf16": 0}
+backward_launches = {"stream": 0, "dma": 0, "stream_bf16": 0, "dma_bf16": 0,
+                     "stream_f16": 0, "dma_f16": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"split": [_P] * 3 + [_I] * 2 + [_P],
              "project": [_P] * 5 + [_I] * 3 + [_P],
              "gather": [_P] * 4 + [_I] * 5 + [_P],
-             "tile_bf16": [_P] * 2 + [_I] * 2 + [_P],
-             "project_bf16": [_P] * 4 + [_I] * 3 + [_P]}
+             "tile16": [_P] * 2 + [_I] * 2 + [_P],
+             "project16": [_P] * 4 + [_I] * 4 + [_P],
+             "l2_probe": [_P] + [_I] * 2 + [_P, _I, _P]}
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
-    """A bf16 tensor upcast to f32 (exactly); any other as it is."""
-    return x.float() if x.dtype == torch.bfloat16 else x
+    """A 16-bit (bf16 or f16) tensor upcast to f32 (exactly); any other
+    as it is."""
+    return x.float() if x.dtype in SIXTEEN else x
+
+
+def _form(dtype: torch.dtype) -> str:
+    """The kernels' form for a table type: "bf16", "f16", or "" (f32)."""
+    return SIXTEEN[dtype][0] if dtype in SIXTEEN else ""
 
 
 def _denominator(nb_weights: torch.Tensor) -> torch.Tensor:
     """[B, 1]: each node's weight sum, or 1 where that sum is 0.  Of
-    bf16 weights the sum is taken in f32 and rounded to bf16, as the JAX
-    package's ``nb_w.sum(axis=1)`` of a bf16 array (returned in f32)."""
-    if nb_weights.dtype != torch.bfloat16:
+    16-bit weights the sum is taken in f32 and rounded to their type, as
+    the JAX package's ``nb_w.sum(axis=1)`` of a bf16 or f16 array
+    (returned in f32)."""
+    if nb_weights.dtype not in SIXTEEN:
         w_sum = nb_weights.sum(dim=1, keepdim=True)
     else:
         w_sum = nb_weights.sum(dim=1, keepdim=True, dtype=torch.float32).to(
@@ -98,7 +114,7 @@ def conv_aggregate_plain(h: torch.Tensor, nb_nodes: torch.Tensor,
                          nb_weights: torch.Tensor, Wq: torch.Tensor,
                          bq: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: materialized gather, einsum, weighted mean
-    (bf16 operands upcast, products and sums in f32)."""
+    (16-bit operands upcast, products and sums in f32)."""
     nb = h[nb_nodes.reshape(-1).long()].reshape(*nb_nodes.shape, h.shape[1])
     q = F.leaky_relu(torch.einsum("btd,hd->bth", _f32(nb), _f32(Wq))
                      + _f32(bq), 0.01)
@@ -109,14 +125,14 @@ def conv_aggregate_plain(h: torch.Tensor, nb_nodes: torch.Tensor,
 def project_table_plain(h: torch.Tensor, Wq: torch.Tensor,
                         bq: torch.Tensor) -> torch.Tensor:
     """K2's first phase, plain: every table row projected once, [N, H]
-    f32 (bf16 operands upcast)."""
+    f32 (16-bit operands upcast)."""
     return F.leaky_relu(torch.addmm(_f32(bq), _f32(h), _f32(Wq).t()), 0.01)
 
 
 def gather_mean_plain(proj: torch.Tensor, nb_nodes: torch.Tensor,
                       nb_weights: torch.Tensor) -> torch.Tensor:
     """K2's second phase, plain: the weighted mean of rows of ``proj``
-    (bf16 weights: the bf16-rounded denominator)."""
+    (16-bit weights: the denominator rounded to their type)."""
     rows = proj[nb_nodes.reshape(-1).long()].reshape(*nb_nodes.shape, -1)
     return ((_f32(nb_weights)[:, :, None] * rows).sum(dim=1)
             / _denominator(nb_weights))
@@ -250,39 +266,45 @@ def _project_table(h: torch.Tensor, big: torch.Tensor, small: torch.Tensor,
     return proj
 
 
-def _tile_wq_bf16(Wq: torch.Tensor) -> torch.Tensor:
+def _kernel_counts16(dtype: torch.dtype) -> dict:
+    return (kernel_launches_bf16 if dtype == torch.bfloat16
+            else kernel_launches_f16)
+
+
+def _tile_wq16(Wq: torch.Tensor) -> torch.Tensor:
     if Wq.data_ptr() % 16:
         Wq = Wq.clone()                       # 16-byte loads
-    tiles = torch.empty(_tiles_shape(*Wq.shape, BK16), dtype=torch.bfloat16,
+    tiles = torch.empty(_tiles_shape(*Wq.shape, BK16), dtype=Wq.dtype,
                         device=Wq.device)
     with torch.cuda.device(Wq.device):
-        _launch("tile_bf16", Wq.data_ptr(), tiles.data_ptr(), *Wq.shape)
-    kernel_launches_bf16["tile"] += 1
+        _launch("tile16", Wq.data_ptr(), tiles.data_ptr(), *Wq.shape)
+    _kernel_counts16(Wq.dtype)["tile"] += 1
     return tiles
 
 
-def _project_table_bf16(h: torch.Tensor, tiles: torch.Tensor,
-                        bq: torch.Tensor) -> torch.Tensor:
+def _project_table16(h: torch.Tensor, tiles: torch.Tensor,
+                     bq: torch.Tensor) -> torch.Tensor:
     n, din = h.shape
     hdim = bq.shape[0]
     proj = torch.empty((-(-hdim // SLAB), n, SLAB), dtype=torch.float32,
                        device=h.device)
     with torch.cuda.device(h.device):
-        _launch("project_bf16", h.data_ptr(), tiles.data_ptr(),
-                bq.data_ptr(), proj.data_ptr(), n, din, hdim)
-    kernel_launches_bf16["project"] += 1
+        _launch("project16", h.data_ptr(), tiles.data_ptr(), bq.data_ptr(),
+                proj.data_ptr(), n, din, hdim,
+                int(h.dtype == torch.float16))
+    _kernel_counts16(h.dtype)["project"] += 1
     return proj
 
 
 def _gather_mean(proj: torch.Tensor, nb_nodes: torch.Tensor,
                  nb_weights: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     b, t = nb_nodes.shape
-    bf16_den = int(nb_weights.dtype == torch.bfloat16)
-    w = _f32(nb_weights)                      # bf16 weights upcast exactly
+    den_round = SIXTEEN.get(nb_weights.dtype, ("", 0))[1]
+    w = _f32(nb_weights)                      # 16-bit weights upcast exactly
     with torch.cuda.device(out.device):
         _launch("gather", proj.data_ptr(), nb_nodes.data_ptr(),
                 w.data_ptr(), out.data_ptr(), b, t, proj.shape[1],
-                out.shape[1], bf16_den)
+                out.shape[1], den_round)
     kernel_launches["gather_mean"] += 1
     return out
 
@@ -327,11 +349,11 @@ def gather_mean(proj: torch.Tensor, nb_nodes: torch.Tensor,
                 nb_weights: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """K2's gather on CUDA: out [B, H] = the weighted mean of the rows of
     ``project_table``'s slabs [ceil(H/64), N, 64] that nb_nodes [B, T]
-    int32 names (ids in [0, N)); of bf16 weights with the bf16-rounded
-    denominator."""
+    int32 names (ids in [0, N)); of 16-bit weights with the denominator
+    rounded to their type."""
     kernel = "K2's gather-mean"
     _refuse_grad(kernel, proj, nb_weights, out)
-    _check_weights(kernel, nb_weights, bf16_ok=True)
+    _check_weights(kernel, nb_weights, sixteen_ok=True)
     _check_tensors((("proj", proj, torch.float32, 3),
                     ("nb_nodes", nb_nodes, torch.int32, 2),
                     ("nb_weights", nb_weights, nb_weights.dtype, 2),
@@ -349,26 +371,55 @@ def gather_mean(proj: torch.Tensor, nb_nodes: torch.Tensor,
     return _gather_mean(proj, nb_nodes, nb_weights, out)
 
 
-def tile_wq_bf16(Wq: torch.Tensor) -> torch.Tensor:
-    """Wq [H, Din] bf16 on CUDA -> the bf16 kernels' tiles, equal bit for
-    bit to ``tile_wq_plain(Wq)``."""
-    kernel = "the bf16 Wq tiling"
+def l2_read_probe(src: torch.Tensor, passes: int) -> torch.Tensor:
+    """Not a port kernel: read the f32 tensor ``src`` (contiguous, small
+    enough that L2 holds it) ``passes`` times through L2 on CUDA, as a
+    yardstick for the rate at which this card's L2 serves ``gather_mean``'s
+    reads.  Returns each thread's sum of what it read."""
+    _check_tensors((("src", src, torch.float32, src.dim()),))
+    if src.numel() % 4 or src.numel() == 0 or passes < 1:
+        raise ValueError("src must hold a positive multiple of 4 floats "
+                         "and passes be >= 1")
+    _check_aligned(src=src)
+    _check_cuda("the L2 read probe", src.device)
+    blocks = 8 * torch.cuda.get_device_properties(
+        src.device).multi_processor_count
+    sink = torch.empty(blocks * 256, dtype=torch.float32, device=src.device)
+    with torch.cuda.device(src.device):
+        _launch("l2_probe", src.data_ptr(), src.numel() // 4, passes,
+                sink.data_ptr(), blocks)
+    return sink
+
+
+def _sixteen(name: str, t: torch.Tensor) -> torch.dtype:
+    if t.dtype not in SIXTEEN:
+        raise ValueError(f"{name} must be a bf16 or f16 tensor, got "
+                         f"{t.dtype}")
+    return t.dtype
+
+
+def tile_wq16(Wq: torch.Tensor) -> torch.Tensor:
+    """Wq [H, Din] bf16 or f16 on CUDA -> the 16-bit kernels' tiles, of
+    Wq's type, equal bit for bit to ``tile_wq_plain(Wq)``."""
+    dtype = _sixteen("Wq", Wq)
+    kernel = f"the {SIXTEEN[dtype][0]} Wq tiling"
     _refuse_grad(kernel, Wq)
-    _check_tensors((("Wq", Wq, torch.bfloat16, 2),))
+    _check_tensors((("Wq", Wq, dtype, 2),))
     _check_widths(kernel, Wq.shape[0], Wq.shape[1], din_multiple=8)
     _check_cuda(kernel, Wq.device)
-    return _tile_wq_bf16(Wq)
+    return _tile_wq16(Wq)
 
 
-def project_table_bf16(h: torch.Tensor, tiles: torch.Tensor,
-                       bq: torch.Tensor) -> torch.Tensor:
-    """K2's bf16 projection on CUDA: P = leaky_relu(h Wq^T + bq) in f32
-    for every row of h [N, Din] bf16, as [ceil(H/64), N, 64] slabs, from
-    ``tile_wq_bf16``'s tiles of Wq [H, Din] bf16 and bq [H] f32."""
-    kernel = "K2's bf16 projection"
+def project_table16(h: torch.Tensor, tiles: torch.Tensor,
+                    bq: torch.Tensor) -> torch.Tensor:
+    """K2's 16-bit projection on CUDA: P = leaky_relu(h Wq^T + bq) in f32
+    for every row of h [N, Din] bf16 or f16, as [ceil(H/64), N, 64]
+    slabs, from ``tile_wq16``'s tiles of Wq [H, Din] (h's type) and bq
+    [H] f32."""
+    dtype = _sixteen("h", h)
+    kernel = f"K2's {SIXTEEN[dtype][0]} projection"
     _refuse_grad(kernel, h, bq)
-    _check_tensors((("h", h, torch.bfloat16, 2),
-                    ("tiles", tiles, torch.bfloat16, 4),
+    _check_tensors((("h", h, dtype, 2), ("tiles", tiles, dtype, 4),
                     ("bq", bq, torch.float32, 1)))
     (n, din), hdim = h.shape, bq.shape[0]
     if tiles.shape != _tiles_shape(hdim, din, BK16):
@@ -378,12 +429,12 @@ def project_table_bf16(h: torch.Tensor, tiles: torch.Tensor,
         raise ValueError("h has no rows to project")
     _check_aligned(h=h, tiles=tiles)
     _check_cuda(kernel, h.device)
-    return _project_table_bf16(h, tiles, bq)
+    return _project_table16(h, tiles, bq)
 
 
 def _check_weights(kernel: str, nb_weights: torch.Tensor,
-                   bf16_ok: bool) -> None:
-    ok = (torch.float32, torch.bfloat16) if bf16_ok else (torch.float32,)
+                   sixteen_ok: bool) -> None:
+    ok = (torch.float32, *SIXTEEN) if sixteen_ok else (torch.float32,)
     if nb_weights.dtype not in ok:
         raise ValueError(f"{kernel} takes nb_weights in "
                          f"{' or '.join(map(str, ok))}, got "
@@ -395,22 +446,25 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
                         bq: torch.Tensor, mode: str = "stream",
                         block_rows: int | None = None) -> torch.Tensor:
     """Launch K2 (mode "stream") or K3 (mode "dma") on CUDA tensors: h
-    [N, Din] f32 or bf16, nb_nodes [B, T] int32 (ids in [0, N)),
-    nb_weights [B, T] f32 (or bf16 in mode "stream"), Wq [H, Din] of h's
-    type, bq [H] f32 -> [B, H] f32.  A bf16 h runs the bf16 form of the
-    kernel.  K2 projects the table once, then gathers all B nodes, or
-    with ``block_rows`` one block of that many nodes at a time (the
-    projection is freed on return).  Records no graph, so it refuses
-    inputs that need a gradient: ``conv_aggregate`` is the differentiable
-    entry."""
-    global launches, launches_bf16
+    [N, Din] f32, bf16 or f16, nb_nodes [B, T] int32 (ids in [0, N)),
+    nb_weights [B, T] f32 (or 16-bit in mode "stream"), Wq [H, Din] of
+    h's type, bq [H] f32 -> [B, H] f32.  A 16-bit h runs the kernel's
+    form of that type.  K2 projects the table once, then gathers all B
+    nodes, or with ``block_rows`` one block of that many nodes at a time
+    (the projection is freed on return).  Records no graph, so it
+    refuses inputs that need a gradient: ``conv_aggregate`` is the
+    differentiable entry."""
+    global launches, launches_bf16, launches_f16
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
     kernel = MODES[mode]
-    bf16 = h.dtype == torch.bfloat16
-    table_dtype = torch.bfloat16 if bf16 else torch.float32
+    sixteen = h.dtype in SIXTEEN
+    table_dtype = h.dtype if sixteen else torch.float32
     _refuse_grad(kernel, h, nb_weights, Wq, bq)
-    _check_weights(kernel, nb_weights, bf16_ok=mode == "stream")
+    _check_weights(kernel, nb_weights, sixteen_ok=mode == "stream")
+    if sixteen and Wq.dtype != h.dtype:
+        raise ValueError(f"h must be a 2-d tensor of Wq's type: got h "
+                         f"{h.dtype}, Wq {Wq.dtype}")
     _check_tensors((("h", h, table_dtype, 2),
                     ("nb_nodes", nb_nodes, torch.int32, 2),
                     ("nb_weights", nb_weights, nb_weights.dtype, 2),
@@ -423,7 +477,7 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
         raise _mismatch(h=h, nb_nodes=nb_nodes, nb_weights=nb_weights, Wq=Wq,
                         bq=bq)
     _check_widths(kernel, hdim, din, t, MAX_T if mode == "dma" else None,
-                  din_multiple=8 if bf16 else 4)
+                  din_multiple=8 if sixteen else 4)
     _check_aligned(h=h)
     _check_cuda(kernel, h.device)
     out = torch.empty((b, hdim), dtype=torch.float32, device=h.device)
@@ -431,12 +485,12 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
         return out
     if h.shape[0] == 0:
         raise ValueError("h has no rows for nb_nodes to name")
-    if bf16:
-        tiles = _tile_wq_bf16(Wq)
+    if sixteen:
+        tiles = _tile_wq16(Wq)
         if mode == "dma":
-            dma_agg.launch_bf16(h, nb_nodes, nb_weights, tiles, bq, out)
+            dma_agg.launch16(h, nb_nodes, nb_weights, tiles, bq, out)
             return out
-        proj = _project_table_bf16(h, tiles, bq)
+        proj = _project_table16(h, tiles, bq)
     else:
         big, small = _split_wq(Wq)
         if mode == "dma":
@@ -447,8 +501,10 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
     for s in range(0, b, step):
         _gather_mean(proj, nb_nodes[s:s + step], nb_weights[s:s + step],
                      out[s:s + step])
-    if bf16:
+    if h.dtype == torch.bfloat16:
         launches_bf16 += 1
+    elif h.dtype == torch.float16:
+        launches_f16 += 1
     else:
         launches += 1
     return out
@@ -470,10 +526,16 @@ class ConvAggregate(torch.autograd.Function):
     where ids repeat (the full-graph forward) and about as long where
     they do not (the frontier forward, whose table holds B*T + B rows).
     The neighbor weights get no gradient: they are constants of the
-    neighborhood cache.  For a bf16 table and Wq the pre-activation is
-    recomputed from their f32 upcasts (the JAX package's residual is
-    f32: a bf16 ``addmm`` would round it and move the leaky_relu's
-    branch), and dh and dWq are returned in bf16."""
+    neighborhood cache.  For a 16-bit (bf16 or f16) table and Wq the
+    pre-activation is recomputed from their f32 upcasts (the JAX
+    package's residual is f32: a 16-bit ``addmm`` would round it and move
+    the leaky_relu's branch), and dh and dWq are returned in the table's
+    type.  dh sums each table row's gradient in f32 and rounds once,
+    where JAX's scatter-add (and the CPU path's autograd through the
+    plain version) rounds each gathered row's gradient and accumulates
+    in 16 bits: a deliberate divergence, the once-rounded sum being the
+    more accurate (``tests/test_torch_f16_gpu.py`` pins it on the
+    card)."""
 
     @staticmethod
     def forward(ctx, h, nb_nodes, nb_weights, Wq, bq, mode, block_rows=None):
@@ -503,8 +565,8 @@ class ConvAggregate(torch.autograd.Function):
         dwq = (s.t() @ h32).to(Wq.dtype) if need_wq else None
         dbq = s.sum(dim=0) if need_bq else None
         if dagg.device.type == "cuda":
-            form = "_bf16" if h.dtype == torch.bfloat16 else ""
-            backward_launches[ctx.mode + form] += 1
+            form = _form(h.dtype)
+            backward_launches[ctx.mode + (f"_{form}" if form else "")] += 1
         return dh, None, None, dwq, dbq, None, None
 
 

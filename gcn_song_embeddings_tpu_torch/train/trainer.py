@@ -14,13 +14,15 @@ On the GPU the step's frontier forward aggregates with kernel K3 and the
 full-graph forward with K2; both carry gradients through
 ``ops.agg.ConvAggregate``.
 
-``train.dtype="bfloat16"`` trains in mixed precision, as the JAX package
-does: the master weights and Adam's state stay f32, the step reads a
-bf16 copy of the feature table and bf16 casts of the weights (their
-gradients flow back through the cast, rounded to bf16), and every
-product accumulates in f32 (``models.pinsage``; the bf16 forms of K3 and
-K2 on the GPU).  ``embed`` and the checkpoints read the f32 table and
-the f32 master weights whatever the dtype.
+``train.dtype="bfloat16"`` or ``"float16"`` trains in mixed precision,
+as the JAX package does: the master weights and Adam's state stay f32,
+the step reads a 16-bit copy of the feature table and 16-bit casts of
+the weights (their gradients flow back through the cast, rounded to
+16 bits), and every product accumulates in f32 (``models.pinsage``; the
+16-bit forms of K3 and K2 on the GPU).  ``"float64"`` trains in f32
+after one warning, as the JAX package does (``jnp.dtype`` truncates it:
+x64 is never enabled).  ``embed`` and the checkpoints read the f32 table
+and the f32 master weights whatever the dtype.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import dataclasses
 import json
 import os
 import time
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -76,7 +79,10 @@ BASE_RUN_DIR = "./runs"
 # per-batch metrics, in the order of train_step's output
 METRICS = ("Train Loss", "Node Features Loss", "Batch Variance",
            "Learning Rate", "Gradient Norm")
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# train.dtype (by numpy's name for it, "half" as "float16") -> the step's
+# compute type; float64 as the JAX package trains it without x64
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16, "float64": torch.float32}
 
 
 def make_optimizer(params: PinSageParams, tcfg: TrainConfig) -> Adam:
@@ -89,8 +95,8 @@ def make_optimizer(params: PinSageParams, tcfg: TrainConfig) -> Adam:
 class TrainTables(NamedTuple):
     """The step's device tables: features [N, in] f32, top-T neighborhood
     weights and nodes [N, >=T], their packed [N, 2T] form, and the
-    features in the step's dtype (``features`` itself under f32, a bf16
-    copy under bf16; ``embed`` reads ``features``)."""
+    features in the step's dtype (``features`` itself under f32, a 16-bit
+    copy under bf16 or f16; ``embed`` reads ``features``)."""
     features: torch.Tensor
     nbhd_w: torch.Tensor
     nbhd_n: torch.Tensor
@@ -108,14 +114,27 @@ class TrainTables(NamedTuple):
                            f.to(step_dtype(dtype)))
 
 
+def dtype_name(dtype: str) -> str:
+    """``train.dtype`` as the JAX trainer's ``jnp.dtype(tcfg.dtype)``
+    reads it: "bfloat16", or numpy's name of the type ("half" is
+    "float16", "double" "float64"); a name neither knows raises."""
+    if dtype == "bfloat16":
+        return dtype
+    try:
+        return np.dtype(dtype).name
+    except TypeError:
+        raise ValueError(f"train.dtype={dtype!r} names no type") from None
+
+
 def step_dtype(dtype: str) -> torch.dtype:
-    """``train.dtype`` -> the step's compute type.  The port trains in
-    "float32" or "bfloat16", the two types the JAX package's suite
-    trains in; any other name raises."""
-    if dtype not in DTYPES:
+    """``train.dtype`` -> the step's compute type: the float types the
+    JAX trainer trains in, "float64" as f32 (``DTYPES``); any other type
+    raises."""
+    name = dtype_name(dtype)
+    if name not in DTYPES:
         raise ValueError(f"train.dtype={dtype!r}: the port trains in "
-                         f"{' or '.join(DTYPES)}")
-    return DTYPES[dtype]
+                         f"{', '.join(DTYPES)}")
+    return DTYPES[name]
 
 
 def use_fullgraph(tcfg: TrainConfig, mcfg: PinSageConfig,
@@ -199,6 +218,10 @@ class PinSageTrainer:
         self.cfg = cfg
         tcfg, mcfg = cfg.train, cfg.model
         step_dtype(tcfg.dtype)
+        if dtype_name(tcfg.dtype) == "float64":
+            warnings.warn("train.dtype='float64': float64 is not enabled "
+                          "(as in the JAX package without x64); training "
+                          "in float32", stacklevel=2)
         if tcfg.hard_negatives and tcfg.hn_max > cfg.walk.t_precompute:
             raise ValueError(
                 f"train.hn_max={tcfg.hn_max} exceeds walk.t_precompute="

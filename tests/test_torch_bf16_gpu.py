@@ -1,6 +1,8 @@
-"""The bf16 forms of K2 and K3 against their plain versions on the card,
-the bf16 train step on the card against the CPU, and the tail's device
-paths (``profiling.Timer`` with CUDA events, the crawl's K1).
+"""The bf16 forms of K2 and K3 (on the 16-bit core of ``csrc/agg_tc.cuh``,
+which tests/test_torch_f16_gpu.py holds in both 16-bit types) against
+their plain versions on the card, the bf16 train step on the card
+against the CPU, and the tail's device paths (``profiling.Timer`` with
+CUDA events, the crawl's K1).
 
 Marked ``gpu``: they skip (with a reason) where no CUDA device is
 present, deciding inside a fixture.  They import nothing of JAX:
@@ -55,7 +57,7 @@ def _problem(dev, b, t, n, din, hdim, seed=0, zero_row=None,
                                       (16, 64)])
 def test_tile_wq_bf16_kernel_bit_identical(cuda, hdim, din):
     Wq = torch.randn((hdim, din), device=cuda).bfloat16()
-    got = agg.tile_wq_bf16(Wq)
+    got = agg.tile_wq16(Wq)
     want = agg.tile_wq_plain(Wq)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
@@ -84,6 +86,32 @@ def test_bf16_agg_kernels_match_plain(cuda, mode, b, t, n, din, hdim,
         assert torch.equal(got[zero_row], want[zero_row])
 
 
+@pytest.mark.parametrize("mode", ["dma", "stream"])
+@pytest.mark.parametrize("t", [10, 64])
+def test_bf16_core_at_full_width_on_permuted_ids(cuda, mode, t):
+    """The 16-bit core at the step's widths (Din = H = 512) on distinct,
+    permuted ids (no contiguous run to gather) and a partial last node
+    tile: within 1e-4 of the plain version, and its error against float64
+    on the same bf16 inputs within 4x the plain version's (each row's 512
+    products summed in the tensor cores' accumulator, no promotion)."""
+    b = 700 if t == 10 else 100
+    h, _, w, Wq, bq = _problem(cuda, b, t, 8000, 512, 512, seed=5,
+                               zero_row=b - 1)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    ids = torch.randperm(8000, generator=g)[:b * t].to(torch.int32)
+    ids = ids.reshape(b, t).to(cuda)
+    with torch.inference_mode():
+        got = agg.conv_aggregate(h, ids, w, Wq, bq, mode=mode)
+        want = agg.conv_aggregate_plain(h, ids, w, Wq, bq)
+        ref = agg.conv_aggregate_plain(h.double(), ids, w.double(),
+                                       Wq.double(), bq.double())
+    torch.testing.assert_close(got, want, rtol=0, atol=AGG_ATOL)
+    assert torch.equal(got[b - 1], want[b - 1])
+    err = float((got.double() - ref).abs().max())
+    plain_err = float((want.double() - ref).abs().max())
+    assert err <= 4 * plain_err, (err, plain_err)
+
+
 def test_bf16_k2_takes_bf16_weights_with_the_bf16_denominator(cuda):
     """The full-graph form: bf16 weights, their sum rounded to bf16."""
     h, ids, w, Wq, bq = _problem(cuda, 3000, 10, 3000, 512, 512, seed=1,
@@ -91,7 +119,7 @@ def test_bf16_k2_takes_bf16_weights_with_the_bf16_denominator(cuda):
     with torch.inference_mode():
         got = agg.conv_aggregate(h, ids, w, Wq, bq, block_rows=1024)
         want = agg.conv_aggregate_plain(h, ids, w, Wq, bq)
-        proj = agg.project_table_bf16(h, agg.tile_wq_bf16(Wq), bq)
+        proj = agg.project_table16(h, agg.tile_wq16(Wq), bq)
         rows = agg.slabs_to_rows(proj, 512)
         mean = agg.gather_mean(proj, ids, w, torch.empty_like(got))
     torch.testing.assert_close(got, want, rtol=0, atol=AGG_ATOL)
@@ -154,7 +182,7 @@ def test_bf16_kernels_refuse_what_they_do_not_take(cuda):
         with pytest.raises(ValueError, match="bq"):
             agg.conv_aggregate_cuda(h, ids, w, Wq, bq.bfloat16())
         with pytest.raises(ValueError, match="multiple"):
-            agg.tile_wq_bf16(Wq[:, :12].contiguous())
+            agg.tile_wq16(Wq[:, :12].contiguous())
 
 
 def _tables(dev, n=2000, din=64, t=10, seed=4):

@@ -372,12 +372,15 @@ def test_fullgraph_forward_training_equivalence(port_graph, port_positives,
 
 def test_trainer_refuses_bf16_and_bad_hn_band(port_graph, port_positives,
                                               tmp_path):
-    """A train.dtype other than float32 and bfloat16 (bf16 training is
-    held to JAX in tests/test_torch_bf16.py), and a hard-negative band
-    past the stored neighborhood ranks."""
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    """A train.dtype that the JAX trainer's ``jnp.dtype`` refuses too
+    ("bf16"; bf16 and f16 training are held to JAX in
+    tests/test_torch_bf16.py and tests/test_torch_f16.py), and a
+    hard-negative band past the stored neighborhood ranks."""
+    with pytest.raises(TypeError):
+        jnp.dtype("bf16")
+    with pytest.raises(ValueError, match="names no type"):
         _trainer(port_graph, port_positives, tmp_path,
-                 **{"train.dtype": "float16"})
+                 **{"train.dtype": "bf16"})
     with pytest.raises(ValueError, match="t_precompute"):
         _trainer(port_graph, port_positives, tmp_path,
                  **{"train.hard_negatives": True, "train.hn_max": 101})
