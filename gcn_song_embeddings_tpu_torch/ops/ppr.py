@@ -36,6 +36,7 @@ from gcn_song_embeddings_tpu_torch.ops.walks import (
     draw_uniforms,
     fused_walk_tables,
 )
+from gcn_song_embeddings_tpu_torch.utils.checkpoint import atomic_savez
 
 # mixed into the refresh's generator seeds, so its walks draw apart from
 # the sweep's (the JAX package folds the same constant into its key)
@@ -308,12 +309,16 @@ def _cache_meta(cfg: WalkConfig, seed: int, n_edges: int
 
 
 def _save_cache(path, all_w, all_n, cfg, seed, n_edges) -> None:
+    """Write the artifact atomically (``atomic_savez``), so a resumed run
+    never loads a truncated one.  The name gets ``.npz`` appended where it
+    lacks it, as ``np.savez_compressed`` does."""
     if path is None:
         return
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if not path.endswith(".npz"):
+        path += ".npz"
     meta, alpha = _cache_meta(cfg, seed, n_edges)
-    np.savez_compressed(path, weights=all_w, nodes=all_n, meta=meta,
-                        alpha=alpha)
+    atomic_savez(path, compressed=True, weights=all_w, nodes=all_n,
+                 meta=meta, alpha=alpha)
 
 
 def _load_cache(path, n_items, T, cfg, seed, n_edges):

@@ -76,11 +76,25 @@ def save_state(path: str, params: PinSageParams, opt: Adam,
         payload[f"['params'].{name}"] = leaf.detach().cpu().numpy()
     for name, value in scalars.items():
         payload["__scalar__" + name] = np.asarray(value)
+    atomic_savez(path, **payload)
+
+
+def atomic_savez(path: str, compressed: bool = False, **arrays) -> None:
+    """``np.savez`` (``np.savez_compressed`` if ``compressed``) of
+    ``arrays`` to ``path`` through ``<path>.tmp`` and ``os.replace``: a
+    process killed mid-write leaves the previous file or none, never a
+    truncated one.  A write that raises removes its tmp file."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **payload)
-    os.replace(tmp, path)
+    save = np.savez_compressed if compressed else np.savez
+    try:
+        with open(tmp, "wb") as f:
+            save(f, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
 
 
 def load_state(path: str, params: PinSageParams, opt: Adam

@@ -95,7 +95,7 @@ def test_every_port_module_imports_with_jax_blocked():
                    "parallel.walks_sharded", "parallel.train_step",
                    "parallel.serve_sharded", "data.explore",
                    "data.collector", "evals.qualitative",
-                   "utils.profiling"):
+                   "utils.profiling", "hard_bench", "serve_int8_quality"):
         assert prefix + module in names
 
 
@@ -104,6 +104,8 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "import numpy as np\n"
         "import scipy.sparse as sp\n"
         "from gcn_song_embeddings_tpu_torch import cli, features, serve\n"
+        "from gcn_song_embeddings_tpu_torch import hard_bench\n"
+        "from gcn_song_embeddings_tpu_torch import serve_int8_quality\n"
         "from gcn_song_embeddings_tpu_torch.models import "
         "audio_embedders as ae\n"
         "from gcn_song_embeddings_tpu_torch.models import gnnlib\n"
@@ -145,7 +147,12 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "         lambda: cli.main(['all', '--dataset', 'nowhere',\n"
         "                           '--mesh-graph', '1']),\n"
         "         lambda: serve.main(['--emb', 'x.npy', '--sharded']),\n"
-        "         lambda: explore.crawl_walk_counts(None, 0)]\n"
+        "         lambda: explore.crawl_walk_counts(None, 0),\n"
+        "         lambda: hard_bench.main(['--work-dir', 'nowhere']),\n"
+        "         lambda: serve_int8_quality.main(['--work-dir',\n"
+        "                                          'nowhere']),\n"
+        "         lambda: serve_int8_quality.int8_rank_eval(\n"
+        "             np.eye(4, dtype='f4'), [[0, 1]])]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"
