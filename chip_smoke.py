@@ -82,14 +82,14 @@
    printed, and K4 is held to its plain version (``torch.equal``) and to
    the stochastic quantizer's contract (tests/test_quantize.py:40-48).
 8. Right after step 3, drives ``prepare`` and ``all`` with the counters
-   set to 0 again, on a 25,000-track dataset made as the main one is
+   set to 0 again, on a 10,000-track dataset made as the main one is
    (graph.json, tracks.json, collections.json; cut from 100k for the
    time limit): ``cli prepare --features random --gen-positives``
-   (25,000 per-track feature files, the consolidated matrix, the PPR
+   (10,000 per-track feature files, the consolidated matrix, the PPR
    sweep with K1 under ``WalkConfig()``, walk positives), then ``cli
    all`` (the same prepare, ``train`` cut as in step 4, ``eval`` of
    Random, PageRank (K1) and its own ``PinSage:<run>`` row at K=100).
-   Fails unless K1 ran once a sweep block (7) in
+   Fails unless K1 ran once a sweep block (3) in
    prepare and never in all's prepare or train (the cache and the
    per-track files are reused), ``features_random.npy`` is bit-equal to a
    numpy replay of ``RandomFeatures(512, seed=0)``, every walk pair lies
@@ -169,7 +169,36 @@
    them; prints a ``hard_checks`` line (both margins' f32 and int8
    metrics beside the JAX package's recorded ones, the kernels at the
    phase's shapes, the phase walls) after the card line.
-13. Checks the outputs: finite embeddings of the expected shape that match
+13. Right after the hard phase, the 1M catalog with the counters set to 0
+   again, in one work dir (``run_1m_path``): ``scale_demo`` with the
+   co-listen capstone's command (``SCALE_1M_ARGV``: the hard generator
+   at 1,000,000 tracks, 250,000 playlists, 1,000,000 positives, 128-d
+   features; ``RunConfig()`` at full width, T=10, co-listen 1, 3 x 500
+   frontier steps with K3 and its backward, the PPR sweep of the
+   ~14.2M-edge augmented graph with K1, the full-graph embed with K2 in
+   ``block_rows`` blocks), ``refresh_1m`` on the trainer's standing
+   artifact (100 and 1,000 new pairs, K1), ``hybrid_1m`` over a seeded
+   32,768 of the unique test queries (K2 in the resume's embed, K1 for
+   the walk lists) and ``serve_bench`` over a 1,000,000 x 128 catalog in
+   f32, int8 and cached-head hybrid form, 20 queries a client (K1 in the
+   head's sweep), then K4 on the int8 run's served table; launches
+   counted by path.  The dataset is written in a process of its own
+   (``start_1m_dataset``) from the start of the run.  Fails unless
+   every kernel ran on its path (the embed gathering each layer in more
+   than one block), PinSage reaches HARD_BAR x raw-feature kNN on hit@100
+   and mrr@1000, the hybrid is at least the walk row on hit@10/100/500,
+   every unaffected row of each refresh equals the standing artifact,
+   the refresh's TV is within TV_GAP of the seed noise's, and 64 served
+   f32 answers equal an exact top-10 on the card up to ties
+   (``check_1m``); then holds K1 (the sweep's first block and the
+   hybrid's first query block, their top-T equal to the artifact's and
+   the walk lists'), K2 at N=1M, K3 with its backward at the 1M step and
+   K4 on the 1M x 128 table to their plain versions
+   (``hold_1m_kernels``).  Prints a ``scale_1m_checks`` line (phase
+   walls, peak device bytes, the served tables' device bytes, the int8
+   top-10 overlap, JAX's 1M readings beside) after the card line; the
+   kernels line gains the five 1M rows.
+14. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
 
@@ -180,6 +209,7 @@ when no CUDA device is present or any phase fails.
 
 from __future__ import annotations
 
+import atexit
 import copy
 import json
 import os
@@ -2237,7 +2267,7 @@ PREPARE_RUN = "smoke_all"
 # prepare and all run on a quarter of the main path's catalog: at 100k
 # their 100,000 per-track feature files took 150-350 s of the script's
 # time limit on an H100 host's file system
-PREPARE_TRACKS, PREPARE_COLLECTIONS, PREPARE_POSITIVES = 25_000, 6_250, 50_000
+PREPARE_TRACKS, PREPARE_COLLECTIONS, PREPARE_POSITIVES = 10_000, 2_500, 20_000
 AUDIO_TRACKS, AUDIO_COLLECTIONS, AUDIO_SEED = 256, 64, 5
 AUDIO_DIMS = {"mfcc": 40, "openl3": 512, "vggish": 128, "musicnn": 753}
 # the card against the port's CPU path: mel front ends (OpenL3's dB mel
@@ -3576,6 +3606,499 @@ def check_hard(hp) -> dict:
             "jax_reference": JAX_HARD, "walls": hp["walls"]}
 
 
+# ---- the 1M-track catalog (scale_demo, refresh_1m, hybrid_1m, serve_bench)
+# scale_demo's co-listen capstone (RESULTS.md:713-716) with its 1,000,000
+# positives and 128-d features (results/scale_1m_co.out)
+SCALE_1M_ARGV = ("--hard", "--tracks", "1000000", "--collections", "250000",
+                 "--positives", "1000000", "--feature-dim", "128",
+                 "--colisten-copies", "1", "--T", "10")
+# cuts for the script's time limit, each run uncut as a command of its own
+# (README): the refresh at 100 and 1,000 new pairs (not 10,000), the
+# hybrid's lists for a seeded sample of the unique test queries (scored on
+# all their pairs), serving 20 queries a client (not 50)
+REFRESH_1M_COUNTS = "100,1000"
+HYBRID_1M_QUERIES = 32_768
+SERVE_1M_TRACKS = 1_000_000
+SERVE_1M_LOAD = ("--queries", "20", "--clients", "8")
+SERVE_1M_FORMS = {"f32": (), "int8": ("--int8",),
+                  "hybrid_cached": ("--hybrid", "--cached-head")}
+EXACT_ROWS = 64       # f32 answers held against an exact top-k on the card
+TV_GAP = 0.01         # |TV(refresh, full) - TV(seed noise)| at most this
+# the JAX package's readings at 1M (a TPU's), for reference only
+JAX_1M = {
+    "scale_1m_co": {"pinsage": {"hit@100": 0.47833, "hit@500": 0.71468,
+                                "mrr@1000": 0.08004},
+                    "features": {"hit@100": 0.06859, "hit@500": 0.35077,
+                                 "mrr@1000": 0.00526},
+                    "pinsage_over_features_hit100": 6.974},
+    "hybrid_1m": {name: dict(zip(("hit@10", "hit@100", "hit@500",
+                                  "mrr@1000"), row))
+                  for name, row in (("walk", (0.38293, 0.67899, 0.78379,
+                                              0.18972)),
+                                    ("embedding", (0.21003, 0.47463,
+                                                   0.73763, 0.08758)),
+                                    ("hybrid", (0.38293, 0.67921, 0.85461,
+                                                0.1899)))},
+    "refresh_1m": {"affected_frac": {"100": 0.01903, "1000": 0.18244,
+                                     "10000": 0.85683},
+                   "tv_refresh_vs_full": 0.29233, "tv_seed_noise": 0.29246},
+}
+
+
+def start_1m_dataset(root: str, scale_argv=SCALE_1M_ARGV):
+    """Write the 1M phase's dataset into ``<root>/ds`` in a process of its
+    own (``scale_demo.make_dataset``: host numpy and JSON, no device)
+    while the earlier phases run; ``run_1m_path`` waits for it and its
+    ``scale_demo`` reuses the complete dataset.  Its wall goes to
+    ``<root>/synth_s``, its output to ``<root>/synth.log``."""
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    code = ("import sys, time\n"
+            "from gcn_song_embeddings_tpu_torch import scale_demo\n"
+            "t = time.perf_counter()\n"
+            "scale_demo.make_dataset(scale_demo.parse_args(sys.argv[2:]),\n"
+            "                        sys.argv[1] + '/ds')\n"
+            "with open(sys.argv[1] + '/synth_s', 'w') as f:\n"
+            "    f.write(repr(time.perf_counter() - t))\n")
+    with open(os.path.join(root, "synth.log"), "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-c", code, root, *scale_argv], cwd=REPO,
+            stdout=out, stderr=subprocess.STDOUT,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def run_1m_path(dev, root: str, scale_argv=SCALE_1M_ARGV,
+                refresh_counts: str = REFRESH_1M_COUNTS,
+                serve_tracks: int = SERVE_1M_TRACKS,
+                serve_argv=SERVE_1M_LOAD, hybrid_queries=HYBRID_1M_QUERIES,
+                synth=None) -> dict:
+    """The 1M catalog as a user runs it, in the work dir ``root``:
+    ``scale_demo`` (synth -> graph -> PPR sweep of the co-listen augmented
+    graph (K1) -> 3 x 500 frontier steps (K3 and its backward) ->
+    full-graph embed (K2) -> ``rank_eval`` of PinSage and of the raw
+    features), then ``refresh_1m`` on its standing artifact (K1),
+    ``hybrid_1m`` on its finished run for ``hybrid_queries`` unique test
+    queries (None: all; K2 in the resume's embed, K1 for the walk lists),
+    and ``serve_bench`` over a 1M x 128 catalog in f32, int8 and
+    cached-head hybrid form (K1 in the head's sweep), then K4 on the int8
+    run's served table.  ``synth``: the ``start_1m_dataset`` process
+    writing the dataset, waited for here (None: ``scale_demo`` writes it
+    into a fresh ``root``).  Launches are counted by path
+    (``scale_demo``'s by its phases); the peak device memory is the
+    phase's."""
+    import contextlib
+
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import (
+        hybrid_1m,
+        refresh_1m,
+        scale_demo,
+        serve_bench,
+    )
+    from gcn_song_embeddings_tpu_torch.evals.device_eval import unit_rows
+    from gcn_song_embeddings_tpu_torch.ops.quant_kernel import (
+        quantize_rows_stochastic,
+    )
+    from gcn_song_embeddings_tpu_torch.utils.profiling import Timer
+
+    counts, last = {}, kernel_counts()
+
+    def mark(path):
+        nonlocal last
+        now = kernel_counts()
+        acc = counts.setdefault(path, dict.fromkeys(now, 0))
+        for key in now:
+            acc[key] += now[key] - last[key]
+        last = now
+
+    class CountingTimer(Timer):
+        """``scale_demo``'s timer, counting launches by its phases."""
+
+        @contextlib.contextmanager
+        def phase(self, name, sync_value=None):
+            with super().phase(name, sync_value):
+                yield
+            mark(name)
+
+    walls = {}
+    if synth is None:
+        shutil.rmtree(root, ignore_errors=True)
+    else:
+        t = time.perf_counter()
+        if synth.wait() != 0:
+            with open(os.path.join(root, "synth.log")) as f:
+                raise AssertionError(f"the 1M dataset's process failed: "
+                                     f"{f.read()[-3000:]}")
+        walls["synth_waited_s"] = time.perf_counter() - t
+        with open(os.path.join(root, "synth_s")) as f:
+            walls["synth_s"] = float(f.read())
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    sd = scale_demo.run(scale_demo.parse_args(
+        [*scale_argv, "--work-dir", root, "--device", str(dev)]), log,
+        timer=CountingTimer())
+    walls["scale_demo_s"] = time.perf_counter() - t
+    walls["scale_demo"] = sd.times
+    log(json.dumps({"scale_demo": sd.summary}))
+
+    t = time.perf_counter()
+    rf = refresh_1m.run(refresh_1m.parse_args(
+        ["--work-dir", root, "--pair-counts", refresh_counts,
+         "--device", str(dev)]), data=sd.data, log=log)
+    mark("refresh")
+    walls["refresh_1m_s"] = time.perf_counter() - t
+    walls["refresh_standing_load_s"] = rf.standing_s
+    log(json.dumps({"refresh_1m": rf.result}))
+
+    t = time.perf_counter()
+    hy = hybrid_1m.run(hybrid_1m.parse_args(
+        ["--work-dir", root, "--device", str(dev)]), data=sd.data, log=log,
+        query_sample=hybrid_queries)
+    mark("hybrid")
+    walls["hybrid_1m_s"] = time.perf_counter() - t
+    walls["hybrid_1m"] = hy.walls
+    log(json.dumps({"hybrid_1m": hy.result}))
+
+    serving = {}
+    for form, extra in SERVE_1M_FORMS.items():
+        t = time.perf_counter()
+        serving[form] = serve_bench.run(serve_bench.parse_args(
+            ["--tracks", str(serve_tracks), *extra, *serve_argv,
+             "--device", str(dev)]), log)
+        mark("int8" if form == "int8" else "serve")
+        walls[f"serve_bench_{form}_s"] = time.perf_counter() - t
+        log(json.dumps({f"serve_bench_{form}": serving[form].summary}))
+    # the int8 run's served table, quantized with stochastic rounding (K4)
+    table = torch.as_tensor(unit_rows(serving["int8"].emb), device=dev)
+    sync(torch, dev)
+    t = time.perf_counter()
+    stochastic = quantize_rows_stochastic(table, seed=QUANT_SEED)
+    sync(torch, dev)
+    mark("int8")
+    walls["stochastic_quantize_ms"] = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    # the launches on each path (scale_demo's by its phases), nonzero only
+    named = {"precompute": "sweep", "train": "train", "embed": "embed",
+             "refresh": "refresh", "hybrid": "hybrid", "serve": "serve",
+             "int8": "int8"}
+    by_path = {named[p]: {k: n for k, n in counts.get(p, {}).items() if n}
+               for p in named}
+    other = {p: {k: n for k, n in c.items() if n}
+             for p, c in counts.items() if p not in named}
+    return {"scale": sd, "refresh": rf, "hybrid": hy, "serving": serving,
+            "table": table, "stochastic": stochastic, "walls": walls,
+            "counts": by_path, "other_counts": other,
+            "peak_device_bytes": peak, "work": root}
+
+
+def exact_topk_check(torch, np, emb, answers, dev, n_rows: int,
+                     k: int) -> dict:
+    """The served f32 answers of ``n_rows`` queries against an exact f32
+    top-k of the same catalog on ``dev`` (the query masked), up to ties."""
+    from gcn_song_embeddings_tpu_torch.evals.device_eval import unit_rows
+    from gcn_song_embeddings_tpu_torch.ops.knn import exact_f32
+
+    rows = sorted(answers)[:n_rows]
+    unit = torch.as_tensor(unit_rows(emb), device=dev)
+    r = torch.as_tensor(rows, device=dev)
+    with exact_f32():
+        sims = unit[r] @ unit.t()
+    sims[torch.arange(len(rows), device=dev), r] = float("-inf")
+    w, n = torch.topk(sims, k, dim=1)
+    got_n = np.array([answers[q][0] for q in rows])
+    got_w = np.array([answers[q][1] for q in rows])
+    out = same_up_to_ties(np, "served f32 answers vs exact top-k",
+                          got_w, got_n, w.cpu().numpy(), n.cpu().numpy())
+    return {"rows": len(rows), **out}
+
+
+def check_1m(torch, dev, p) -> dict:
+    """The 1M phase's bars: every kernel launched on its path (and the
+    full-graph embed in more than one ``block_rows`` block a layer),
+    PinSage / raw features at least HARD_BAR on hit@100 and mrr@1000, the
+    hybrid at least the walk row on hit@10/100/500, every unaffected row
+    of each refresh equal to the standing artifact and the refresh's TV
+    within TV_GAP of the seed noise's, the f32 answers equal to an exact
+    top-k up to ties; the int8 answers' top-10 overlap with f32 is
+    printed.  Returns the ``scale_1m_checks`` line's payload."""
+    import inspect
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.models.pinsage import embed_all
+
+    need = {"sweep": "walk", "train": "dma_agg", "embed": "agg",
+            "refresh": "walk", "hybrid": "walk", "serve": "walk",
+            "int8": "quant"}
+    missing = {path: key for path, key in need.items()
+               if not p["counts"][path].get(key)}
+    if not p["counts"]["train"].get("agg_backward_dma"):
+        missing["train"] = "agg_backward_dma"
+    if missing:
+        raise AssertionError(f"1M phase: kernels never launched {missing}")
+    sd = p["scale"]
+    n = sd.data.graph.n_items
+    n_layers = sd.trainer.cfg.model.n_layers
+    block_rows = inspect.signature(embed_all).parameters[
+        "block_rows"].default
+    blocks = -(-n // block_rows)
+    gathers = p["counts"]["embed"].get("agg_gather_mean", 0)
+    if not (blocks > 1 and gathers == n_layers * blocks):
+        raise AssertionError(f"the 1M embed gathered in {gathers} launches, "
+                             f"not {n_layers} layers x {blocks} blocks of "
+                             f"{block_rows}")
+    feat, ps = sd.metrics["features"], sd.metrics["pinsage"]
+    ratios = {k: ps[k] / feat[k] for k in ("hit@100", "mrr@1000")}
+    log(f"1M learning: raw features {feat}; PinSage {ps}; PinSage / "
+        f"features {ratios} (JAX at 1M: "
+        f"{JAX_1M['scale_1m_co']['pinsage_over_features_hit100']}x on "
+        f"hit@100, features {JAX_1M['scale_1m_co']['features']})")
+    low = {k: v for k, v in ratios.items() if not v >= HARD_BAR}
+    if low:
+        raise AssertionError(f"1M PinSage / features below {HARD_BAR}: {low}")
+    rows = p["hybrid"].rows
+    behind = {k: (rows["hybrid"][k], rows["walk"][k])
+              for k in ("hit@10", "hit@100", "hit@500")
+              if not rows["hybrid"][k] >= rows["walk"][k]}
+    if behind:
+        raise AssertionError(f"1M hybrid behind the walk row: {behind}")
+    rf = p["refresh"]
+    if not all(rf.unaffected_equal.values()):
+        raise AssertionError(f"refresh changed unaffected rows: "
+                             f"{rf.unaffected_equal}")
+    tv_gap = abs(rf.result["tv_refresh_vs_full"]
+                 - rf.result["tv_seed_noise"])
+    if not tv_gap <= TV_GAP:
+        raise AssertionError(f"refresh TV {rf.result['tv_refresh_vs_full']} "
+                             f"vs seed noise {rf.result['tv_seed_noise']}: "
+                             f"gap {tv_gap} > {TV_GAP}")
+    serving = p["serving"]
+    f32 = serving["f32"]
+    exact = exact_topk_check(torch, np, f32.emb, f32.answers, dev,
+                             EXACT_ROWS, 10)
+    int8 = serving["int8"].answers
+    common = sorted(set(f32.answers) & set(int8))
+    overlap = float(np.mean([len(set(f32.answers[q][0])
+                                 & set(int8[q][0])) / 10 for q in common]))
+    log(f"1M serving: f32 answers of {exact['rows']} queries == exact top-10 "
+        f"up to ties ({exact}); int8 top-10 overlap with f32 over "
+        f"{len(common)} queries {overlap:.4f}")
+    return {
+        "config": {"argv": list(SCALE_1M_ARGV), "tracks": n,
+                   "edges": sd.summary["n_edges"],
+                   "test_pairs": int(len(sd.data.test_pos)),
+                   "refresh_pair_counts": REFRESH_1M_COUNTS,
+                   "hybrid_queries": int(len(p["hybrid"].queries)),
+                   "hybrid_test_pairs": p["hybrid"].result["n_test_pairs"],
+                   "serve_tracks": SERVE_1M_TRACKS},
+        "launches_by_path": p["counts"], "other_launches": p["other_counts"],
+        "embed_blocks": {"block_rows": block_rows, "blocks_a_layer": blocks,
+                         "gather_launches": gathers},
+        "features": feat, "pinsage": ps, "pinsage_over_features": ratios,
+        "bar": HARD_BAR, "hybrid_rows": rows,
+        "refresh": {**rf.result, "unaffected_equal": rf.unaffected_equal,
+                    "tv_gap": tv_gap, "tv_gap_bar": TV_GAP},
+        "serving": {form: {**b.summary, "table_device_bytes": b.table_bytes,
+                           "setup_s": b.setup}
+                    for form, b in serving.items()},
+        "serving_exact_topk": exact, "int8_top10_overlap": overlap,
+        "peak_device_bytes": p["peak_device_bytes"],
+        "jax_reference": JAX_1M, "walls": p["walls"],
+    }
+
+
+def hold_1m_kernels(torch, p) -> dict:
+    """The 1M phase's kernels against their plain versions at its shapes:
+    K1 (``measure_k1``, ``torch.equal``) at the first block of the sweep
+    of the augmented 1M graph (B=8192, H=500, the sweep's uniforms; its
+    top-100 equal to the standing artifact's rows) and at the hybrid's
+    first query block (B=4096, H=1000, its uniforms; the top-1000 of the
+    plain trace equal to the hybrid's walk lists); K2 at both embed layers
+    of all 1M rows in ``block_rows`` blocks (the plain version block by
+    block) within K2_ATOL; K3 and its backward at both aggregations of one
+    frontier step of the trained model (``measure_aggregation``); K4 on
+    the served 1M x 128 table (``measure_k4``).  Returns the kernels
+    line's 1M rows."""
+    import inspect
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.hybrid_1m import (
+        WALK_ALPHA,
+        WALK_BLOCK,
+        WALK_HOPS,
+        padded_block,
+    )
+    from gcn_song_embeddings_tpu_torch.models.pinsage import (
+        conv_from_table,
+        embed_all,
+    )
+    from gcn_song_embeddings_tpu_torch.ops import (
+        agg,
+        dma_agg,
+        quant_kernel,
+        walk_kernel,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.ppr import (
+        block_generator,
+        visit_counts_topt,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.walks import (
+        draw_uniforms,
+        fused_walk_tables,
+        walks_from_fused_tables,
+    )
+
+    sd, hy, counts = p["scale"], p["hybrid"], p["counts"]
+    trainer = sd.trainer
+    dev, cfg, mcfg = trainer.device, trainer.cfg, trainer.cfg.model
+    tables = fused_walk_tables(trainer.graph)
+    rows = []
+
+    # K1: the sweep's first block, and the hybrid's first query block
+    b, hops, alpha = (min(cfg.walk.batch_walkers, trainer.n),
+                      cfg.walk.n_hops, cfg.walk.alpha)
+    nodes = torch.arange(b, dtype=torch.int32, device=dev)
+    u = draw_uniforms(hops, b, block_generator(cfg.train.seed, 0, dev))
+    w, nb = visit_counts_topt(walks_from_fused_tables(
+        tables, nodes, hops, alpha, u), nodes, cfg.walk.t_precompute)
+    if not (torch.equal(w, trainer.tables.nbhd_w[:b])
+            and torch.equal(nb, trainer.tables.nbhd_n[:b])):
+        raise AssertionError("the 1M sweep's first block differs from the "
+                             "plain walker's top-T")
+    rows.append(measure_k1(torch, walk_kernel, tables, [(
+        f"1M sweep block B={b} H={hops} alpha={alpha} "
+        f"({trainer.graph.n_edges} directed edges)", nodes, alpha, u)],
+        {k: counts[k].get("walk", 0) for k in ("sweep", "refresh",
+                                               "serve")}))
+    queries = torch.as_tensor(padded_block(hy.queries, 0, WALK_BLOCK),
+                              device=dev)
+    u = draw_uniforms(WALK_HOPS, WALK_BLOCK, block_generator(0, 0, dev))
+    k = hy.walk[0].shape[1]
+    w, nb = visit_counts_topt(walks_from_fused_tables(
+        tables, queries, WALK_HOPS, WALK_ALPHA, u), queries, k)
+    m = min(WALK_BLOCK, len(hy.queries))
+    if not (np.array_equal(w[:m].cpu().numpy(), hy.walk[0][:m])
+            and np.array_equal(nb[:m].cpu().numpy(), hy.walk[1][:m])):
+        raise AssertionError("the hybrid's walk lists differ from the "
+                             "plain walker's top-T")
+    rows.append(measure_k1(torch, walk_kernel, tables, [(
+        f"1M hybrid query block B={WALK_BLOCK} H={WALK_HOPS} "
+        f"alpha={WALK_ALPHA}, top-{k}", queries, WALK_ALPHA, u)],
+        {"hybrid": counts["hybrid"].get("walk", 0)}))
+    rows[0]["name"] += " at 1M, sweep blocks"
+    rows[1]["name"] += " at 1M, hybrid walk lists"
+    log(f"1M K1: sweep block top-T == the artifact's, hybrid block top-{k} "
+        f"== its walk lists")
+
+    # K2: both embed layers over all 1M rows, gathered block by block
+    t_nb = trainer.tables
+    nb_idx = t_nb.nbhd_n[:, :mcfg.T].to(torch.int32).contiguous()
+    nb_wt = t_nb.nbhd_w[:, :mcfg.T].contiguous()
+    block_rows = inspect.signature(embed_all).parameters[
+        "block_rows"].default
+    layers = trainer.params.layers
+    with torch.inference_mode():
+        h1 = conv_from_table(layers[0], t_nb.features, t_nb.features,
+                             nb_idx, nb_wt, block_rows=block_rows)
+    k2 = measure_k2_blocked(torch, agg, [(layers[0], t_nb.features),
+                                         (layers[1], h1)],
+                            nb_idx, nb_wt, block_rows)
+    din2 = h1.shape[1]
+    del h1
+    row = kernel_row(
+        "K2 3xTF32 Q-MLP of every table row, then gather + weighted mean "
+        "(agg.conv_aggregate, mode stream) at 1M", agg.SOURCE,
+        agg.REPLACES, {k: counts[k].get("agg", 0)
+                       for k in ("embed", "hybrid")},
+        0, k2, f"both embed layers, N={trainer.n} T={mcfg.T}: Din="
+        f"{t_nb.features.shape[1]} and {din2}, H="
+        f"{mcfg.hidden_dim}, gathered in blocks of {block_rows}; P scratch "
+        f"{trainer.n * mcfg.hidden_dim * 4} bytes")
+    row.pop("backward")
+    row["library"] = "addmm + leaky_relu, gather, einsum (project once)"
+    rows.append(row)
+
+    # K3 and its backward at both aggregations of one frontier step
+    step_shapes = step_conv_inputs(torch, trainer, trainer.sample(
+        block_generator(4242, 0, dev)))
+    k3 = measure_aggregation(torch, agg, "dma", step_shapes)
+    rows.append(kernel_row(
+        "K3 fused 3xTF32 gather + Q-MLP + weighted mean "
+        "(agg.conv_aggregate, mode dma) at 1M", dma_agg.SOURCE,
+        dma_agg.REPLACES, {"train": counts["train"].get("dma_agg", 0)},
+        counts["train"].get("agg_backward_dma", 0), k3,
+        f"both aggregations of a frontier step at B="
+        f"{cfg.train.batch_size} over the 1M table: "
+        f"{step_shapes[0][2].shape[0]} nodes x T={mcfg.T}, Din="
+        f"{step_shapes[0][1].shape[1]} and {step_shapes[1][2].shape[0]} "
+        f"nodes x T={mcfg.T}, Din={step_shapes[1][1].shape[1]}; H="
+        f"{mcfg.hidden_dim}"))
+
+    # K4 on the served 1M x 128 table
+    row = measure_k4(torch, quant_kernel, p["table"], p["stochastic"],
+                     {"int8": counts["int8"].get("quant", 0)})
+    row["name"] += " at 1M"
+    rows.append(row)
+    return rows
+
+
+def measure_k2_blocked(torch, agg, layers, ids, wts, block_rows) -> dict:
+    """K2 (``conv_aggregate`` with ``block_rows``, as ``embed_all`` calls
+    it) at each (layer, table) of ``layers`` over all rows of ``ids``,
+    against its plain version block by block (a whole [N, T, Din] gather
+    would not fit beside the path's tensors), with its float64 error, its
+    times, a project-once library composition's and its work, in
+    ``measure_aggregation``'s keys (no backward)."""
+    import torch.nn.functional as F
+
+    out = dict.fromkeys(("ms", "host_ms", "plain_ms", "library_ms", "flops",
+                         "products", "bytes", "err", "err64", "plain_err64",
+                         "bwd_ms", "bwd_plain_ms", "bwd_flops", "bwd_bytes",
+                         "bwd_err", "bwd_plain_err"), 0.0)
+    n = ids.shape[0]
+    for layer, h in layers:
+        Wq, bq = layer.Wq.detach(), layer.bq.detach()
+        din, hdim = h.shape[1], Wq.shape[0]
+
+        def kernel():
+            return agg.conv_aggregate(h, ids, wts, Wq, bq, mode="stream",
+                                      block_rows=block_rows)
+
+        def plain():
+            return torch.cat([agg.conv_aggregate_plain(
+                h, ids[s:s + block_rows], wts[s:s + block_rows], Wq, bq)
+                for s in range(0, n, block_rows)])
+
+        with torch.inference_mode():
+            got, want = kernel(), plain()
+            err = float((got - want).abs().max())
+            log(f"K2 at 1M, Din={din} H={hdim} (N={n}, blocks of "
+                f"{block_rows}): max |diff| {err:.3g}")
+            if not err <= K2_ATOL:
+                raise AssertionError(f"K2 at 1M differs from the plain "
+                                     f"version by {err} > {K2_ATOL}")
+            err64, plain_err64 = float64_error(torch, agg, h, ids, wts, Wq,
+                                               bq, got, want)
+            del got, want
+            out["err"] = max(out["err"], err)
+            out["err64"] = max(out["err64"], err64)
+            out["plain_err64"] = max(out["plain_err64"], plain_err64)
+            out["ms"] += cuda_ms(torch, kernel, reps=5)
+            out["host_ms"] += cuda_ms(torch, kernel, reps=5, queued=False)
+            out["plain_ms"] += cuda_ms(torch, plain, reps=2, warmup=1)
+            out["library_ms"] += cuda_ms(torch, lambda: project_once_library(
+                torch, F, h, ids, wts, Wq, bq), reps=2, warmup=1)
+        flops, nbytes, distinct, _ = agg_work(torch, ids, wts, din, hdim, n)
+        out["flops"] += flops
+        out["products"] += 2.0 * distinct * din * hdim
+        out["bytes"] += nbytes
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3636,6 +4159,11 @@ def main() -> int:
         return counts
 
     work = os.path.join(REPO, "build", "chip_smoke")
+    # the 1M phase's dataset, written on the host while the phases before
+    # it run (ended at exit if the run fails first)
+    root_1m = os.path.join(REPO, "build", "chip_smoke_1m")
+    synth_1m = start_1m_dataset(root_1m)
+    atexit.register(_stop, synth_1m, 5.0)
     reset_counts()
     st = run_main_path(dev, work)
     launches = read_counts(("walk", "agg", "agg_split", "agg_project",
@@ -3805,6 +4333,21 @@ def main() -> int:
     st.walls["hard"] = hard_checks["walls"]
     log(card_line())
     log(json.dumps({"hard_checks": hard_checks}))
+    torch.cuda.empty_cache()
+
+    # ---- the 1M catalog: scale_demo, refresh_1m, hybrid_1m, serve_bench --
+    t = time.perf_counter()
+    reset_counts()
+    p1m = run_1m_path(dev, root_1m, synth=synth_1m)
+    scale_1m_checks = check_1m(torch, dev, p1m)
+    rows_1m = hold_1m_kernels(torch, p1m)
+    scale_1m_checks["walls"]["phase_s"] = time.perf_counter() - t
+    st.walls["scale_1m"] = scale_1m_checks["walls"]
+    shutil.rmtree(p1m["work"], ignore_errors=True)
+    del p1m
+    torch.cuda.empty_cache()
+    log(card_line())
+    log(json.dumps({"scale_1m_checks": scale_1m_checks}))
 
     log(json.dumps({"phase_walls": st.walls}))
     log(json.dumps({"prepare_checks": prepare_checks}))
@@ -3992,6 +4535,7 @@ def main() -> int:
             f"(the {form}-rounded denominator)"))
         results[-1]["header"] = agg.HEADER
         results[-1]["ms_over_f32_k2_ms"] = k2_16["ms"] / k2["ms"]
+    results.extend(rows_1m)
     shutil.rmtree(work, ignore_errors=True)
     log(card_line())
     log(json.dumps({"kernels": results}))

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Mapping
 
 import numpy as np
@@ -25,17 +26,23 @@ from gcn_song_embeddings_tpu_torch.models.baselines.base import (
 )
 
 PRECOMP_K = 1000  # reference eval.py:31
+# threads that compress finished rows' kNN caches while the next rows
+# train (zlib releases the GIL); one cache takes seconds at 100k x 100
+KNN_WRITERS = 4
 
 
 def precompute_model(model: PredictionModel, model_name: str, graph, ids,
                      train_pos, test_pos, features, save_dir: str,
                      k: int = PRECOMP_K, knn_batch: int = 1000,
-                     verbose: bool = True) -> None:
+                     verbose: bool = True, write=None):
     """Train + cache one model's embeddings and kNN lists if not cached
-    (reference precompute_model, eval.py:52-71)."""
+    (reference precompute_model, eval.py:52-71).  ``write(fn, *args,
+    **kwargs)`` runs the compressed kNN cache write (default: here) and
+    its result is returned, e.g. ``ThreadPoolExecutor.submit``'s future;
+    None where the row was cached already or written here."""
     knn_path = os.path.join(save_dir, "knn", model_name + ".npz")
     if os.path.isfile(knn_path):
-        return
+        return None
 
     if verbose:
         print(f"Training {model_name}...")
@@ -70,11 +77,14 @@ def precompute_model(model: PredictionModel, model_name: str, graph, ids,
         if verbose and n > knn_batch:
             print(f"  knn {stop}/{n}")
     os.makedirs(os.path.dirname(knn_path), exist_ok=True)
-    np.savez_compressed(
-        knn_path,
-        knn_w=np.concatenate(w_list, 0).astype(np.float32),
-        knn_n=np.concatenate(n_list, 0).astype(np.int32),
-        train_time=train_time, emb_time=emb_time, knn_time=knn_time)
+    arrays = dict(knn_w=np.concatenate(w_list, 0).astype(np.float32),
+                  knn_n=np.concatenate(n_list, 0).astype(np.int32),
+                  train_time=train_time, emb_time=emb_time,
+                  knn_time=knn_time)
+    if write is None:
+        np.savez_compressed(knn_path, **arrays)
+        return None
+    return write(np.savez_compressed, knn_path, **arrays)
 
 
 def load_knn(model_name: str, save_dir: str):
@@ -119,8 +129,16 @@ def get_knn_dict(models: dict[str, PredictionModel], graph, ids, train_pos,
                  test_pos, features, save_dir: str, k: int = PRECOMP_K,
                  verbose: bool = True) -> LazyKnnDict:
     """Precompute every model then return the lazy cache view
-    (reference get_knn_dict, eval.py:166-175)."""
-    for name, model in models.items():
-        precompute_model(model, name, graph, ids, train_pos, test_pos,
-                         features, save_dir, k=k, verbose=verbose)
+    (reference get_knn_dict, eval.py:166-175).  Each row's kNN cache is
+    compressed on one of ``KNN_WRITERS`` threads while the next rows run;
+    every write has finished (and any error of one is raised) before the
+    view is returned."""
+    with ThreadPoolExecutor(max_workers=KNN_WRITERS) as pool:
+        pending = [precompute_model(model, name, graph, ids, train_pos,
+                                    test_pos, features, save_dir, k=k,
+                                    verbose=verbose, write=pool.submit)
+                   for name, model in models.items()]
+        for future in pending:
+            if future is not None:
+                future.result()
     return LazyKnnDict(list(models.keys()), save_dir)

@@ -222,6 +222,47 @@ def agreed_cache(path, n_items, T, cfg, seed, n_edges, device, group=None):
     return cached if C.all_true(cached is not None, device, group) else None
 
 
+def _neighborhood_sweep_nodeset(tables, origins: torch.Tensor,
+                                n_hops: int, alpha: float, T: int,
+                                uniforms, batch: int, n_chains: int = 1,
+                                progress=None
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Walks + top-T over an explicit origin array (the refresh walks only
+    the affected origins), in blocks of ``batch`` (the last one padded
+    with its last origin): K1 on CUDA tensors, the plain walk on the CPU.
+
+    ``tables`` are ``fused_walk_tables`` of the graph, ``origins`` [n]
+    int.  ``uniforms`` is a ``torch.Generator`` (each block draws its
+    [n_hops / n_chains, batch * n_chains, 3] uniforms from it in turn) or
+    a callable ``(start, n_walkers)`` giving the block at offset
+    ``start`` of ``origins`` its uniforms.  ``progress(stop)`` is called
+    after each block.  Returns (weights [n, T] f32, nodes [n, T] int32)
+    on the origins' device; under the same uniforms a block's rows equal
+    the JAX package's ``_neighborhood_sweep_nodeset``'s bit for bit."""
+    if isinstance(uniforms, torch.Generator):
+        gen = uniforms
+
+        def uniforms(start, n_walkers):
+            return draw_uniforms(n_hops // n_chains, n_walkers, gen)
+    n = origins.shape[0]
+    dev = origins.device
+    origins = origins.to(torch.int32)
+    out_w = torch.empty((n, T), dtype=torch.float32, device=dev)
+    out_n = torch.empty((n, T), dtype=torch.int32, device=dev)
+    for start in range(0, n, batch):
+        stop = min(start + batch, n)
+        block = origins[stop - 1].repeat(batch)
+        block[:stop - start] = origins[start:stop]
+        w, nodes = sample_neighborhood_topt_tables(
+            tables, block, n_hops, alpha, T,
+            uniforms(start, batch * n_chains), n_chains)
+        out_w[start:stop] = w[:stop - start]
+        out_n[start:stop] = nodes[:stop - start]
+        if progress is not None:
+            progress(stop)
+    return out_w, out_n
+
+
 def affected_origins(old_w: np.ndarray, old_n: np.ndarray,
                      added_pairs: np.ndarray, n_items: int) -> np.ndarray:
     """Origins whose cached top-T neighborhood can change when the item
@@ -275,22 +316,15 @@ def refresh_neighborhoods(graph: DeviceGraph, cfg: WalkConfig,
                 return draw_uniforms(
                     cfg.n_hops // chains, n_walkers,
                     seeded_generator([seed, REFRESH_SALT, start], dev))
-        tables = fused_walk_tables(graph)
-        aff_d = torch.as_tensor(aff, device=dev)
-        out_w = torch.empty((len(aff), T), dtype=torch.float32, device=dev)
-        out_n = torch.empty((len(aff), T), dtype=torch.int32, device=dev)
-        bs = cfg.batch_walkers
-        for start in range(0, len(aff), bs):
-            stop = min(start + bs, len(aff))
-            block = aff_d[stop - 1].repeat(bs)
-            block[:stop - start] = aff_d[start:stop]
-            w, n = sample_neighborhood_topt_tables(
-                tables, block, cfg.n_hops, cfg.alpha, T,
-                uniforms(start, bs * chains), chains)
-            out_w[start:stop] = w[:stop - start]
-            out_n[start:stop] = n[:stop - start]
+
+        def progress(stop):
             if verbose:
                 print(f"refresh: {stop}/{len(aff)} re-swept")
+
+        out_w, out_n = _neighborhood_sweep_nodeset(
+            fused_walk_tables(graph), torch.as_tensor(aff, device=dev),
+            cfg.n_hops, cfg.alpha, T, uniforms, cfg.batch_walkers, chains,
+            progress)
         new_w[aff] = out_w.cpu().numpy()
         new_n[aff] = out_n.cpu().numpy()
     _save_cache(path, new_w, new_n, cfg, seed, graph.n_edges)

@@ -247,6 +247,45 @@ def test_harness_cache_is_read_by_both_packages(graph, positives, tmp_path):
                                   jharness.load_knn("R", port_dir)[1])
 
 
+def test_threaded_cache_writes_equal_the_serial_ones(graph, positives,
+                                                     tmp_path):
+    """``get_knn_dict`` compresses each row's cache on a writer thread;
+    every cache it leaves equals ``precompute_model``'s written in
+    line, for more rows than writer threads."""
+    train, test = positives[:1000], positives[1000:]
+    models, serial = {}, str(tmp_path / "serial")
+    for i in range(harness.KNN_WRITERS + 2):
+        path = str(tmp_path / f"emb{i}.npy")
+        np.save(path, _emb(graph.n_items, 8, seed=20 + i))
+        models[f"E{i}"] = EmbLoader(path, device="cpu")
+        harness.precompute_model(models[f"E{i}"], f"E{i}", graph,
+                                 graph.track_ids, train, test, None, serial,
+                                 k=40, verbose=False)
+    lazy = harness.get_knn_dict(models, graph, graph.track_ids, train, test,
+                                None, str(tmp_path / "threaded"), k=40,
+                                verbose=False)
+    for name in models:
+        got, want = lazy[name], harness.load_knn(name, serial)[:2]
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_a_failed_cache_write_is_raised(graph, positives, tmp_path,
+                                        monkeypatch):
+    emb_path = str(tmp_path / "emb.npy")
+    np.save(emb_path, _emb(graph.n_items, 8, seed=30))
+
+    def failing(path, **arrays):
+        raise OSError(f"disk full writing {path}")
+
+    monkeypatch.setattr(harness.np, "savez_compressed", failing)
+    with pytest.raises(OSError, match="disk full"):
+        harness.get_knn_dict({"E": EmbLoader(emb_path, device="cpu")},
+                             graph, graph.track_ids, positives[:1000],
+                             positives[1000:], None, str(tmp_path / "c"),
+                             k=20, verbose=False)
+
+
 def test_tables_match_pandas_tables(graph, positives, tmp_path):
     knn = {"A": (None, _knn_lists(500, 120, seed=10)),
            "B,c": (None, _knn_lists(500, 120, seed=11))}

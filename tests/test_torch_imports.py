@@ -95,7 +95,8 @@ def test_every_port_module_imports_with_jax_blocked():
                    "parallel.walks_sharded", "parallel.train_step",
                    "parallel.serve_sharded", "data.explore",
                    "data.collector", "evals.qualitative",
-                   "utils.profiling", "hard_bench", "serve_int8_quality"):
+                   "utils.profiling", "hard_bench", "serve_int8_quality",
+                   "scale_demo", "refresh_1m", "hybrid_1m", "serve_bench"):
         assert prefix + module in names
 
 
@@ -106,6 +107,8 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "from gcn_song_embeddings_tpu_torch import cli, features, serve\n"
         "from gcn_song_embeddings_tpu_torch import hard_bench\n"
         "from gcn_song_embeddings_tpu_torch import serve_int8_quality\n"
+        "from gcn_song_embeddings_tpu_torch import scale_demo, refresh_1m\n"
+        "from gcn_song_embeddings_tpu_torch import hybrid_1m, serve_bench\n"
         "from gcn_song_embeddings_tpu_torch.models import "
         "audio_embedders as ae\n"
         "from gcn_song_embeddings_tpu_torch.models import gnnlib\n"
@@ -152,7 +155,11 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "         lambda: serve_int8_quality.main(['--work-dir',\n"
         "                                          'nowhere']),\n"
         "         lambda: serve_int8_quality.int8_rank_eval(\n"
-        "             np.eye(4, dtype='f4'), [[0, 1]])]\n"
+        "             np.eye(4, dtype='f4'), [[0, 1]]),\n"
+        "         lambda: scale_demo.main(['--work-dir', 'nowhere']),\n"
+        "         lambda: refresh_1m.main(['--work-dir', 'nowhere']),\n"
+        "         lambda: hybrid_1m.main(['--work-dir', 'nowhere']),\n"
+        "         lambda: serve_bench.main(['--tracks', '8'])]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"
