@@ -51,25 +51,9 @@
    ``profiling.Timer`` phases on CUDA events, a ``profiling.
    device_profile`` trace, the recommendation lists and figure of 3
    queries from the f32 and bf16 runs' embeddings.
-6. Drives the eval path with the counters set to 0 again: ``SongGraph``
-   through the native ``graph.json`` reader (its ``load_graph_s`` beside
-   the ``json`` module's time for the same file), then ``cli eval`` of
-   every row of the JAX CLI at K=100 over the 100k catalog (Random,
-   PageRank and PageRankCo with K1, JaccardFast, Node2Vec with skip-gram
-   cut to 1 epoch, the four CF rows, GraphSAGE, GAT, GCN, Features, the
-   trained PinSage row and its Hybrid row, whose walk head runs K1),
-   counting K1's launches by row.  Fails unless K1 ran, both CSVs hold
-   finite rows and every kNN cache is [100000, 100] (JaccardFast's
-   [100000, 99]); then ALS on the card against the CPU, node2vec walks on
-   the card from CPU draws against the CPU's (every step an edge), the
-   BPR and LMF scatter-adds of duplicate ids against float64 and each GNN
-   row's falling loss; then ``rank_eval`` on the card over all test pairs must
-   give the PinSage row's hit@10 and hit@100 within 1e-3 of the CSV's,
-   the kNN ids of 256 PinSage queries on the card must equal a CPU f32
-   recompute up to ties within 1e-6, and ``embed_all`` at N=100k must
-   project once per layer (K2), at its default block and at
-   ``block_rows=32_768`` alike (same embeddings within 1e-5).  Prints an
-   ``eval_walls`` line.
+6. Holds ``embed_all`` at N=100k to one K2 projection per layer, at its
+   default block and at ``block_rows=32_768`` alike (same embeddings
+   within 1e-5).  (The eval path runs in step 13, on the roster.)
 7. Drives the int8 serving path on the trained ``emb.npy`` with the
    counters set to 0 again: the int8 ``EmbeddingIndex`` and the int8
    cached-head and live-walk (K1) ``HybridIndex`` answer single and batched
@@ -169,7 +153,49 @@
    them; prints a ``hard_checks`` line (both margins' f32 and int8
    metrics beside the JAX package's recorded ones, the kernels at the
    phase's shapes, the phase walls) after the card line.
-13. Right after the hard phase, the 1M catalog with the counters set to 0
+13. Right after the hard phase, on its dataset, PPR cache and both
+   models, the co-listen A/B cut (``colisten_ab``) with the counters set
+   to 0 again: ``colisten_ab.run`` for cf_als, cf_bpr (TrackTrackCF on
+   the train split) and the PPR controls ppr_plain and ppr_co1 (top-1000
+   lists of 1000-hop walks over the plain and co-listen augmented graph,
+   blocks of 2,048, K1), plain10 from the hard phase's margin-1e-5 model
+   (its config, checked) and co1_T10 cut to 10 of its 30 epochs (the
+   co-listen sweep with K1, 5,000 frontier steps at T=10 with K3 and its
+   backward, the embed with K2); fails unless co1_T10 reaches 1.5x
+   plain10 on hit@100, ppr_co1 2x ppr_plain on hit@10, and co1_T10 passes
+   ppr_co1 and cf_als on hit@500.  Then 3 steps and the embed of the
+   co1_T20 and co1_T10_d512 configs (T=20; hidden 1024, out 512), each
+   counted, and the new shapes held to their plain versions: K1 at the
+   ppr_co1 control's first and padded last block (B=2,048, H=1,000,
+   top-1000 equal to the arm's lists), K3 with its backward at both
+   aggregations of a frontier step and K2 with the backward at both
+   ``embed_all`` layers of each (K2_ATOL, GRAD_RTOL).  Then, with the
+   counters set to 0 again, the eval path on the roster: ``SongGraph``
+   through the native ``graph.json`` reader (timed beside the ``json``
+   module's time for the same file), then ``hard_roster``'s ``cli eval``
+   of every row of the JAX CLI at K=1000 over the hard catalog (Random,
+   PageRank and PageRankCo with K1, JaccardFast, Node2Vec with skip-gram
+   cut to 1 epoch, the four CF rows, GraphSAGE, GAT, GCN, Features, the
+   PinSage rows ``pinsage_hard`` (the margin-0.1 model) and
+   ``pinsage_hard_co`` (the cut co1_T10) and ``Hybrid:pinsage_hard_co``,
+   whose walk head runs K1), counting K1's launches by row.  Fails unless
+   K1 ran, both CSVs hold finite rows and every kNN cache is [N, 1000]
+   (JaccardFast's [N, 999]); then ALS on the card against the CPU,
+   node2vec walks on the card from CPU draws against the CPU's (every
+   step an edge), the BPR and LMF scatter-adds of duplicate ids against
+   float64 and each GNN row's falling loss; ``rank_eval`` on the card
+   over all test pairs must give the margin-0.1 PinSage row's hit@10 and
+   hit@100 within 1e-3 of the CSV's and the kNN ids of 256 of its
+   queries on the card must equal a CPU f32 recompute up to ties within
+   1e-6; and the roster's orderings (JAX's table's) must hold: the
+   Hybrid row at least its PinSage row on hr@100 and PageRankCo on
+   hr@500, PageRankCo over PageRank on hr@10, and PageRank, both
+   TrackTrackCf rows and the co-listen PinSage row over Features over
+   Random on hr@100.  Prints an ``eval_walls`` line and, after the card
+   line, a ``colisten_checks`` line (the A/B rows beside JAX's, the
+   ratios, both roster tables, the walls); the kernels line gains the
+   five new-shape rows.
+14. Right after the co-listen phase, the 1M catalog with the counters set to 0
    again, in one work dir (``run_1m_path``): ``scale_demo`` with the
    co-listen capstone's command (``SCALE_1M_ARGV``: the hard generator
    at 1,000,000 tracks, 250,000 playlists, 1,000,000 positives, 128-d
@@ -198,7 +224,7 @@
    walls, peak device bytes, the served tables' device bytes, the int8
    top-10 overlap, JAX's 1M readings beside) after the card line; the
    kernels line gains the five 1M rows.
-14. Checks the outputs: finite embeddings of the expected shape that match
+15. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
 
@@ -1910,96 +1936,6 @@ def count_walk_launches(walk_kernel, models) -> dict:
     return counts
 
 
-def run_eval_path(dev, st, tr_st, work: str):
-    """The eval path, as a user runs it: ``SongGraph`` through the native
-    ``graph.json`` reader (timed beside the ``json`` module's reading of
-    the same file), then ``cli eval`` of every row of the JAX CLI at K=100
-    with ``--hybrid-runs`` on the trained run (its ``cmd_eval`` body:
-    ``eval_models`` then ``run_eval``, with node2vec cut to
-    ``NODE2VEC_EPOCHS``); K1 walks for PageRank, PageRankCo and the
-    Hybrid row's head.  Then the parts of ``eval_s`` outside the rows' own
-    times, timed again: one cache's read and compressed write, and each
-    table.  Returns its state."""
-    from types import SimpleNamespace
-
-    import numpy as np
-
-    from gcn_song_embeddings_tpu_torch import cli
-    from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
-    from gcn_song_embeddings_tpu_torch.evals.harness import LazyKnnDict
-    from gcn_song_embeddings_tpu_torch.evals.tables import (
-        compute_beyond_accuracy_table,
-        compute_results_table,
-    )
-    from gcn_song_embeddings_tpu_torch.native import jsongraph
-    from gcn_song_embeddings_tpu_torch.ops import walk_kernel
-
-    ds = st.ds
-    walls = {}
-    t = time.perf_counter()
-    graph = SongGraph(ds, features_file=os.path.join(ds, "features.npy"))
-    walls["load_graph_s"] = time.perf_counter() - t
-    if graph.edge_reader != "native":
-        raise AssertionError(f"graph.json read by {graph.edge_reader!r}, "
-                             f"not the native scanner")
-    path = os.path.join(ds, "graph.json")
-    t = time.perf_counter()
-    jsongraph.load_edges(path, graph.index_map)
-    walls["native_edges_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    src, dst = jsongraph.load_edges_json(path, graph.index_map)
-    walls["json_module_edges_s"] = time.perf_counter() - t
-    if not (np.array_equal(src, graph._edges_from)
-            and np.array_equal(dst, graph._edges_to)):
-        raise AssertionError("native and json edge readers disagree")
-    log(f"SongGraph ({graph.edge_reader} edges, tracks.json and "
-        f"collections.json by the json module, CSR build): "
-        f"{walls['load_graph_s']:.3f} s; graph.json's {len(src)} edges: "
-        f"native {walls['native_edges_s']:.3f} s, json module "
-        f"{walls['json_module_edges_s']:.3f} s")
-
-    run_name = os.path.basename(tr_st.run_dir)
-    pinsage = f"PinSage:{run_name}"
-    eval_dir = os.path.join(work, "eval")
-    args = cli.parser().parse_args([
-        "eval", "--dataset", ds, "--run-dir", os.path.dirname(tr_st.run_dir),
-        "--pinsage-runs", run_name, "--hybrid-runs", run_name,
-        "--k", str(EVAL_K), "--eval-dir", eval_dir, "--device", str(dev)])
-    t = time.perf_counter()
-    eval_graph = cli.load_graph(args.dataset, args.features)
-    models = cli.eval_models(args, eval_graph, dev)
-    models["Node2Vec"].epochs = NODE2VEC_EPOCHS
-    row_walks = count_walk_launches(walk_kernel, models)
-    cli.run_eval(args, eval_graph, models, dev)
-    walls["eval_s"] = time.perf_counter() - t
-    log(f"eval: {len(models)} rows in {walls['eval_s']:.1f} s; K1 launches "
-        f"by row: {json.dumps({k: v for k, v in row_walks.items() if v})}")
-    # the part of eval_s outside the models' own times, timed again here
-    # on the same caches: one kNN cache's read and compressed write (the
-    # PinSage row's; every [N, 100] cache has the same size), and each
-    # table (which reads every cache once)
-    t = time.perf_counter()
-    with np.load(os.path.join(eval_dir, "knn", pinsage + ".npz")) as z:
-        arrays = dict(z)
-    walls["one_knn_cache_read_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    np.savez_compressed(os.path.join(work, "knn_rewrite.npz"), **arrays)
-    walls["one_knn_cache_write_s"] = time.perf_counter() - t
-    _, test_pos = graph.load_positives_split(
-        os.path.join(ds, "positives.json"))
-    knn = LazyKnnDict(list(models), eval_dir)
-    t = time.perf_counter()
-    compute_results_table(knn, test_pos, graph.in_degrees())
-    walls["accuracy_table_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    compute_beyond_accuracy_table(knn, test_pos, graph.in_degrees(),
-                                  graph.features, device=dev)
-    walls["beyond_table_s"] = time.perf_counter() - t
-    return SimpleNamespace(graph=graph, eval_dir=eval_dir, pinsage=pinsage,
-                           models=tuple(models), built=models,
-                           row_walks=row_walks, walls=walls)
-
-
 def read_csv_rows(path: str) -> dict:
     """A results CSV -> {model: {column: float}}."""
     import csv
@@ -2010,9 +1946,9 @@ def read_csv_rows(path: str) -> dict:
             for r in rows[1:]}
 
 
-def check_eval(torch, dev, ev, tr_st) -> dict:
+def check_eval(torch, dev, ev) -> dict:
     """The eval path's outputs: both CSVs hold a finite row per model, each
-    kNN cache is [N, 100] (JaccardFast's [N, 99]); ``rank_eval`` on the
+    kNN cache is [N, K] (JaccardFast's [N, K - 1]); ``rank_eval`` on the
     card over every test pair against the full catalog gives the PinSage
     row's hit@10 and hit@100 within 1e-3 of the list-based table's; the kNN
     ids of 256 PinSage queries on the card equal a CPU f32 recompute up to
@@ -2035,7 +1971,7 @@ def check_eval(torch, dev, ev, tr_st) -> dict:
         with np.load(os.path.join(ev.eval_dir, "knn", model + ".npz")) as z:
             shape = z["knn_n"].shape
         # JaccardFast drops its top-k's column 0, as the reference does
-        k = EVAL_K - 1 if model == "JaccardFast" else EVAL_K
+        k = ev.k - 1 if model == "JaccardFast" else ev.k
         if shape != (graph.n_items, k):
             raise AssertionError(f"knn/{model}.npz has shape {shape}")
     acc = tables["results_accuracy.csv"]
@@ -2043,7 +1979,7 @@ def check_eval(torch, dev, ev, tr_st) -> dict:
         os.path.join(graph.base_dir, "positives.json"))
     out = {"accuracy": acc, "beyond": tables["results_beyond.csv"],
            "rank_eval": {}}
-    for model, emb in ((ev.pinsage, tr_st.emb),
+    for model, emb in ((ev.pinsage, ev.emb),
                        ("Features", np.load(os.path.join(
                            graph.base_dir, "features.npy")))):
         sync(torch, dev)
@@ -2063,13 +1999,13 @@ def check_eval(torch, dev, ev, tr_st) -> dict:
                                  f"for {model}: {diff}")
     queries = np.arange(0, graph.n_items, graph.n_items // EVAL_QUERIES)
     queries = queries[:EVAL_QUERIES]
-    gw, gn = knn_from_emb(tr_st.emb, queries, k=EVAL_K, device=dev)
-    cw, cn = knn_from_emb(tr_st.emb, queries, k=EVAL_K, device="cpu")
+    gw, gn = knn_from_emb(ev.emb, queries, k=ev.k, device=dev)
+    cw, cn = knn_from_emb(ev.emb, queries, k=ev.k, device="cpu")
     # "equal up to ties": in each place the card's id and the CPU's have
     # exact (float64) cosines within 1e-6 of each other, so ids differ
     # only by a swap inside a near-tie (the self-drop's included) or at
     # the list's end
-    e = np.asarray(tr_st.emb, dtype=np.float64)
+    e = np.asarray(ev.emb, dtype=np.float64)
     e = e / np.linalg.norm(e, axis=1, keepdims=True)
 
     def exact(ids):
@@ -2159,8 +2095,8 @@ def f64_lmf_step(np, m, X, Y, u, i, r, jneg):
 def check_eval_rows(torch, dev, ev) -> dict:
     """Card-side checks of the eval rows' plain-PyTorch paths: ``ALS.fit``
     on the card against the CPU at a small size (within 1e-4 of the largest
-    factor); node2vec walks of 4096 starts over the Node2Vec row's 100k
-    alias graph, on the card from draws made on the CPU, equal to the CPU's
+    factor); node2vec walks of 4096 starts over the Node2Vec row's alias
+    graph, on the card from draws made on the CPU, equal to the CPU's
     walks with every step an edge of the projection; the BPR and LMF steps
     on a batch of heavily duplicated ids equal to a float64 reference
     within the rounding of their f32 additions (the most repeated id's
@@ -3483,7 +3419,7 @@ def run_hard_path(dev, work: str, argv=()) -> dict:
                                  f"{np.isfinite(emb).all()}")
     return {"summary": hb.summary, "metrics": hb.metrics, "rows": rows,
             "rank_eval_cpu": cpu, "int8_rank_eval": int8, "walls": walls,
-            "bench": hb,
+            "bench": hb, "emb_1e5": emb_1e5, "cfg_1e5": cfg,
             "config": {"tracks": hb.graph.n_items,
                        "test_pairs": int(len(hb.test_pos)),
                        "epochs": args.epochs,
@@ -3604,6 +3540,412 @@ def check_hard(hp) -> dict:
             "rank_eval_card_vs_cpu_max_abs": card_cpu,
             "int8_rank_eval_card_vs_cpu_max_abs": card_cpu8,
             "jax_reference": JAX_HARD, "walls": hp["walls"]}
+
+
+# ---- the co-listen A/B and the full roster (colisten_ab, hard_roster) ----
+# on the hard phase's dataset, PPR cache and both models.  Cuts for the
+# script's time limit, each run uncut as a command of its own (README): the
+# A/B runs AB_RUN_ARMS, plain10 (the hard phase's margin-1e-5 model, the
+# arm's config) and co1_T10 at AB_EPOCHS of its 30 epochs; co1_T20 and
+# co1_T10_d512 take NEW_SHAPE_STEPS steps of their configs; the roster's
+# eval scores pinsage_hard (the hard phase's margin-0.1 model, that run's
+# config) and pinsage_hard_co (the cut co1_T10, that run's config) at the
+# CLI's K=1000, with Node2Vec at NODE2VEC_EPOCHS
+AB_RUN_ARMS = ("cf_als", "cf_bpr", "ppr_plain", "ppr_co1")
+AB_EPOCHS = 10
+NEW_SHAPE_ARMS = ("co1_T20", "co1_T10_d512")
+NEW_SHAPE_STEPS = 3
+ROSTER_CO = "pinsage_hard_co"
+# the A/B's bars (JAX's rows clear each with a wide margin): co1_T10 over
+# plain10 on hit@100 (JAX 0.618 at 30 epochs / 0.280), ppr_co1 over
+# ppr_plain on hit@10 (0.381 / 0.118), co1_T10 over ppr_co1 and cf_als on
+# hit@500 (0.858 / 0.688, 0.549)
+AB_BARS = (("co1_T10", "plain10", "hit@100", 1.5),
+           ("ppr_co1", "ppr_plain", "hit@10", 2.0),
+           ("co1_T10", "ppr_co1", "hit@500", 1.0),
+           ("co1_T10", "cf_als", "hit@500", 1.0))
+# the JAX package's rows (results/colisten_ab.jsonl, 30 x 500 unless the arm
+# names another schedule), for reference only
+JAX_AB = {
+    "cf_als": {"hit@10": 0.19032, "hit@100": 0.47646, "hit@500": 0.54866,
+               "mrr@1000": 0.07413},
+    "cf_bpr": {"hit@10": 0.26198, "hit@100": 0.445, "hit@500": 0.50517,
+               "mrr@1000": 0.09558},
+    "ppr_plain": {"hit@10": 0.11801, "hit@100": 0.41109, "hit@500": 0.50188,
+                  "mrr@1000": 0.06111},
+    "ppr_co1": {"hit@10": 0.38106, "hit@100": 0.662, "hit@500": 0.6879,
+                "mrr@1000": 0.19407},
+    "plain10": {"hit@10": 0.09432, "hit@100": 0.28016, "hit@500": 0.64717,
+                "mrr@1000": 0.04256},
+    "co1_T10": {"hit@10": 0.34057, "hit@100": 0.61762, "hit@500": 0.85747,
+                "mrr@1000": 0.12924}}
+
+
+def run_colisten_path(dev, hp, work: str) -> dict:
+    """The A/B, cut, on the hard phase's data: ``colisten_ab.run`` for the
+    CF rows and the PPR controls (their top-1000 lists and K1 launches
+    kept), plain10 from the hard phase's margin-1e-5 model (the arm's
+    config; not trained again) and co1_T10 at AB_EPOCHS epochs through
+    the module's trainer (its co-listen sweep with K1, K3 and its
+    backward every step, the embed with K2), each row appended to the
+    A/B's JSON lines.  Returns its state."""
+    import dataclasses
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch import colisten_ab as ab
+    from gcn_song_embeddings_tpu_torch.ops import walk_kernel
+
+    hb = hp["bench"]
+    data = ab.Data(hb.graph, hb.dg, hb.train_pos, hb.test_pos, hb.ds_path)
+    ab_work = os.path.join(work, "colisten_ab")
+    shutil.rmtree(ab_work, ignore_errors=True)
+    walls, lists = {}, []
+    ppr_lists = ab.ppr_lists
+
+    def kept(graph, n_items, **kw):
+        before = walk_kernel.launches
+        knn = ppr_lists(graph, n_items, **kw)
+        lists.append({"graph": graph, "knn": knn,
+                      "launches": walk_kernel.launches - before})
+        return knn
+
+    args = ab.parse_args(["--work-dir", ab_work, "--arms",
+                          ",".join(AB_RUN_ARMS), "--device", str(dev)])
+    out = os.path.join(ab_work, "colisten_ab.jsonl")
+    t = time.perf_counter()
+    ab.ppr_lists = kept
+    try:
+        rows = ab.run(args, log, data=data)
+    finally:
+        ab.ppr_lists = ppr_lists
+    walls["cf_and_ppr_arms_s"] = time.perf_counter() - t
+    if sorted(rows) != sorted(AB_RUN_ARMS) or len(lists) != 2:
+        raise AssertionError(f"A/B arms run: {sorted(rows)}, PPR lists "
+                             f"{len(lists)}")
+
+    def same(a, b):
+        a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+        a.pop("run_name"), b.pop("run_name")
+        return a == b
+
+    overrides = dict(ab.ARMS)["plain10"]
+    if not same(ab.arm_config("plain10", overrides), hp["cfg_1e5"]):
+        raise AssertionError("plain10's config is not the hard phase's "
+                             "margin-1e-5 model's")
+    t = time.perf_counter()
+    rows["plain10"] = ab.emit(out, "plain10", ab.score(
+        hp["emb_1e5"], data.test_pos, dev), {
+            "reused": "the hard phase's margin-1e-5 model",
+            "overrides": overrides}, log)
+    walls["plain10_eval_s"] = time.perf_counter() - t
+
+    overrides = {**dict(ab.ARMS)["co1_T10"], "train.epochs": AB_EPOCHS}
+    cfg = ab.arm_config("co1_T10", overrides)
+    t = time.perf_counter()
+    trainer = ab.pinsage_trainer(data, cfg, ab_work, verbose=False)
+    walls["co1_T10_precompute_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    trainer.train()
+    walls["co1_T10_train_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    emb = trainer.embed()
+    rows["co1_T10"] = ab.emit(out, "co1_T10", ab.score(
+        emb, data.test_pos, dev), {
+            "precompute_s": round(walls["co1_T10_precompute_s"], 1),
+            "train_s": round(walls["co1_T10_train_s"], 1),
+            "embed_eval_s": round(time.perf_counter() - t, 1),
+            "overrides": overrides}, log)
+    walls["co1_T10_embed_eval_s"] = time.perf_counter() - t
+    if emb.shape != (data.graph.n_items, cfg.model.out_dim) or not (
+            np.isfinite(emb).all()):
+        raise AssertionError(f"co1_T10 embeddings: shape {emb.shape}")
+    return {"rows": rows, "lists": lists, "trainer": trainer, "emb": emb,
+            "data": data, "walls": walls, "out": out, "work": ab_work,
+            "steps": cfg.train.epochs * cfg.train.batches_per_epoch}
+
+
+def check_colisten(ab_state) -> dict:
+    """The A/B's bars (AB_BARS) on its rows; the rows beside JAX's.
+    Returns the ``colisten_checks`` line's payload."""
+    rows = ab_state["rows"]
+    ratios, low = {}, {}
+    for num, den, metric, bar in AB_BARS:
+        ratio = rows[num][metric] / max(rows[den][metric], 1e-12)
+        key = f"{num}/{den} {metric}"
+        ratios[key] = ratio
+        if not (ratio >= bar if bar > 1.0 else ratio > bar):
+            low[key] = (ratio, bar)
+    log(f"co-listen A/B (cut): {json.dumps(ratios)}")
+    if low:
+        raise AssertionError(f"A/B bars missed: {low} ({rows})")
+    metrics = ("hit@10", "hit@100", "hit@500", "mrr@1000")
+    return {"rows": {arm: {k: row[k] for k in metrics}
+                     for arm, row in rows.items()},
+            "ratios": ratios, "bars": [list(b) for b in AB_BARS],
+            "co1_T10_epochs": AB_EPOCHS, "jax_rows": JAX_AB,
+            "walls": dict(ab_state["walls"])}
+
+
+def run_new_shape(dev, ab_state, arm: str) -> dict:
+    """NEW_SHAPE_STEPS steps of ``arm``'s config (T=20, or hidden 1024 and
+    out 512) on the A/B's data and co-listen cache, then its embed:
+    K3 and its backward every step at the arm's shapes, K2 in the embed.
+    Returns the trainer and the wall."""
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch import colisten_ab as ab
+    from gcn_song_embeddings_tpu_torch.config import config_with_overrides
+    from gcn_song_embeddings_tpu_torch.train.trainer import PinSageTrainer
+
+    cfg = config_with_overrides(
+        ab.arm_config(arm, dict(ab.ARMS)[arm]),
+        {"train.epochs": 1, "train.batches_per_epoch": NEW_SHAPE_STEPS})
+    data = ab_state["data"]
+    g = data.graph
+    t = time.perf_counter()
+    trainer = PinSageTrainer(
+        data.dg, g.n_items, g.features, data.train_pos, cfg=cfg,
+        base_run_dir=os.path.join(ab_state["work"], "shapes"),
+        nbhds_path=os.path.join(data.ds_path, "neighborhoods.npz"),
+        log=False, load_save=False, verbose=False)
+    if trainer.fullgraph:
+        raise AssertionError(f"{arm} trains full-graph at {g.n_items} rows")
+    trainer.train()
+    emb = trainer.embed()
+    wall = time.perf_counter() - t
+    if emb.shape != (g.n_items, cfg.model.out_dim) or not np.isfinite(
+            emb).all():
+        raise AssertionError(f"{arm} embeddings: shape {emb.shape}")
+    log(f"{arm}: {NEW_SHAPE_STEPS} steps and the embed in {wall:.2f} s")
+    return {"trainer": trainer, "wall_s": wall}
+
+
+def hold_colisten_kernels(torch, ab_state, shapes: dict) -> list:
+    """The phase's new shapes against their plain versions: K1 at the
+    ppr_co1 control's first block and its padded last block (B=2048,
+    H=1000 over the augmented hard graph; their top-1000 equal to the
+    arm's lists), and for each NEW_SHAPE_ARMS trainer K3 with its backward
+    at both aggregations of one frontier step and K2 (with the backward)
+    at both ``embed_all`` layers (``measure_aggregation``: K2_ATOL,
+    GRAD_RTOL).  Returns the kernels line's rows."""
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch import colisten_ab as ab
+    from gcn_song_embeddings_tpu_torch.models.pinsage import conv_from_table
+    from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg, walk_kernel
+    from gcn_song_embeddings_tpu_torch.ops.ppr import (
+        block_generator,
+        visit_counts_topt,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.walks import (
+        draw_uniforms,
+        fused_walk_tables,
+        walks_from_fused_tables,
+    )
+
+    rows = []
+    co = ab_state["lists"][1]
+    graph, knn = co["graph"], co["knn"]
+    dev, n = graph.device, graph.n_items
+    tables = fused_walk_tables(graph)
+    b, hops, k = ab.PPR_BLOCK, ab.PPR_HOPS, ab.PPR_K
+    k1_shapes = []
+    for start in (0, (n - 1) // b * b):
+        stop = min(start + b, n)
+        ids = np.full((b,), stop - 1, np.int32)
+        ids[:stop - start] = np.arange(start, stop, dtype=np.int32)
+        nodes = torch.as_tensor(ids, device=dev)
+        u = draw_uniforms(hops, b, block_generator(0, start, dev))
+        _, nb = visit_counts_topt(walks_from_fused_tables(
+            tables, nodes, hops, ab.PPR_ALPHA, u), nodes, k)
+        if not np.array_equal(nb[:stop - start].cpu().numpy(),
+                              knn[start:stop]):
+            raise AssertionError(f"ppr_co1's lists of block {start} differ "
+                                 f"from the plain walker's top-{k}")
+        k1_shapes.append((f"ppr_co1 control block at {start} B={b} "
+                          f"({stop - start} origins) H={hops} alpha="
+                          f"{ab.PPR_ALPHA}, top-{k}, {graph.n_edges} "
+                          f"directed edges", nodes, ab.PPR_ALPHA, u))
+    row = measure_k1(torch, walk_kernel, tables, k1_shapes, {
+        arm: lst["launches"] for arm, lst in zip(
+            ("colisten_ab_ppr_plain", "colisten_ab_ppr_co1"),
+            ab_state["lists"])})
+    row["name"] += " at the A/B's PPR control blocks"
+    rows.append(row)
+    log(f"A/B K1: both control blocks' top-{k} == ppr_co1's lists")
+
+    for arm, st in shapes.items():
+        trainer, counts = st["trainer"], st["launches"]
+        mcfg, t_nb = trainer.cfg.model, trainer.tables
+        step_shapes = step_conv_inputs(torch, trainer, trainer.sample(
+            block_generator(4242, 0, dev)))
+        k3 = measure_aggregation(torch, agg, "dma", step_shapes)
+        rows.append(kernel_row(
+            f"K3 fused 3xTF32 gather + Q-MLP + weighted mean "
+            f"(agg.conv_aggregate, mode dma) at {arm}", dma_agg.SOURCE,
+            dma_agg.REPLACES, {f"{arm}_steps": counts["dma_agg"]},
+            counts["agg_backward_dma"], k3,
+            f"both aggregations of a frontier step at B="
+            f"{trainer.cfg.train.batch_size} over the hard graph: "
+            f"{step_shapes[0][2].shape[0]} nodes x T={mcfg.T}, Din="
+            f"{step_shapes[0][1].shape[1]} and "
+            f"{step_shapes[1][2].shape[0]} nodes x T={mcfg.T}, Din="
+            f"{step_shapes[1][1].shape[1]}; H={mcfg.hidden_dim}"))
+        nb_idx = t_nb.nbhd_n[:, :mcfg.T].to(torch.int32).contiguous()
+        nb_wt = t_nb.nbhd_w[:, :mcfg.T].contiguous()
+        layers = trainer.params.layers
+        with torch.inference_mode():
+            h1 = conv_from_table(layers[0], t_nb.features, t_nb.features,
+                                 nb_idx, nb_wt)
+        k2 = measure_aggregation(torch, agg, "stream", [
+            (layers[0], t_nb.features, nb_idx, nb_wt, False),
+            (layers[1], h1, nb_idx, nb_wt, True)])
+        row = kernel_row(
+            f"K2 3xTF32 Q-MLP of every table row, then gather + weighted "
+            f"mean (agg.conv_aggregate, mode stream) at {arm}", agg.SOURCE,
+            agg.REPLACES, {f"{arm}_embed": counts["agg"]}, 0, k2,
+            f"both embed_all layers, N={trainer.n} T={mcfg.T}: Din="
+            f"{t_nb.features.shape[1]} and {h1.shape[1]}, H="
+            f"{mcfg.hidden_dim}; backward at the same shapes (a full-graph "
+            f"step's); P scratch {trainer.n * mcfg.hidden_dim * 4} bytes")
+        row["header"] = agg.HEADER
+        rows.append(row)
+        del h1
+    return rows
+
+
+def run_eval_path(dev, hp, ab_state, work: str):
+    """The eval path, as a user runs it, on the roster: ``SongGraph`` of
+    the hard dataset through the native ``graph.json`` reader (timed
+    beside the ``json`` module's reading of the same file), then
+    ``hard_roster``'s ``cli eval`` of every row of the JAX CLI at K=1000
+    over ``pinsage_hard`` (the hard phase's margin-0.1 model) and
+    ``pinsage_hard_co`` (the A/B's co1_T10) with ``--hybrid-runs
+    pinsage_hard_co`` (its ``cmd_eval`` body: ``eval_models`` then
+    ``run_eval``, with node2vec cut to ``NODE2VEC_EPOCHS``); K1 walks for
+    PageRank, PageRankCo and the Hybrid row's head.  Then the parts of
+    ``eval_s`` outside the rows' own times, timed again: one cache's read
+    and compressed write, and each table.  Returns its state (``pinsage``
+    and ``emb``: the row ``check_eval`` holds, pinsage_hard's)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch import cli, hard_roster
+    from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
+    from gcn_song_embeddings_tpu_torch.evals.harness import LazyKnnDict
+    from gcn_song_embeddings_tpu_torch.evals.tables import (
+        compute_beyond_accuracy_table,
+        compute_results_table,
+    )
+    from gcn_song_embeddings_tpu_torch.native import jsongraph
+    from gcn_song_embeddings_tpu_torch.ops import walk_kernel
+
+    ds = hp["bench"].ds_path
+    roster = os.path.join(work, "roster")
+    runs = os.path.join(roster, "runs")
+    shutil.rmtree(roster, ignore_errors=True)
+    run_embs = {"pinsage_hard": hp["bench"].emb, ROSTER_CO: ab_state["emb"]}
+    for name, emb in run_embs.items():
+        os.makedirs(os.path.join(runs, name))
+        np.save(os.path.join(runs, name, "emb.npy"), emb)
+    walls = {}
+    t = time.perf_counter()
+    graph = SongGraph(ds, features_file=os.path.join(ds, "features.npy"))
+    walls["load_graph_s"] = time.perf_counter() - t
+    if graph.edge_reader != "native":
+        raise AssertionError(f"graph.json read by {graph.edge_reader!r}, "
+                             f"not the native scanner")
+    path = os.path.join(ds, "graph.json")
+    t = time.perf_counter()
+    jsongraph.load_edges(path, graph.index_map)
+    walls["native_edges_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    src, dst = jsongraph.load_edges_json(path, graph.index_map)
+    walls["json_module_edges_s"] = time.perf_counter() - t
+    if not (np.array_equal(src, graph._edges_from)
+            and np.array_equal(dst, graph._edges_to)):
+        raise AssertionError("native and json edge readers disagree")
+    log(f"SongGraph ({graph.edge_reader} edges, tracks.json and "
+        f"collections.json by the json module, CSR build): "
+        f"{walls['load_graph_s']:.3f} s; graph.json's {len(src)} edges: "
+        f"native {walls['native_edges_s']:.3f} s, json module "
+        f"{walls['json_module_edges_s']:.3f} s")
+
+    # the margin-0.1 row's table is held against rank_eval: the co-listen
+    # run's margin 1e-5 crowds its cosines within f32 rounding of each
+    # other (int8 cannot resolve them, PR 12), where a list's order and
+    # the tie-fair average rank may part
+    pinsage = "PinSage:pinsage_hard"
+    eval_dir = os.path.join(roster, "baselines")
+    args = cli.parser().parse_args(hard_roster.eval_argv(
+        ds, runs, eval_dir, list(run_embs), [ROSTER_CO], str(dev)))
+    t = time.perf_counter()
+    eval_graph = cli.load_graph(args.dataset, args.features)
+    models = cli.eval_models(args, eval_graph, dev)
+    models["Node2Vec"].epochs = NODE2VEC_EPOCHS
+    row_walks = count_walk_launches(walk_kernel, models)
+    cli.run_eval(args, eval_graph, models, dev)
+    walls["eval_s"] = time.perf_counter() - t
+    log(f"eval: {len(models)} rows at K={args.k} in {walls['eval_s']:.1f} "
+        f"s; K1 launches by row: "
+        f"{json.dumps({k: v for k, v in row_walks.items() if v})}")
+    # the part of eval_s outside the models' own times, timed again here
+    # on the same caches: one kNN cache's read and compressed write (the
+    # PinSage row's; every [N, K] cache has the same size), and each
+    # table (which reads every cache once)
+    t = time.perf_counter()
+    with np.load(os.path.join(eval_dir, "knn", pinsage + ".npz")) as z:
+        arrays = dict(z)
+    walls["one_knn_cache_read_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    np.savez_compressed(os.path.join(roster, "knn_rewrite.npz"), **arrays)
+    walls["one_knn_cache_write_s"] = time.perf_counter() - t
+    _, test_pos = graph.load_positives_split(
+        os.path.join(ds, "positives.json"))
+    knn = LazyKnnDict(list(models), eval_dir)
+    t = time.perf_counter()
+    compute_results_table(knn, test_pos, graph.in_degrees())
+    walls["accuracy_table_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    compute_beyond_accuracy_table(knn, test_pos, graph.in_degrees(),
+                                  graph.features, device=dev)
+    walls["beyond_table_s"] = time.perf_counter() - t
+    return SimpleNamespace(graph=graph, eval_dir=eval_dir, pinsage=pinsage,
+                           emb=hp["bench"].emb, k=args.k,
+                           models=tuple(models), built=models,
+                           row_walks=row_walks, walls=walls)
+
+
+def check_roster(ev) -> dict:
+    """The roster table's orderings (those of JAX's
+    results/hard_roster_accuracy.csv): the Hybrid row at least its
+    PinSage row on hr@100 and PageRankCo on hr@500, PageRankCo over
+    PageRank on hr@10, and PageRank, both TrackTrackCf rows and the
+    co-listen PinSage row over Features over Random on hr@100.  Returns
+    both tables."""
+    acc = read_csv_rows(os.path.join(ev.eval_dir, "results_accuracy.csv"))
+    beyond = read_csv_rows(os.path.join(ev.eval_dir, "results_beyond.csv"))
+    hybrid, pinsage = f"Hybrid:{ROSTER_CO}", f"PinSage:{ROSTER_CO}"
+
+    def hr(row, k):
+        return acc[row][f"hr (k={k})"]
+
+    missed = []
+    for a, b, k, strict in ((hybrid, pinsage, 100, False),
+                            (hybrid, "PageRankCo", 500, False),
+                            ("PageRankCo", "PageRank", 10, True),
+                            ("Features", "Random", 100, True),
+                            *((row, "Features", 100, True) for row in (
+                                "PageRank", "TrackTrackCfALS",
+                                "TrackTrackCfBPR", pinsage))):
+        if not (hr(a, k) > hr(b, k) if strict else hr(a, k) >= hr(b, k)):
+            missed.append(f"{a} {hr(a, k)} vs {b} {hr(b, k)} at hr@{k}")
+    if missed:
+        raise AssertionError(f"roster orderings missed: {missed}")
+    log(f"roster orderings hold over {len(acc)} rows at K={ev.k}")
+    return {"accuracy": acc, "beyond": beyond, "k": ev.k}
 
 
 # ---- the 1M-track catalog (scale_demo, refresh_1m, hybrid_1m, serve_bench)
@@ -4283,19 +4625,8 @@ def main() -> int:
     st.walls["tail"] = tail["walls"]
     st.walls["16bit_and_tail_phases_s"] = time.perf_counter() - phases_t
 
-    # ---- the eval path, on the trained embeddings -----------------------
-    reset_counts()
-    ev = run_eval_path(dev, st, tr_st, work)
-    eval_launches = read_counts(("walk",))
-    log(f"launches on the eval path: {eval_launches}")
-    eval_checks = check_eval(torch, dev, ev, tr_st)
-    eval_checks["rows_on_the_card"] = check_eval_rows(torch, dev, ev)
-    eval_checks["project_once"] = check_project_once(torch, agg, st)
-    log(json.dumps({"eval_walls": {
-        **ev.walls, "models": {m: {c: eval_checks["accuracy"][m][c]
-                                   for c in ("t (train)", "t (emb)",
-                                             "t (knn)")}
-                               for m in ev.models}}}))
+    # ---- embed_all at N=100k projects once per layer (K2) ---------------
+    project_once = check_project_once(torch, agg, st)
 
     # ---- the int8 serving path, on the trained embeddings --------------
     reset_counts()
@@ -4333,6 +4664,45 @@ def main() -> int:
     st.walls["hard"] = hard_checks["walls"]
     log(card_line())
     log(json.dumps({"hard_checks": hard_checks}))
+
+    # ---- the co-listen A/B (cut), its new shapes, the roster's eval -----
+    t = time.perf_counter()
+    reset_counts()
+    ab_state = run_colisten_path(dev, hp, work)
+    ab_launches = read_counts(("walk", "agg", "agg_split", "dma_agg",
+                               "agg_backward_dma"))
+    log(f"launches on the co-listen A/B path: {ab_launches}")
+    colisten_checks = check_colisten(ab_state)
+    shapes = {}
+    for arm in NEW_SHAPE_ARMS:
+        reset_counts()
+        shapes[arm] = run_new_shape(dev, ab_state, arm)
+        shapes[arm]["launches"] = read_counts(("dma_agg", "agg_backward_dma",
+                                               "agg"))
+        log(f"launches on {arm}'s steps and embed: {shapes[arm]['launches']}")
+        colisten_checks["walls"][f"{arm}_s"] = shapes[arm]["wall_s"]
+    rows_colisten = hold_colisten_kernels(torch, ab_state, shapes)
+    del shapes
+    torch.cuda.empty_cache()
+    reset_counts()
+    ev = run_eval_path(dev, hp, ab_state, work)
+    eval_launches = read_counts(("walk",))
+    log(f"launches on the eval path (the roster): {eval_launches}")
+    eval_checks = check_eval(torch, dev, ev)
+    eval_checks["rows_on_the_card"] = check_eval_rows(torch, dev, ev)
+    eval_checks["project_once"] = project_once
+    colisten_checks["roster"] = check_roster(ev)
+    ev.built = None
+    colisten_checks["walls"]["phase_s"] = time.perf_counter() - t
+    st.walls["colisten"] = colisten_checks["walls"]
+    log(json.dumps({"eval_walls": {
+        **ev.walls, "models": {m: {c: eval_checks["accuracy"][m][c]
+                                   for c in ("t (train)", "t (emb)",
+                                             "t (knn)")}
+                               for m in ev.models}}}))
+    log(card_line())
+    log(json.dumps({"colisten_checks": colisten_checks}))
+    del hp, ab_state
     torch.cuda.empty_cache()
 
     # ---- the 1M catalog: scale_demo, refresh_1m, hybrid_1m, serve_bench --
@@ -4436,7 +4806,8 @@ def main() -> int:
          "all_eval_PageRank": pp.all_k1["cmd_eval"],
          "tail_crawl": tail_launches["walk"],
          **{f"sharded_{w}": c["walk"] for w, c in sharded.items()},
-         "hard": hard_launches["walk"]})]
+         "hard": hard_launches["walk"],
+         "colisten_ab": ab_launches["walk"]})]
     if sum(ev.row_walks.values()) != eval_launches["walk"]:
         raise AssertionError(f"eval K1 launches by row {ev.row_walks} do "
                              f"not add up to {eval_launches['walk']}")
@@ -4462,7 +4833,7 @@ def main() -> int:
         {"serve": launches["agg"], "train": train_launches["agg"],
          "all": prepare_launches["agg"],
          **{f"sharded_{w}": c["agg"] for w, c in sharded.items()},
-         "hard": hard_launches["agg"]},
+         "hard": hard_launches["agg"], "colisten_ab": ab_launches["agg"]},
         train_launches["agg_backward_stream"]
         + sum(c["agg_backward_stream"] for c in sharded.values()), k2,
         f"both embed_all layers, N={graph.n_items} T={mcfg.T}: Din=512 and "
@@ -4478,7 +4849,8 @@ def main() -> int:
             "all": prepare_launches[f"agg_{name}"],
             **{f"sharded_{w}": c[f"agg_{name}"]
                for w, c in sharded.items()},
-            "hard": hard_launches[f"agg_{name}"]}
+            "hard": hard_launches[f"agg_{name}"],
+            "colisten_ab": ab_launches[f"agg_{name}"]}
     results.append(row)
     row = kernel_row(
         "K3 fused 3xTF32 gather + Q-MLP + weighted mean "
@@ -4486,11 +4858,13 @@ def main() -> int:
         {"train": train_launches["dma_agg"],
          "all": prepare_launches["dma_agg"],
          **{f"sharded_{w}": c["dma_agg"] for w, c in sharded.items()},
-         "hard": hard_launches["dma_agg"]},
+         "hard": hard_launches["dma_agg"],
+         "colisten_ab": ab_launches["dma_agg"]},
         train_launches["agg_backward_dma"]
         + prepare_launches["agg_backward_dma"]
         + sum(c["agg_backward_dma"] for c in sharded.values())
-        + hard_launches["agg_backward_dma"], k3,
+        + hard_launches["agg_backward_dma"]
+        + ab_launches["agg_backward_dma"], k3,
         f"both aggregations of a frontier train step at B=128: "
         f"{step_shapes[0][2].shape[0]} nodes x T={mcfg.T}, Din=512 and "
         f"{step_shapes[1][2].shape[0]} nodes x T={mcfg.T}, Din=128; "
@@ -4535,6 +4909,7 @@ def main() -> int:
             f"(the {form}-rounded denominator)"))
         results[-1]["header"] = agg.HEADER
         results[-1]["ms_over_f32_k2_ms"] = k2_16["ms"] / k2["ms"]
+    results.extend(rows_colisten)
     results.extend(rows_1m)
     shutil.rmtree(work, ignore_errors=True)
     log(card_line())

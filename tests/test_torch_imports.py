@@ -96,7 +96,8 @@ def test_every_port_module_imports_with_jax_blocked():
                    "parallel.serve_sharded", "data.explore",
                    "data.collector", "evals.qualitative",
                    "utils.profiling", "hard_bench", "serve_int8_quality",
-                   "scale_demo", "refresh_1m", "hybrid_1m", "serve_bench"):
+                   "scale_demo", "refresh_1m", "hybrid_1m", "serve_bench",
+                   "colisten_ab", "hard_roster"):
         assert prefix + module in names
 
 
@@ -109,6 +110,7 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "from gcn_song_embeddings_tpu_torch import serve_int8_quality\n"
         "from gcn_song_embeddings_tpu_torch import scale_demo, refresh_1m\n"
         "from gcn_song_embeddings_tpu_torch import hybrid_1m, serve_bench\n"
+        "from gcn_song_embeddings_tpu_torch import colisten_ab, hard_roster\n"
         "from gcn_song_embeddings_tpu_torch.models import "
         "audio_embedders as ae\n"
         "from gcn_song_embeddings_tpu_torch.models import gnnlib\n"
@@ -159,7 +161,9 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "         lambda: scale_demo.main(['--work-dir', 'nowhere']),\n"
         "         lambda: refresh_1m.main(['--work-dir', 'nowhere']),\n"
         "         lambda: hybrid_1m.main(['--work-dir', 'nowhere']),\n"
-        "         lambda: serve_bench.main(['--tracks', '8'])]\n"
+        "         lambda: serve_bench.main(['--tracks', '8']),\n"
+        "         lambda: colisten_ab.main(['--work-dir', 'nowhere']),\n"
+        "         lambda: hard_roster.main(['--work-dir', 'nowhere'])]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"
