@@ -138,7 +138,12 @@
    indexes up to ties (tied runs as sets; the ids left unchecked are
    counted), and one HTTP request through rank 0.  Prints a
    ``sharded_checks`` line (checks, walls, backends); NCCL across cards
-   stays unverified.
+   stays unverified.  Then, in the same world after its checks, with the
+   counters set to 0 again, ``scaling_bench.run`` over the sub-meshes of
+   the first 1 and 2 ranks (``make_mesh(ranks=...)``; rank 1 idles
+   through size 1), 10 timed steps a size: the JAX script's keys, finite
+   positive edges/s, K3 and its backward on both ranks (two gloo ranks
+   on one card: the efficiency measures gloo, not scaling).
 12. Right after the sharded path, the hard benchmark with the counters
    set to 0 again: ``hard_bench.run`` at its defaults (the hard
    generator's 20,000 tracks, seed 0; PPR sweep with K1, 10 x 500
@@ -195,7 +200,24 @@
    line, a ``colisten_checks`` line (the A/B rows beside JAX's, the
    ratios, both roster tables, the walls); the kernels line gains the
    five new-shape rows.
-14. Right after the co-listen phase, the 1M catalog with the counters set to 0
+14. Right after the co-listen phase, the repository tools, each with the
+   counters set to 0 again: ``grid_refschedule.run`` with the colisten
+   schedule on a copy of the hard phase's dataset and PPR caches (the
+   module's hard catalog byte for byte), cut to co-listen 0 and 1 at T=3,
+   margin 1e-5, lr 1e-3, 1 x 500 (K3 and its backward, K2 in the
+   embeds): JAX's keys sorted by MRR, the co-listen config above the
+   plain one; the ref schedule's first 4-layer config on the main path's
+   catalog (512-d, its plain graph swept in memory with K1), 3 steps (K3
+   at L=4) and the embed (K2 over four layers); ``fullgraph_bench.run``
+   at its batch sizes with chunks of 5 and 25 and no 1M embed (K3 in the
+   off arms, K2 and its backward in the on arms), printing
+   ``auto_picks_winner`` for each B.  Then K3 with its backward at every
+   aggregation of the 4-layer step and of fullgraph_bench's B=4,096
+   frontier step, against their plain versions.  Prints a
+   ``tools_checks`` line (the grid rows, fullgraph_bench's JSON,
+   scaling_bench's, the walls) after the card line; the kernels line
+   gains the two new K3 rows.
+15. Right after the tools, the 1M catalog with the counters set to 0
    again, in one work dir (``run_1m_path``): ``scale_demo`` with the
    co-listen capstone's command (``SCALE_1M_ARGV``: the hard generator
    at 1,000,000 tracks, 250,000 playlists, 1,000,000 positives, 128-d
@@ -224,7 +246,7 @@
    walls, peak device bytes, the served tables' device bytes, the int8
    top-10 overlap, JAX's 1M readings beside) after the card line; the
    kernels line gains the five 1M rows.
-15. Checks the outputs: finite embeddings of the expected shape that match
+16. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
 
@@ -1105,31 +1127,37 @@ def three_step_checks(torch, trainer) -> dict:
 
 
 def step_conv_inputs(torch, trainer, batch):
-    """The two aggregations of one frontier train step on ``batch``, with
-    the step's own tables: (layer, table, ids, weights) for the deepest
-    conv (3B(T+1) nodes over the gathered feature rows) and the top conv
-    (3B nodes over the deepest conv's output)."""
+    """The aggregations of one frontier train step on ``batch``, with the
+    step's own tables, deepest first: (layer, table, ids, weights,
+    need_dh) for the deepest conv (over the gathered feature rows, no
+    dh), then each conv above it over the output of the one below."""
     from gcn_song_embeddings_tpu_torch.models.pinsage import conv_from_table
 
     mcfg, tables = trainer.cfg.model, trainer.tables
-    T = mcfg.T
+    T, L = mcfg.T, mcfg.n_layers
     nodes = torch.cat([batch[:, 0], batch[:, 1], batch[:, 2]]).long()
-    f1 = torch.cat([nodes, tables.nbhd_n[nodes, :T].reshape(-1).long()])
-    f2 = torch.cat([f1, tables.nbhd_n[f1, :T].reshape(-1).long()])
+    frontiers = [nodes]
+    for _ in range(L):
+        f = frontiers[-1]
+        frontiers.append(torch.cat([f, tables.nbhd_n[f, :T].reshape(-1)
+                                    .long()]))
 
     def ids(m):
         return (m + torch.arange(m * T, dtype=torch.int32,
                                  device=nodes.device)).reshape(m, T)
 
-    table0 = tables.features[f2]
-    w0 = tables.nbhd_w[f1, :T].contiguous()
-    w1 = tables.nbhd_w[nodes, :T].contiguous()
-    layer0, layer1 = trainer.params.layers[0], trainer.params.layers[1]
-    with torch.no_grad():
-        table1 = conv_from_table(layer0, table0[:len(f1)], table0,
-                                 ids(len(f1)), w0, mode="dma")
-    return [(layer0, table0, ids(len(f1)), w0, False),
-            (layer1, table1, ids(len(nodes)), w1, True)]
+    table = tables.features[frontiers[L]]
+    shapes = []
+    for level in reversed(range(L)):
+        f = frontiers[level]
+        layer = trainer.params.layers[L - 1 - level]
+        w = tables.nbhd_w[f, :T].contiguous()
+        shapes.append((layer, table, ids(len(f)), w, level < L - 1))
+        if level:
+            with torch.no_grad():
+                table = conv_from_table(layer, table[:len(f)], table,
+                                        ids(len(f)), w, mode="dma")
+    return shapes
 
 
 def agg_work(torch, nb_idx, nb_wt, din: int, hdim: int, n_rows: int,
@@ -2526,6 +2554,8 @@ SHARDED_ROWS = 64          # kNN queries held against one process's
 PART_WALKERS = 50_000      # the partitioned sweep's block (25,000 a rank)
 SHARDED_TIMEOUT_S = 480
 SERVE_START_S = 240        # a `serve --sharded` process's start, at most
+SCALING_STEPS = 10         # scaling_bench's steps a size (timed after as
+#                            many of warm-up), in the two-rank world
 SHARDED_EMB_SEED = 21      # the sharded kNN's table: seeded normal rows,
 #                            apart enough that few scores tie (the
 #                            seeded-init model's top cosines crowd near 1)
@@ -3087,6 +3117,7 @@ def sharded_rank_main(d: str) -> int:
     from gcn_song_embeddings_tpu_torch.parallel.walks_sharded import (
         precompute_neighborhoods_partitioned,
     )
+    from gcn_song_embeddings_tpu_torch import scaling_bench
     from gcn_song_embeddings_tpu_torch import serve as serve_mod
     from gcn_song_embeddings_tpu_torch.utils.checkpoint import (
         load_jax_checkpoint,
@@ -3228,8 +3259,16 @@ def sharded_rank_main(d: str) -> int:
             w5, n5 = knn["hybrid"][0][5], knn["hybrid"][1][5]
             checks["http_equals_collective"] = http["ids"] == [
                 int(x) for x, s in zip(n5, w5) if np.isfinite(s)][:QUERY_K]
+        # -- scaling_bench's mesh sizes 1 and 2 in this world, counted
+        #    apart (rank 1 idles through size 1)
+        reset_kernel_counts()
+        t = time.perf_counter()
+        scaling = scaling_bench.run(scaling_bench.parse_args(
+            ["--steps", str(SCALING_STEPS)]), log=lambda *a: None)
+        walls["scaling_bench_s"] = time.perf_counter() - t
         report = {"rank": rank, "checks": checks, "walls": walls,
-                  "counts": counts}
+                  "counts": counts, "scaling": scaling,
+                  "scaling_counts": kernel_counts()}
         if rank == 0:
             arrays = {"emb": emb, "probe": probe, "qrows": qrows}
             for mode, (tr, losses, grads) in runs.items():
@@ -3318,6 +3357,38 @@ def check_sharded_world2(dev, st, ref, reports, work: str) -> dict:
     return checks
 
 
+def check_scaling(reports) -> dict:
+    """``scaling_bench`` in the two-rank world: rank 0 has sizes 1 (mesh
+    1 x 1) and 2 (1 x 2) with the JAX script's keys, finite positive
+    edges/s and efficiency against size 1; rank 1 took part in size 2
+    only; both ranks launched K3 and its backward.  The efficiency of
+    two gloo ranks sharing one card measures gloo through the host, not
+    scaling."""
+    import math
+
+    out = reports[0]["scaling"]
+    keys = {"mesh", "step_ms", "edges_per_s", "scaling_efficiency"}
+    if sorted(k for k in out if k.isdigit()) != ["1", "2"] or [
+            out[k]["mesh"] for k in ("1", "2")] != [
+            {"dp": 1, "graph": 1}, {"dp": 1, "graph": 2}]:
+        raise AssertionError(f"scaling_bench sizes: {out}")
+    for k in ("1", "2"):
+        e = out[k].get("edges_per_s")
+        if set(out[k]) != keys or not (math.isfinite(e) and e > 0):
+            raise AssertionError(f"scaling_bench size {k}: {out[k]}")
+    if [k for k in reports[1]["scaling"] if k.isdigit()] != ["2"]:
+        raise AssertionError(f"rank 1's sizes: {reports[1]['scaling']}")
+    for r in reports:
+        c = r["scaling_counts"]
+        if not (c["dma_agg"] and c["agg_backward_dma"]):
+            raise AssertionError(f"scaling_bench, rank {r['rank']}: K3 or "
+                                 f"its backward never launched: {c}")
+    log(f"scaling_bench (two gloo ranks on one card, not a scaling "
+        f"result): {json.dumps(out)}")
+    return {**out, "note": "two gloo ranks sharing one card: the "
+            "efficiency measures gloo through the host, not scaling"}
+
+
 def run_sharded_path(dev, st, work: str) -> dict:
     """The sharded phase: the single-process reference, (a) a world of
     one on NCCL in this process, (c) the sharded CLI verbs as worlds of
@@ -3347,6 +3418,7 @@ def run_sharded_path(dev, st, work: str) -> dict:
             raise AssertionError(f"world of 2, rank {r['rank']}: kernels "
                                  f"never launched {missing}")
     two = check_sharded_world2(dev, st, ref, reports, work)
+    two["scaling_bench"] = check_scaling(reports)
     out = {
         "checks": {"nccl_world1": one["checks"],
                    "nccl_cli_world1": verbs["checks"], "gloo_world2": two},
@@ -3363,6 +3435,8 @@ def run_sharded_path(dev, st, work: str) -> dict:
                    "nccl_cli_world1": verbs["counts"],
                    **{f"gloo_rank{r['rank']}": r["counts"]
                       for r in reports}},
+        "scaling_counts": {k: sum(r["scaling_counts"][k] for r in reports)
+                           for k in reports[0]["scaling_counts"]},
         "unverified": "NCCL across two or more cards",
     }
     return out
@@ -3946,6 +4020,186 @@ def check_roster(ev) -> dict:
         raise AssertionError(f"roster orderings missed: {missed}")
     log(f"roster orderings hold over {len(acc)} rows at K={ev.k}")
     return {"accuracy": acc, "beyond": beyond, "k": ev.k}
+
+
+# ---- the repository tools (grid_refschedule, fullgraph_bench) ------------
+# on the hard phase's dataset and PPR caches (the plain one and the co-listen
+# phase's; grid_refschedule's hard catalog is that dataset byte for byte,
+# tests/test_torch_grid_refschedule.py).  Cuts for the script's time limit,
+# each run uncut as a command of its own (README): the grid's colisten
+# schedule to TOOLS_GRID at 1 x 500, the ref schedule's first 4-layer point
+# (its grid id 0.0.0.1) to REF_L4_STEPS steps and its embed on the main
+# path's uniform catalog (512-d features, as the ref schedule's uniform
+# catalog has; the hard one's are 128-d), fullgraph_bench to chunks of 5
+# and 25 batches without the 1M embed
+TOOLS_GRID = {"train.margin": [1e-5], "train.lr": [1e-3],
+              "walk.colisten_copies": [0, 1], "model.T": [3]}
+TOOLS_GRID_CUT = {"train.epochs": 1, "train.batches_per_epoch": 500}
+REF_L4 = {"train.margin": 0.1, "train.lr": 1e-4,
+          "train.hard_negatives": False, "model.n_layers": 4}
+REF_L4_STEPS = 3
+FG_ARGV = ("--skip-embed", "--chunk-small", "5", "--chunk-large", "25")
+FG_HOLD_B = 4096          # the frontier step whose K3 shapes are held
+
+
+def run_tools_path(dev, st, hp, work: str) -> dict:
+    """The tools on ``dev``, each with the launch counters set to 0 first:
+    ``grid_refschedule.run`` (colisten schedule, hard) on a copy of the
+    hard phase's dataset and caches, cut to TOOLS_GRID (K3 and its
+    backward every step, K2 in each embed); the ref schedule's 4-layer
+    config on the main path's catalog (its plain graph's sweep with K1,
+    in memory), REF_L4_STEPS steps (K3 at L=4) and the embed (K2 over
+    four layers); ``fullgraph_bench.run`` with FG_ARGV (K3 in the off
+    arms, K2 and its backward in the on arms).  Fails unless the grid
+    wrote JAX's keys sorted by MRR with the co-listen config above the
+    plain one, every kernel of each path ran and every output is finite.
+    Returns its state."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import fullgraph_bench as fb
+    from gcn_song_embeddings_tpu_torch import grid_refschedule as gr
+    from gcn_song_embeddings_tpu_torch.config import (
+        RunConfig,
+        config_with_overrides,
+    )
+    from gcn_song_embeddings_tpu_torch.data.device import DeviceGraph
+    from gcn_song_embeddings_tpu_torch.train.trainer import PinSageTrainer
+
+    hb = hp["bench"]
+    tools = os.path.join(work, "tools")
+    shutil.rmtree(tools, ignore_errors=True)
+    grid_work = os.path.join(tools, "grid")
+    ds = os.path.join(grid_work, "ds")
+    shutil.copytree(hb.ds_path, ds)
+    with open(os.path.join(ds, "dataset_kind.txt"), "w") as f:
+        f.write("hard")
+    walls, counts = {}, {}
+
+    reset_kernel_counts()
+    t = time.perf_counter()
+    results = gr.run(gr.parse_args([
+        "--schedule", "colisten", "--dataset-kind", "hard", "--work-dir",
+        grid_work, "--device", str(dev)]), log,
+        base_overrides=TOOLS_GRID_CUT, grid=TOOLS_GRID)
+    sync(torch, dev)
+    walls["grid_s"] = time.perf_counter() - t
+    counts["grid"] = kernel_counts()
+    with open(os.path.join(grid_work, "grid_search_colisten_hard.json")) as f:
+        written = json.load(f)
+    mrr = {r["params"]["walk.colisten_copies"]: r["mrr"] for r in written}
+    if (written != results or [set(r) for r in written]
+            != [{"id", "params", "mrr", "hit_rate"}] * 2
+            or [r["mrr"] for r in written]
+            != sorted((r["mrr"] for r in written), reverse=True)
+            or not all(math.isfinite(r["mrr"]) for r in written)
+            or not mrr[1] > mrr[0]):
+        raise AssertionError(f"grid: {written}")
+    log(f"grid (colisten, hard, cut): {json.dumps(written)}")
+
+    reset_kernel_counts()
+    t = time.perf_counter()
+    if gr.schedule("ref", "uniform")[2]["model.n_layers"] != [2, 4]:
+        raise AssertionError("the ref schedule has no 4-layer point")
+    cfg = config_with_overrides(RunConfig(run_name="ref_L4"), {
+        **REF_L4, "train.epochs": 1,
+        "train.batches_per_epoch": REF_L4_STEPS})
+    g = st.graph
+    l4 = PinSageTrainer(DeviceGraph.from_graph(g, dev), g.n_items,
+                        g.features, st.train_pos, cfg=cfg,
+                        base_run_dir=os.path.join(tools, "runs"),
+                        log=False, load_save=False, verbose=False)
+    if l4.fullgraph:
+        raise AssertionError("the 4-layer config trains full-graph")
+    l4.train()
+    emb = l4.embed()
+    sync(torch, dev)
+    walls["ref_L4_steps_and_embed_s"] = time.perf_counter() - t
+    counts["grid_ref_L4"] = kernel_counts()
+    if emb.shape != (g.n_items, cfg.model.out_dim) or not np.isfinite(
+            emb).all():
+        raise AssertionError(f"ref L=4 embeddings: shape {emb.shape}")
+
+    reset_kernel_counts()
+    t = time.perf_counter()
+    fg = fb.run(fb.parse_args([*FG_ARGV, "--device", str(dev)]), log)
+    walls["fullgraph_bench_s"] = time.perf_counter() - t
+    counts["fullgraph_bench"] = kernel_counts()
+    log(f"fullgraph_bench (cut): {json.dumps(fg)}")
+    log(f"fullgraph_bench: auto picks the measured winner "
+        f"{json.dumps(fg['auto_picks_winner'])}")
+    bad = [k for k, v in fg.items() if k.endswith("_ms")
+           and not (math.isfinite(v) and v > 0)]
+    sizes = {f"B{b}" for b in fb.parse_args(list(FG_ARGV)).batches}
+    if bad or set(fg["auto_picks_winner"]) != sizes:
+        raise AssertionError(f"fullgraph_bench: {fg}")
+    need = {"grid": ("dma_agg", "agg_backward_dma", "agg"),
+            "grid_ref_L4": ("walk", "dma_agg", "agg_backward_dma", "agg"),
+            "fullgraph_bench": ("dma_agg", "agg_backward_dma", "agg",
+                                "agg_backward_stream")}
+    for path, names in need.items():
+        missing = [k for k in names if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"{path}: kernels never launched {missing}")
+        log(f"launches on the {path} path: {counts[path]}")
+    return {"grid": written, "fullgraph_bench": fg, "ref_L4": l4,
+            "counts": counts, "walls": walls}
+
+
+def hold_tools_kernels(torch, tools) -> list:
+    """K3 with its backward at the tools' new shapes against their plain
+    versions (``measure_aggregation``: K2_ATOL, GRAD_RTOL): every
+    aggregation of one frontier step of the ref schedule's 4-layer config
+    and of fullgraph_bench's B=FG_HOLD_B step on its own data.  Returns
+    the kernels line's rows."""
+    import types
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch import fullgraph_bench as fb
+    from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
+    from gcn_song_embeddings_tpu_torch.ops.ppr import block_generator
+    from gcn_song_embeddings_tpu_torch.train.trainer import (
+        TrainTables,
+        sample_train_batch,
+    )
+
+    l4, counts = tools["ref_L4"], tools["counts"]
+    dev = l4.device
+    rows = []
+    features, nb_n, nb_w, positives = fb.bench_data(
+        np.random.default_rng(0), fb.parse_args([]).tracks)
+    tables = TrainTables.build(features, nb_w, nb_n, fb.T, dev)
+    cfg = fb.strategy_config(FG_HOLD_B, "off")
+    fg = types.SimpleNamespace(cfg=cfg, tables=tables,
+                               params=fb.seeded_params(dev, fb.FEAT))
+    batch = sample_train_batch(block_generator(4242, 0, dev),
+                               torch.as_tensor(positives, device=dev),
+                               tables, cfg.train, len(features), 0)
+    for name, trainer, b, path in (
+            ("the ref schedule's 4-layer step", l4, None, "grid_ref_L4"),
+            (f"fullgraph_bench's B={FG_HOLD_B} frontier step", fg, batch,
+             "fullgraph_bench")):
+        if b is None:
+            b = trainer.sample(block_generator(4242, 0, dev))
+        mcfg = trainer.cfg.model
+        shapes = step_conv_inputs(torch, trainer, b)
+        k3 = measure_aggregation(torch, agg, "dma", shapes)
+        rows.append(kernel_row(
+            f"K3 fused 3xTF32 gather + Q-MLP + weighted mean "
+            f"(agg.conv_aggregate, mode dma) at {name}", dma_agg.SOURCE,
+            dma_agg.REPLACES, {f"{path}_steps": counts[path]["dma_agg"]},
+            counts[path]["agg_backward_dma"], k3,
+            f"every aggregation of a frontier step at B="
+            f"{trainer.cfg.train.batch_size}, L={mcfg.n_layers}, T="
+            f"{mcfg.T}, H={mcfg.hidden_dim}: " + ", ".join(
+                f"{ids.shape[0]} nodes Din={table.shape[1]} (table "
+                f"{table.shape[0]} rows)" for _, table, ids, _, _ in shapes)))
+        del shapes
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---- the 1M-track catalog (scale_demo, refresh_1m, hybrid_1m, serve_bench)
@@ -4702,7 +4956,22 @@ def main() -> int:
                                for m in ev.models}}}))
     log(card_line())
     log(json.dumps({"colisten_checks": colisten_checks}))
-    del hp, ab_state
+    del ab_state
+    torch.cuda.empty_cache()
+
+    # ---- the repository tools: grid_refschedule, fullgraph_bench ------
+    t = time.perf_counter()
+    tools = run_tools_path(dev, st, hp, work)
+    rows_tools = hold_tools_kernels(torch, tools)
+    tools["walls"]["phase_s"] = time.perf_counter() - t
+    st.walls["tools"] = tools["walls"]
+    tool_counts = tools["counts"]
+    log(card_line())
+    log(json.dumps({"tools_checks": {
+        "grid": tools["grid"], "fullgraph_bench": tools["fullgraph_bench"],
+        "scaling_bench": sh["checks"]["gloo_world2"]["scaling_bench"],
+        "walls": tools["walls"]}}))
+    del hp, tools
     torch.cuda.empty_cache()
 
     # ---- the 1M catalog: scale_demo, refresh_1m, hybrid_1m, serve_bench --
@@ -4807,7 +5076,9 @@ def main() -> int:
          "tail_crawl": tail_launches["walk"],
          **{f"sharded_{w}": c["walk"] for w, c in sharded.items()},
          "hard": hard_launches["walk"],
-         "colisten_ab": ab_launches["walk"]})]
+         "colisten_ab": ab_launches["walk"],
+         **{path: c["walk"] for path, c in tool_counts.items()},
+         "scaling": sh["scaling_counts"]["walk"]})]
     if sum(ev.row_walks.values()) != eval_launches["walk"]:
         raise AssertionError(f"eval K1 launches by row {ev.row_walks} do "
                              f"not add up to {eval_launches['walk']}")
@@ -4833,9 +5104,12 @@ def main() -> int:
         {"serve": launches["agg"], "train": train_launches["agg"],
          "all": prepare_launches["agg"],
          **{f"sharded_{w}": c["agg"] for w, c in sharded.items()},
-         "hard": hard_launches["agg"], "colisten_ab": ab_launches["agg"]},
+         "hard": hard_launches["agg"], "colisten_ab": ab_launches["agg"],
+         **{path: c["agg"] for path, c in tool_counts.items()},
+         "scaling": sh["scaling_counts"]["agg"]},
         train_launches["agg_backward_stream"]
-        + sum(c["agg_backward_stream"] for c in sharded.values()), k2,
+        + sum(c["agg_backward_stream"] for c in sharded.values())
+        + sum(c["agg_backward_stream"] for c in tool_counts.values()), k2,
         f"both embed_all layers, N={graph.n_items} T={mcfg.T}: Din=512 and "
         f"Din=128, H={mcfg.hidden_dim}; backward at the same shapes (the "
         f"full-graph train step), launched "
@@ -4850,7 +5124,9 @@ def main() -> int:
             **{f"sharded_{w}": c[f"agg_{name}"]
                for w, c in sharded.items()},
             "hard": hard_launches[f"agg_{name}"],
-            "colisten_ab": ab_launches[f"agg_{name}"]}
+            "colisten_ab": ab_launches[f"agg_{name}"],
+            **{path: c[f"agg_{name}"] for path, c in tool_counts.items()},
+            "scaling": sh["scaling_counts"][f"agg_{name}"]}
     results.append(row)
     row = kernel_row(
         "K3 fused 3xTF32 gather + Q-MLP + weighted mean "
@@ -4859,12 +5135,16 @@ def main() -> int:
          "all": prepare_launches["dma_agg"],
          **{f"sharded_{w}": c["dma_agg"] for w, c in sharded.items()},
          "hard": hard_launches["dma_agg"],
-         "colisten_ab": ab_launches["dma_agg"]},
+         "colisten_ab": ab_launches["dma_agg"],
+         **{path: c["dma_agg"] for path, c in tool_counts.items()},
+         "scaling": sh["scaling_counts"]["dma_agg"]},
         train_launches["agg_backward_dma"]
         + prepare_launches["agg_backward_dma"]
         + sum(c["agg_backward_dma"] for c in sharded.values())
         + hard_launches["agg_backward_dma"]
-        + ab_launches["agg_backward_dma"], k3,
+        + ab_launches["agg_backward_dma"]
+        + sum(c["agg_backward_dma"] for c in tool_counts.values())
+        + sh["scaling_counts"]["agg_backward_dma"], k3,
         f"both aggregations of a frontier train step at B=128: "
         f"{step_shapes[0][2].shape[0]} nodes x T={mcfg.T}, Din=512 and "
         f"{step_shapes[1][2].shape[0]} nodes x T={mcfg.T}, Din=128; "
@@ -4910,6 +5190,7 @@ def main() -> int:
         results[-1]["header"] = agg.HEADER
         results[-1]["ms_over_f32_k2_ms"] = k2_16["ms"] / k2["ms"]
     results.extend(rows_colisten)
+    results.extend(rows_tools)
     results.extend(rows_1m)
     shutil.rmtree(work, ignore_errors=True)
     log(card_line())

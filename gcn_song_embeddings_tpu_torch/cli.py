@@ -293,8 +293,9 @@ def cmd_train_sharded(args) -> None:
             os.makedirs(run_dir, exist_ok=True)
             with open(os.path.join(run_dir, "config.json"), "w") as f:
                 f.write(trainer.cfg.to_json())
-        if not args.no_resume:
-            trainer.load(state_path)
+        if not args.no_resume and trainer.load(state_path) and rank == 0:
+            print(f"resumed from {state_path} (epoch {trainer.epoch}, "
+                  f"batch {trainer.batches_done})")
         trainer.train_epochs(verbose=rank == 0, save_path=state_path)
         trainer.save(state_path)
         emb = trainer.embed()

@@ -7,10 +7,11 @@
     negatives the flattened neighborhood nodes) are row-sharded over the
     dp row's ``graph`` group; frontier lookups are collective gathers
     (``parallel/gather.py``).
-  * Parameters and Adam state are replicated (rank 0's initial
+  * Parameters and Adam state are replicated (mesh rank 0's initial
     parameters are broadcast).  Each rank's loss is its batch mean over
-    the number of ranks; loss and gradients are summed over the world in
-    one ``all_reduce`` of a flat buffer, so every rank applies the
+    the number of ranks; loss and gradients are summed over the mesh's
+    ranks (``Mesh.group``: the world, or a sub-mesh's own group) in one
+    ``all_reduce`` of a flat buffer, so every rank applies the
     global-batch gradient.  (Not DDP: DDP averages, and hooks one
     reduction per bucket into a step that is already bound by launches.)
 
@@ -82,10 +83,11 @@ def _check_hard_negative_extent(n_pad: int, width: int) -> None:
 
 
 class ShardedTrainer:
-    """PinSage training over a (dp, graph) mesh; every rank of the world
+    """PinSage training over a (dp, graph) mesh; every rank of the mesh
     constructs one with the same arguments and calls the same methods in
-    the same order.  ``params`` (default: ``init_pinsage`` seeded with
-    ``train.seed``) is copied, and rank 0's copy broadcast."""
+    the same order (ranks outside a sub-mesh take no part).  ``params``
+    (default: ``init_pinsage`` seeded with ``train.seed``) is copied, and
+    mesh rank 0's copy broadcast."""
 
     def __init__(self, mesh: Mesh, cfg: RunConfig, n_items: int,
                  features: np.ndarray, nbhds: tuple[np.ndarray, np.ndarray],
@@ -155,7 +157,7 @@ class ShardedTrainer:
             params = copy.deepcopy(params).to(dev)
         with torch.no_grad():
             for _, p in params.leaves():
-                p.copy_(C.broadcast(p.detach(), 0))
+                p.copy_(C.broadcast(p.detach(), 0, mesh.group))
         self.params = params
         self.opt = make_optimizer(params, tcfg)
         self.fullgraph = (tcfg.fullgraph_forward == "on" or (
@@ -231,7 +233,8 @@ class ShardedTrainer:
         loss = self.local_loss(batch)
         grads = torch.autograd.grad(loss, self.opt.params)
         flat = C.all_reduce(torch.cat([g.reshape(-1) for g in grads]
-                                      + [loss.detach().reshape(1)]))
+                                      + [loss.detach().reshape(1)]),
+                            self.mesh.group)
         total = flat[:-1].split([g.numel() for g in grads])
         return flat[-1], [t.view_as(g) for t, g in zip(total, grads)]
 
@@ -291,7 +294,7 @@ class ShardedTrainer:
             e, b = divmod(self.batches_done, bpe)
             save_state(path, self.params, self.opt,
                        {"epochs_done": e, "batches_done": b})
-        dist.barrier()
+        dist.barrier(group=self.mesh.group)
 
     def load(self, path: str) -> bool:
         """Every rank reads ``path`` (a ``save_state`` checkpoint of
@@ -332,6 +335,6 @@ class ShardedTrainer:
                 out = forward_with_gather(
                     self.params, lambda i: self._rows(self.features, i),
                     self._nbhds, mine, mcfg.n_layers, mcfg.T)
-                full = C.all_gather(out).reshape(bs, -1)
+                full = C.all_gather(out, self.mesh.group).reshape(bs, -1)
                 outs.append(full[:min(bs, len(ids) - start)].cpu().numpy())
         return np.concatenate(outs, axis=0)

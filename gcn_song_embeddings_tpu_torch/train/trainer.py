@@ -198,6 +198,35 @@ def train_step(params: PinSageParams, opt: Adam, batch: torch.Tensor,
                             loss.new_tensor(rate), grad_norm])
 
 
+def sample_train_batch(gen: torch.Generator, positives: torch.Tensor,
+                       tables: TrainTables, tcfg: TrainConfig, n_items: int,
+                       count: int) -> torch.Tensor:
+    """The next [B, 3] batch from ``gen`` after ``count`` steps; with the
+    hard-negative curriculum, hard negatives from epoch
+    ``hn_start_epoch`` on."""
+    hn_gate = None
+    if tcfg.hard_negatives and tcfg.hn_start_epoch > 0:
+        hn_gate = count >= tcfg.hn_start_epoch * tcfg.batches_per_epoch
+    return sample_batch(gen, positives, tables.nbhd_n, tcfg.batch_size,
+                        n_items, hard_negatives=tcfg.hard_negatives,
+                        hn_min=tcfg.hn_min, hn_max=tcfg.hn_max,
+                        exact=tcfg.exact_batch_sampling, hn_gate=hn_gate)
+
+
+def train_chunk(params: PinSageParams, opt: Adam, tables: TrainTables,
+                positives: torch.Tensor, gen: torch.Generator,
+                tcfg: TrainConfig, mcfg: PinSageConfig, n_items: int,
+                n_chunk: int, fullgraph: bool) -> torch.Tensor:
+    """``n_chunk`` Adam steps, each on a batch drawn from ``gen`` (the JAX
+    package's ``_train_chunk``); returns their metrics [n_chunk, 5] on
+    the device, without waiting for them."""
+    return torch.stack([
+        train_step(params, opt, sample_train_batch(
+            gen, positives, tables, tcfg, n_items, opt.count),
+            tables, tcfg, mcfg, fullgraph)
+        for _ in range(n_chunk)])
+
+
 class PinSageTrainer:
     """Construct with graph + features + positives (resuming from
     ``<run_dir>/state.npz`` when ``load_save``), then ``train()`` and
@@ -267,16 +296,8 @@ class PinSageTrainer:
     def sample(self, gen: torch.Generator) -> torch.Tensor:
         """The next [B, 3] batch from ``gen``; with the hard-negative
         curriculum, hard negatives from epoch ``hn_start_epoch`` on."""
-        tcfg = self.cfg.train
-        hn_gate = None
-        if tcfg.hard_negatives and tcfg.hn_start_epoch > 0:
-            hn_gate = (self.opt.count
-                       >= tcfg.hn_start_epoch * tcfg.batches_per_epoch)
-        return sample_batch(gen, self.positives, self.tables.nbhd_n,
-                            tcfg.batch_size, self.n,
-                            hard_negatives=tcfg.hard_negatives,
-                            hn_min=tcfg.hn_min, hn_max=tcfg.hn_max,
-                            exact=tcfg.exact_batch_sampling, hn_gate=hn_gate)
+        return sample_train_batch(gen, self.positives, self.tables,
+                                  self.cfg.train, self.n, self.opt.count)
 
     def train(self) -> None:
         tcfg = self.cfg.train
@@ -288,10 +309,10 @@ class PinSageTrainer:
             t0 = time.time()
             n_chunk = min(chunk, total - done)
             gen = block_generator(tcfg.seed + 1, done, self.device)
-            metrics = torch.stack([
-                train_step(self.params, self.opt, self.sample(gen),
-                           self.tables, tcfg, self.cfg.model, self.fullgraph)
-                for _ in range(n_chunk)]).cpu().numpy()
+            metrics = train_chunk(
+                self.params, self.opt, self.tables, self.positives, gen,
+                tcfg, self.cfg.model, self.n, n_chunk,
+                self.fullgraph).cpu().numpy()
             if self.log:
                 self._log_metrics(metrics, done)
             done += n_chunk

@@ -10,11 +10,20 @@ verb.
   * ``serve --sharded`` (f32, ``--int8``, ``--hybrid --cached-head``):
     one HTTP request through rank 0, equal up to ties to the
     single-process index ``serve`` builds for the same flags.
+  * ``train --mesh-graph 2`` SIGKILLed mid-run, ranks included (torchrun
+    starts each rank in a session of its own, so they are killed by
+    pid), after 0, 1 and 3 chunk lines, then run to its end: it resumes
+    the last checkpoint and ends with the parameters, Adam state and
+    embeddings of an uninterrupted run, bit for bit (the CPU repeats the
+    same ops in the same order; each chunk draws from a generator keyed
+    by its first global batch).  The mirror of
+    ``tests/test_fault_tolerance.py`` for the sharded trainer.
 """
 
 import json
 import os
 import shutil
+import signal
 import socket
 import time
 import urllib.error
@@ -25,7 +34,13 @@ import pytest
 
 from gcn_song_embeddings_tpu_torch import cli
 from gcn_song_embeddings_tpu_torch import serve as ts
-from torch_dist import same_up_to_ties, stop, torchrun, torchrun_to_end
+from torch_dist import (
+    _children,
+    same_up_to_ties,
+    stop,
+    torchrun,
+    torchrun_to_end,
+)
 from torch_threads import one_torch_thread  # noqa: F401
 
 N_TRACKS, K, QUERY = 150, 10, [0, 5, 77, 149]
@@ -165,3 +180,118 @@ def test_serve_sharded_under_torchrun(runs, served, kind):
                 for rs in (body["neighbors"], want))
     same_up_to_ties(w, n, w_ref, n_ref)
     assert not (np.asarray(n) == np.asarray(QUERY)[:, None]).any()
+
+
+# the SIGKILL test: 4 epochs of 20 batches in chunks of 10, each chunk's
+# line printed by rank 0 after its checkpoint is written
+FT_EPOCHS = 4
+FT = ["--set", f"train.epochs={FT_EPOCHS}",
+      "--set", "train.batches_per_epoch=20",
+      "--set", "train.checkpoint_every_batches=10",
+      "--set", "train.batch_size=32", "--set", "walk.n_hops=50",
+      "--set", "model.hidden_dim=64", "--set", "model.out_dim=16",
+      "--device", "cpu"]
+KILL_AFTER_CHUNKS = (0, 1, 3)   # chunk lines a killed run prints first
+LINE_TIMEOUT_S = 120
+
+
+def _lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def _wait_for(proc, log, prefix, count):
+    """Until ``log`` holds ``count`` lines starting with ``prefix`` (or
+    the run ends, or LINE_TIMEOUT_S passes); returns its lines."""
+    deadline = time.monotonic() + LINE_TIMEOUT_S
+    while time.monotonic() < deadline and proc.poll() is None:
+        lines = _lines(log)
+        if sum(line.startswith(prefix) for line in lines) >= count:
+            return lines
+        time.sleep(0.01)
+    raise AssertionError(f"no {count} {prefix!r} lines: {_lines(log)}")
+
+
+def _sigkill(proc):
+    """SIGKILL the ranks, then torchrun."""
+    for pid in _children(proc.pid) + [proc.pid]:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.wait()
+
+
+def test_train_mesh_graph_sigkilled_resumes_to_an_uninterrupted_run(
+        tmp_path):
+    ds = str(tmp_path / "ds")
+    cli.main(["synth", "--dataset", ds, "--n-tracks", str(N_TRACKS),
+              "--n-collections", "40", "--n-positives", "500",
+              "--feature-dim", "16", "--seed", "2"])
+    runs = str(tmp_path / "runs")
+
+    def train(name, log):
+        return torchrun(2, "gcn_song_embeddings_tpu_torch.cli",
+                        ["train", "--dataset", ds, "--run-dir", runs,
+                         "--run-name", name, "--mesh-graph", "2", *FT],
+                        str(tmp_path / log))
+
+    state = os.path.join(runs, "ft", "state.npz")
+    landed = []
+    for i, chunks in enumerate(KILL_AFTER_CHUNKS):
+        log = str(tmp_path / f"killed{i}.log")
+        proc = train("ft", f"killed{i}.log")
+        try:
+            if chunks:
+                _wait_for(proc, log, "epoch ", chunks)
+            else:   # the first run, in its sweep (rank 0's block line)
+                _wait_for(proc, log, "neighborhoods[rank 0/2]", 1)
+            had_state = os.path.isfile(state)
+            ranks = _children(proc.pid)
+            _sigkill(proc)
+        finally:
+            stop(proc)
+        assert proc.returncode == -signal.SIGKILL, _lines(log)
+        assert len(ranks) == 2 and not any(
+            os.path.exists(f"/proc/{pid}") and _alive(pid) for pid in ranks)
+        landed.append(had_state and not any(
+            "embeddings ->" in line for line in _lines(log)))
+
+    last = torchrun_to_end(2, "gcn_song_embeddings_tpu_torch.cli",
+                           ["train", "--dataset", ds, "--run-dir", runs,
+                            "--run-name", "ft", "--mesh-graph", "2", *FT],
+                           str(tmp_path / "last.log"))
+    whole = torchrun_to_end(2, "gcn_song_embeddings_tpu_torch.cli",
+                            ["train", "--dataset", ds, "--run-dir", runs,
+                             "--run-name", "whole", "--mesh-graph", "2",
+                             *FT], str(tmp_path / "whole.log"))
+    assert any(landed), landed
+    # the last run picked the run up where a checkpoint left it
+    lines = last.splitlines()
+    resumed = [line for line in lines if line.startswith("resumed from")]
+    assert resumed and " batch 0)" not in resumed[0], lines
+    chunk_lines = [line for line in lines if line.startswith("epoch ")]
+    assert chunk_lines and len(chunk_lines) < 2 * FT_EPOCHS
+    assert f"epoch {FT_EPOCHS}/{FT_EPOCHS}" in chunk_lines[-1]
+    assert "resumed from" not in whole
+    assert not os.path.exists(state + ".tmp")
+    with np.load(state) as z, np.load(os.path.join(
+            runs, "whole", "state.npz")) as w:
+        assert float(z["__scalar__epochs_done"]) == FT_EPOCHS
+        assert float(z["__scalar__batches_done"]) == 0
+        assert sorted(z.files) == sorted(w.files)
+        for k in z.files:
+            np.testing.assert_array_equal(z[k], w[k], err_msg=k)
+    np.testing.assert_array_equal(
+        np.load(os.path.join(runs, "ft", "emb.npy")),
+        np.load(os.path.join(runs, "whole", "emb.npy")))
+
+
+def _alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie, killed and not yet reaped by its
+    parent, does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False

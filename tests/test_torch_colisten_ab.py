@@ -426,3 +426,72 @@ def test_learning_check_against_jax_ratio(port_run, jax_run, num, den,
     want = jax_run[num][metric] / jax_run[den][metric]
     assert want > 2.0, (jax_run[num], jax_run[den])
     assert got >= LEARNING * want, (got, want, rows[num], rows[den])
+
+
+@pytest.mark.parametrize("arm", ["co1_T10_wide", "co1_T10_d512"])
+def test_the_wide_arms_model_matches_jax(arm):
+    """The wide arms' model (in 128, hidden 1024, out 256 or 512, T=10,
+    two layers) from JAX's initial parameters on the same tables: the
+    frontier embeddings of a [3B] batch within 1e-5 of the JAX package's,
+    and at the arms' margin (1e-5) the loss within 1e-6 and every
+    gradient within rtol 1e-4 / atol 1e-5 of ``jax.value_and_grad``'s
+    (tests/test_torch_train.py's bars).  At that margin the loss is a
+    difference of near-equal cosines and its gradients are ~1e-7, so
+    Adam scales their f32 rounding to a share of lr: two f32 evaluation
+    orders part after one step, and no trajectory bar holds."""
+    import gcn_song_embeddings_tpu.models.pinsage as jp
+    from gcn_song_embeddings_tpu.train import loss as jloss
+    from gcn_song_embeddings_tpu_torch.models.pinsage import (
+        forward_with_gather,
+        packed_nbhd_gather,
+    )
+    from gcn_song_embeddings_tpu_torch.utils.checkpoint import (
+        params_from_numpy,
+    )
+
+    cfg = colisten_ab.arm_config(arm, dict(colisten_ab.ARMS)[arm])
+    mcfg, L, T = cfg.model, cfg.model.n_layers, cfg.model.T
+    assert (mcfg.hidden_dim, L, T, cfg.train.margin) == (1024, 2, 10, 1e-5)
+    n, d_in, b = 400, 128, 8
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(n, d_in)).astype(np.float32)
+    w = np.ascontiguousarray(np.sort(rng.random((n, T)).astype(np.float32),
+                                     axis=1)[:, ::-1])
+    nodes = rng.integers(0, n, (n, T)).astype(np.int32)
+    batch = rng.integers(0, n, (b, 3)).astype(np.int32)
+    jparams = jp.init_pinsage(jax.random.PRNGKey(0), L, d_in,
+                              mcfg.hidden_dim, mcfg.out_dim)
+    packed = jp.pack_nbhds(jnp.asarray(w), jnp.asarray(nodes), T)
+    ids = np.concatenate([batch[:, 0], batch[:, 1], batch[:, 2]])
+
+    def j_forward(p):
+        return jp.forward_with_gather(
+            p, lambda i: jnp.asarray(feats)[i],
+            jp.packed_nbhd_gather(packed, T), jnp.asarray(ids), L, T)
+
+    def j_loss(p):
+        return jloss.max_margin_loss(*jnp.split(j_forward(p), 3, axis=0),
+                                     cfg.train.margin)
+
+    want_loss, want_grads = jax.value_and_grad(j_loss)(jparams)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tables = p_trainer.TrainTables.build(feats, w, nodes, T)
+    emb = forward_with_gather(
+        params, lambda i: tables.features[i.long()],
+        packed_nbhd_gather(tables.packed, T), torch.from_numpy(ids), L, T)
+    np.testing.assert_allclose(emb.detach().numpy(),
+                               np.asarray(j_forward(jparams)),
+                               rtol=1e-5, atol=1e-5)
+    tcfg = dataclasses.replace(cfg.train, batch_size=b)
+    loss, _ = p_trainer.triple_loss(params, tables, torch.from_numpy(batch),
+                                    tcfg, mcfg, False)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               atol=1e-6)
+    grads = torch.autograd.grad(loss, [p for _, p in params.leaves()])
+    jl = want_grads.layers
+    want = ([getattr(jl[i], f) for i in range(L)
+             for f in ("Wq", "bq", "Ww", "bw")]
+            + [want_grads.G1_w, want_grads.G1_b, want_grads.G2_w])
+    for g, wg in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wg), rtol=1e-4,
+                                   atol=1e-5)

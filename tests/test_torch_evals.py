@@ -145,6 +145,27 @@ def test_rank_eval_ranks_match_jax_on_continuous_embeddings(positives):
     assert got == want
 
 
+@pytest.mark.parametrize("d", [256, 512])
+def test_rank_eval_matches_jax_at_the_wide_arms_widths(positives, d):
+    """The co-listen A/B's wide arms embed at out 256 and 512: there too
+    the port's tie-fair average ranks and metrics equal JAX's, on rows
+    that tie (every fifth row repeats an earlier one) as the hard
+    benchmark's embeddings do."""
+    emb = _emb(500, d, seed=9)
+    emb[::5] = emb[1::5][:len(emb[::5])]
+    pairs = positives[:300].astype(np.int32)
+    unit = unit_rows(emb)
+    want = np.asarray(j_rank_block(jnp.asarray(unit), jnp.asarray(pairs[:, 0]),
+                                   jnp.asarray(pairs[:, 1]), chunk=128))
+    got = pair_ranks(torch.as_tensor(unit), torch.as_tensor(pairs[:, 0]),
+                     torch.as_tensor(pairs[:, 1]), chunk=128).numpy()
+    assert (got != np.round(got)).any()          # some pairs tie
+    np.testing.assert_array_equal(got, want)
+    kw = dict(hit_ks=(10, 100, 500), mrr_k=1000)
+    got = rank_eval(emb, pairs, batch=64, chunk=100, device="cpu", **kw)
+    assert got == j_rank_eval(emb, pairs, batch=64, **kw)
+
+
 def test_rank_eval_duplicate_rows_average_rank():
     """tests/test_metrics.py's tie case: a positive tied with m duplicates
     ranks 1 + #better + m/2, odd m included."""

@@ -97,7 +97,8 @@ def test_every_port_module_imports_with_jax_blocked():
                    "data.collector", "evals.qualitative",
                    "utils.profiling", "hard_bench", "serve_int8_quality",
                    "scale_demo", "refresh_1m", "hybrid_1m", "serve_bench",
-                   "colisten_ab", "hard_roster"):
+                   "colisten_ab", "hard_roster", "grid_refschedule",
+                   "fullgraph_bench", "scaling_bench"):
         assert prefix + module in names
 
 
@@ -111,6 +112,9 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "from gcn_song_embeddings_tpu_torch import scale_demo, refresh_1m\n"
         "from gcn_song_embeddings_tpu_torch import hybrid_1m, serve_bench\n"
         "from gcn_song_embeddings_tpu_torch import colisten_ab, hard_roster\n"
+        "from gcn_song_embeddings_tpu_torch import grid_refschedule\n"
+        "from gcn_song_embeddings_tpu_torch import fullgraph_bench\n"
+        "from gcn_song_embeddings_tpu_torch import scaling_bench\n"
         "from gcn_song_embeddings_tpu_torch.models import "
         "audio_embedders as ae\n"
         "from gcn_song_embeddings_tpu_torch.models import gnnlib\n"
@@ -163,7 +167,10 @@ def test_entry_points_without_a_card_raise_and_do_not_fall_back(tmp_path):
         "         lambda: hybrid_1m.main(['--work-dir', 'nowhere']),\n"
         "         lambda: serve_bench.main(['--tracks', '8']),\n"
         "         lambda: colisten_ab.main(['--work-dir', 'nowhere']),\n"
-        "         lambda: hard_roster.main(['--work-dir', 'nowhere'])]\n"
+        "         lambda: hard_roster.main(['--work-dir', 'nowhere']),\n"
+        "         lambda: grid_refschedule.main(['--work-dir', 'nowhere']),\n"
+        "         lambda: fullgraph_bench.main(['--skip-embed']),\n"
+        "         lambda: scaling_bench.main([])]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"

@@ -43,12 +43,14 @@ def _cpu_env() -> dict:
 def torchrun(nproc: int, module: str, args: list, log: str
              ) -> subprocess.Popen:
     """``torchrun --standalone --nproc_per_node nproc -m module *args``
-    with its output (every rank's) in ``log``."""
+    with its output (every rank's) in ``log``, each line written there as
+    a rank prints it."""
     with open(log, "w") as f:
         return subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc_per_node", str(nproc), "-m", module, *args],
-            stdout=f, stderr=subprocess.STDOUT, env=_cpu_env(), cwd=REPO)
+            stdout=f, stderr=subprocess.STDOUT,
+            env={**_cpu_env(), "PYTHONUNBUFFERED": "1"}, cwd=REPO)
 
 
 def _children(pid: int) -> list[int]:
@@ -494,8 +496,55 @@ def gpu_checks(rank: int, world: int, p: dict, d: str) -> dict:
     return out
 
 
+def scaling_checks(rank: int, world: int, p: dict, d: str) -> dict:
+    """tests/test_torch_scaling_bench.py's ranks.  Every rank lays out
+    each mesh of ``p["meshes"]`` ({name: (ranks or None, n_dp, n_graph,
+    train)}) and, on each mesh it belongs to that has ``train``, trains
+    ``p["runs"]`` (3 steps on the given batches, or on the trainer's own
+    draws), checkpoints with ``save`` and embeds; then, with
+    ``p["bench"]``, runs ``scaling_bench.run`` with those flags in this
+    world."""
+    import argparse
+
+    from gcn_song_embeddings_tpu_torch import scaling_bench
+    from gcn_song_embeddings_tpu_torch.config import (
+        RunConfig,
+        config_with_overrides,
+    )
+    from gcn_song_embeddings_tpu_torch.parallel.mesh import make_mesh
+    from gcn_song_embeddings_tpu_torch.parallel.train_step import (
+        ShardedTrainer,
+    )
+
+    feats, nb_w, nb_n, pos = p["toy"]
+    out = {}
+    meshes = {name: make_mesh(n_dp, n_graph, ranks=ranks)
+              for name, (ranks, n_dp, n_graph, _) in p["meshes"].items()}
+    for name, mesh in meshes.items():
+        out[("mesh", name)] = None if mesh is None else (
+            mesh.rank, mesh.shape, mesh.group is None)
+        if mesh is None or not p["meshes"][name][3]:
+            continue
+        for run, (over, batches) in p["runs"].items():
+            cfg = config_with_overrides(RunConfig(), over)
+            tr = ShardedTrainer(mesh, cfg, feats.shape[0], feats,
+                                (nb_w, nb_n), pos)
+            b = cfg.train.batch_size // mesh.n_dev
+            mine = None if batches is None else [
+                bt[mesh.rank * b:(mesh.rank + 1) * b] for bt in batches]
+            losses = tr.train_chunk(3, batches=mine)
+            path = os.path.join(d, f"{name}_{run}_state.npz")
+            tr.save(path)
+            out[(name, run)] = (losses, _leaves(tr.params),
+                                tr.embed(batch_size=16), os.path.isfile(path))
+    if p.get("bench"):
+        out["bench"] = scaling_bench.run(argparse.Namespace(**p["bench"]),
+                                         log=lambda *a: None)
+    return out
+
+
 WORKERS = {"parallel_checks": parallel_checks, "serve_checks": serve_checks,
-           "gpu_checks": gpu_checks}
+           "gpu_checks": gpu_checks, "scaling_checks": scaling_checks}
 
 
 def _main() -> None:
