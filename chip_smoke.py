@@ -96,7 +96,9 @@
    K1 and K4 bit-identical, K2 and K3 within 1e-4
    absolute, K2's Wq split, projection and gather-mean each against its
    own plain version; the aggregation's backward within GRAD_RTOL of
-   float64 autograd, beside the f32 plain version's own error), logs
+   float64 autograd at its f32 leaky_relu slopes, any entry whose slope
+   differs in float64 within BRANCH_ATOL of 0, beside the f32 plain
+   version's own error), logs
    K2's and K3's max error against float64 beside the plain version's,
    and times kernel, plain version and a library yardstick with CUDA
    events, back to back on the device (K2 also against a project-once
@@ -217,7 +219,22 @@
    ``tools_checks`` line (the grid rows, fullgraph_bench's JSON,
    scaling_bench's, the walls) after the card line; the kernels line
    gains the two new K3 rows.
-15. Right after the tools, the 1M catalog with the counters set to 0
+15. Right after the tools, the bench module with the counters set to 0
+   again: ``bench.run`` cut to ``BENCH_ARGV`` (chunks of 10 / 50 at the
+   headline B=128 step, K3 and its backward; 2 / 10 at the FLOP-bound
+   step, L=4, hidden 1024, B=4,096, full graph, in f32 with K2 and its
+   backward, in bf16 with K2's 16-bit form, and on contiguous ids; one
+   repetition; the gather and stream yardsticks).  Fails unless its JSON
+   has an uncut run's keys, ``edges_per_step`` is 5,760, every value is
+   finite and positive, both shares of the card's bound are at most
+   1.05, the contiguous control ran, every kernel of the path ran and
+   ``BENCH_BASELINE.json`` is unchanged; then holds K3 with its backward
+   at the headline step's two aggregations, K2 with its backward and
+   K2's bf16 form at the FLOP-bound step's four layers, and the two
+   yardsticks (against float64 sums) to their plain versions.  Prints a
+   ``bench_checks`` line after the card line; the kernels line gains the
+   five bench rows.
+16. Right after the bench, the 1M catalog with the counters set to 0
    again, in one work dir (``run_1m_path``): ``scale_demo`` with the
    co-listen capstone's command (``SCALE_1M_ARGV``: the hard generator
    at 1,000,000 tracks, 250,000 playlists, 1,000,000 positives, 128-d
@@ -246,7 +263,7 @@
    walls, peak device bytes, the served tables' device bytes, the int8
    top-10 overlap, JAX's 1M readings beside) after the card line; the
    kernels line gains the five 1M rows.
-16. Checks the outputs: finite embeddings of the expected shape that match
+17. Checks the outputs: finite embeddings of the expected shape that match
    the port's CPU path on a small node set, well-formed responses, and
    the ``embed`` CLI reproducing the same embeddings.
 
@@ -269,11 +286,15 @@ import time
 import urllib.error
 import urllib.request
 
+# the card's data-sheet peaks (dense, SXM), the package's one copy
+from gcn_song_embeddings_tpu_torch.bench import (  # noqa: E402
+    H100_BF16_FLOPS,
+    H100_FP32_FLOPS,
+    H100_HBM_BYTES,
+    H100_TF32_FLOPS,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
-H100_FP32_FLOPS = 67e12   # f32 outside the tensor cores (data sheet, SXM)
-H100_TF32_FLOPS = 495e12  # TF32 tensor cores, dense (data sheet, SXM)
-H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s (data sheet, SXM)
-H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense (data sheet, SXM)
 K2_ATOL = 1e-4  # f32 sums of Din products in another order: ~1e-6 expected
 # the aggregation's backward: the relative Frobenius error of each
 # gradient against autograd through the plain version in float64.  One
@@ -283,6 +304,15 @@ K2_ATOL = 1e-4  # f32 sums of Din products in another order: ~1e-6 expected
 # of other row counts (cuBLAS picks its kernel by shape), so either may
 # carry such an entry (measured on the card: 1e-7 to 2.6e-4 for both)
 GRAD_RTOL = 1e-3
+# so at a shape where some entry takes another slope in the backward's
+# f32 projection than in float64, the float64 reference takes each
+# entry's slope from that f32 projection (``plain_at_slopes``), and every
+# such entry must lie within BRANCH_ATOL of 0 (f32 rounding of a Din-term
+# sum); elsewhere the reference is float64 autograd through the plain
+# version as it stands.  At the bench's B=128 step one entry at |pre| =
+# 1.6e-7 took the other slope on the card and moved dWq by 1.5e-3 of its
+# norm against the float64 slope
+BRANCH_ATOL = 1e-5
 TRAJ = {"rtol": 1e-4, "atol": 1e-5}  # tests/test_trainer.py's 3-step bar
 TRAIN_EPOCHS, TRAIN_BATCHES, TRAIN_CHUNK = 2, 25, 20
 # tests/test_torch_bf16.py's and test_torch_f16.py's bars for 16-bit
@@ -1269,10 +1299,12 @@ def k2_parts(torch, agg, h, ids, wts, Wq, bq, got) -> dict:
 
 def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh):
     """(relative Frobenius errors, the plain version's own errors, ms,
-    plain ms) of the aggregation's backward at one shape, the errors per
-    gradient against autograd through the plain version in float64, with
-    the inputs that need a gradient in the train step (Wq and bq; h too
-    where it is an activation)."""
+    plain ms, entries at another slope in float64) of the aggregation's
+    backward at one shape, the errors per gradient against autograd
+    through the plain version in float64 (at the backward's f32
+    leaky_relu slopes where some entry's differs: ``branch_slopes``),
+    with the inputs that need a gradient in the train step (Wq and bq; h
+    too where it is an activation)."""
     def leaves(dtype):
         # copies: the table may be an inference-mode tensor
         h = table.detach().to(dtype, copy=True).requires_grad_(need_dh)
@@ -1285,9 +1317,14 @@ def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh):
     cot = torch.randn((ids.shape[0], layer.Wq.shape[0]),
                       device=table.device, generator=gen)
     h, Wq, bq, inputs = leaves(torch.float64)
+    slope, flips = branch_slopes(torch, table, ids, layer.Wq.detach(),
+                                 layer.bq.detach(), h, Wq, bq)
     ref = torch.autograd.grad(
-        agg.conv_aggregate_plain(h, ids, wts.double(), Wq, bq), inputs,
-        cot.double())
+        agg.conv_aggregate_plain(h, ids, wts.double(), Wq, bq)
+        if slope is None else
+        plain_at_slopes(torch, agg, h, ids, wts.double(), Wq, bq, slope),
+        inputs, cot.double())
+    del slope
     h, Wq, bq, inputs = leaves(torch.float32)
     out = agg.conv_aggregate(h, ids, wts, Wq, bq, mode=mode)
     plain = agg.conv_aggregate_plain(h, ids, wts, Wq, bq)
@@ -1305,7 +1342,40 @@ def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh):
         out, inputs, cot, retain_graph=True), reps=5)
     plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         plain, inputs, cot, retain_graph=True), reps=3)
-    return err, plain_err, ms, plain_ms
+    return err, plain_err, ms, plain_ms, flips
+
+
+def branch_slopes(torch, table, ids, Wq32, bq32, h64, Wq64, bq64):
+    """([B*T, H] float64 leaky_relu slopes of the gathered entries as the
+    aggregation's backward takes them, from its f32 ``torch.addmm``
+    projection, or None where every slope is float64's; the number of
+    entries whose slope differs from float64's).  Fails unless each such
+    entry lies within BRANCH_ATOL of 0."""
+    flat = ids.reshape(-1).long()
+    with torch.no_grad():
+        pre32 = torch.addmm(bq32.float(), table.float(),
+                            Wq32.float().t())[flat]
+        pre64 = torch.addmm(bq64, h64, Wq64.t())[flat]
+        differ = (pre32 >= 0) != (pre64 >= 0)
+        flips = int(differ.sum())
+        worst = float(pre64[differ].abs().max()) if flips else 0.0
+        del pre64, differ
+        slope = (torch.where(pre32 >= 0, 1.0, 0.01).double() if flips
+                 else None)
+    if not worst <= BRANCH_ATOL:
+        raise AssertionError(f"{flips} entries take another leaky_relu "
+                             f"slope in f32 than in float64, one at |pre| "
+                             f"{worst} > {BRANCH_ATOL}")
+    return slope, flips
+
+
+def plain_at_slopes(torch, agg, h, ids, wts, Wq, bq, slope):
+    """The plain aggregation with each gathered entry's leaky_relu slope
+    given (``slope`` [B*T, H]): differentiable in h, Wq and bq."""
+    b, t = ids.shape
+    pre = torch.addmm(bq, h, Wq.t())[ids.reshape(-1).long()]
+    q = (pre * slope).reshape(b, t, -1)
+    return (wts[:, :, None] * q).sum(dim=1) / agg._denominator(wts)
 
 
 def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
@@ -1324,7 +1394,7 @@ def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
            "products": 0.0, "bytes": 0.0, "err": 0.0, "err64": 0.0,
            "plain_err64": 0.0, "bwd_ms": 0.0, "bwd_plain_ms": 0.0,
            "bwd_flops": 0.0, "bwd_bytes": 0.0, "bwd_err": 0.0,
-           "bwd_plain_err": 0.0}
+           "bwd_plain_err": 0.0, "bwd_branch_flips": 0}
     if mode == "stream":
         out["library_project_once_ms"] = 0.0
         out["parts"] = {}
@@ -1381,13 +1451,16 @@ def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
             f"{ids.numel()} entries ({entries} weighted)")
         if not with_backward:
             continue
-        errs, plain_errs, ms, plain_ms = backward_timing(
+        errs, plain_errs, ms, plain_ms, flips = backward_timing(
             torch, agg, mode, layer, h, ids, wts, need_dh)
         names = ("dh", "dWq", "dbq") if need_dh else ("dWq", "dbq")
-        log(f"{kernel} backward vs float64 autograd, relative Frobenius "
-            f"error: " + ", ".join(
+        log(f"{kernel} backward vs float64 autograd"
+            + (f" at the f32 slopes ({flips} entries within {BRANCH_ATOL} "
+               f"of 0 slope otherwise in float64)" if flips else "")
+            + ", relative Frobenius error: " + ", ".join(
                 f"{g} {e:.3g} (f32 plain {p:.3g})"
                 for g, e, p in zip(names, errs, plain_errs)))
+        out["bwd_branch_flips"] += flips
         if not max(errs) <= GRAD_RTOL:
             raise AssertionError(f"{kernel} backward error {max(errs)} > "
                                  f"{GRAD_RTOL}")
@@ -1438,6 +1511,7 @@ def kernel_row(name, source, replaces, launches_by_path, bwd_launches, m,
             "launches_on_train_path": bwd_launches,
             "rel_err_vs_float64": m["bwd_err"],
             "plain_rel_err_vs_float64": m["bwd_plain_err"],
+            "entries_at_another_slope_in_float64": m["bwd_branch_flips"],
             "ms": m["bwd_ms"],
             "plain_ms": m["bwd_plain_ms"], "bound_ms": bwd_bound_ms,
             "bound_by": bwd_bound_by, "library_ms": None},
@@ -2590,7 +2664,8 @@ def reset_kernel_counts() -> None:
     agg.launches_bf16 = dma_agg.launches_bf16 = 0
     agg.launches_f16 = dma_agg.launches_f16 = 0
     for counts in (agg.backward_launches, agg.kernel_launches,
-                   agg.kernel_launches_bf16, agg.kernel_launches_f16):
+                   agg.kernel_launches_bf16, agg.kernel_launches_f16,
+                   agg.probe_launches):
         for key in counts:
             counts[key] = 0
 
@@ -2608,6 +2683,8 @@ def kernel_counts() -> dict:
                    for mode, n in agg.backward_launches.items()})
     counts.update({f"agg_{name}": n
                    for name, n in agg.kernel_launches.items()})
+    counts.update({f"probe_{name}": n
+                   for name, n in agg.probe_launches.items()})
     return counts
 
 
@@ -3898,21 +3975,18 @@ def run_eval_path(dev, hp, ab_state, work: str):
     ``pinsage_hard_co`` (the A/B's co1_T10) with ``--hybrid-runs
     pinsage_hard_co`` (its ``cmd_eval`` body: ``eval_models`` then
     ``run_eval``, with node2vec cut to ``NODE2VEC_EPOCHS``); K1 walks for
-    PageRank, PageRankCo and the Hybrid row's head.  Then the parts of
-    ``eval_s`` outside the rows' own times, timed again: one cache's read
-    and compressed write, and each table.  Returns its state (``pinsage``
-    and ``emb``: the row ``check_eval`` holds, pinsage_hard's)."""
+    PageRank, PageRankCo and the Hybrid row's head; each table timed as
+    the run builds it.  Then one cache's read and compressed write, timed
+    again (the part of ``eval_s`` outside the rows' own times that runs on
+    writer threads during the run).  Returns its state (``pinsage`` and
+    ``emb``: the row ``check_eval`` holds, pinsage_hard's)."""
     from types import SimpleNamespace
 
     import numpy as np
 
     from gcn_song_embeddings_tpu_torch import cli, hard_roster
     from gcn_song_embeddings_tpu_torch.data.graph import SongGraph
-    from gcn_song_embeddings_tpu_torch.evals.harness import LazyKnnDict
-    from gcn_song_embeddings_tpu_torch.evals.tables import (
-        compute_beyond_accuracy_table,
-        compute_results_table,
-    )
+    from gcn_song_embeddings_tpu_torch.evals import tables
     from gcn_song_embeddings_tpu_torch.native import jsongraph
     from gcn_song_embeddings_tpu_torch.ops import walk_kernel
 
@@ -3960,15 +4034,34 @@ def run_eval_path(dev, hp, ab_state, work: str):
     models = cli.eval_models(args, eval_graph, dev)
     models["Node2Vec"].epochs = NODE2VEC_EPOCHS
     row_walks = count_walk_launches(walk_kernel, models)
-    cli.run_eval(args, eval_graph, models, dev)
+
+    def timed(name, table):
+        def build(*a, **kw):
+            t0 = time.perf_counter()
+            out = table(*a, **kw)
+            walls[name] = time.perf_counter() - t0
+            return out
+        return build
+
+    # run_eval imports the table builders when it is called
+    builders = (tables.compute_results_table,
+                tables.compute_beyond_accuracy_table)
+    tables.compute_results_table = timed("accuracy_table_s", builders[0])
+    tables.compute_beyond_accuracy_table = timed("beyond_table_s",
+                                                 builders[1])
+    try:
+        cli.run_eval(args, eval_graph, models, dev)
+    finally:
+        (tables.compute_results_table,
+         tables.compute_beyond_accuracy_table) = builders
     walls["eval_s"] = time.perf_counter() - t
     log(f"eval: {len(models)} rows at K={args.k} in {walls['eval_s']:.1f} "
         f"s; K1 launches by row: "
         f"{json.dumps({k: v for k, v in row_walks.items() if v})}")
-    # the part of eval_s outside the models' own times, timed again here
-    # on the same caches: one kNN cache's read and compressed write (the
-    # PinSage row's; every [N, K] cache has the same size), and each
-    # table (which reads every cache once)
+    # the part of eval_s outside the models' own times and the tables,
+    # timed again here on the same caches: one kNN cache's read and
+    # compressed write (the PinSage row's; every [N, K] cache has the
+    # same size)
     t = time.perf_counter()
     with np.load(os.path.join(eval_dir, "knn", pinsage + ".npz")) as z:
         arrays = dict(z)
@@ -3976,16 +4069,6 @@ def run_eval_path(dev, hp, ab_state, work: str):
     t = time.perf_counter()
     np.savez_compressed(os.path.join(roster, "knn_rewrite.npz"), **arrays)
     walls["one_knn_cache_write_s"] = time.perf_counter() - t
-    _, test_pos = graph.load_positives_split(
-        os.path.join(ds, "positives.json"))
-    knn = LazyKnnDict(list(models), eval_dir)
-    t = time.perf_counter()
-    compute_results_table(knn, test_pos, graph.in_degrees())
-    walls["accuracy_table_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    compute_beyond_accuracy_table(knn, test_pos, graph.in_degrees(),
-                                  graph.features, device=dev)
-    walls["beyond_table_s"] = time.perf_counter() - t
     return SimpleNamespace(graph=graph, eval_dir=eval_dir, pinsage=pinsage,
                            emb=hp["bench"].emb, k=args.k,
                            models=tuple(models), built=models,
@@ -4201,6 +4284,248 @@ def hold_tools_kernels(torch, tools) -> list:
         torch.cuda.empty_cache()
     return rows
 
+
+# ---- the bench module (bench.py's throughput, FLOP-bound and roofline
+# measurement), cut: chunks of 10 / 50 at the headline, 2 / 10 at the
+# FLOP-bound shape, one repetition (the probes at their own rep counts)
+BENCH_ARGV = ("--chunk-small", "10", "--chunk-large", "50",
+              "--fb-chunk-small", "2", "--fb-chunk-large", "10",
+              "--reps", "1")
+# the keys of an uncut run (no --skip-probes, no --fresh-baseline)
+BENCH_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "warmup_s", "kernel_build",
+    "warm_step_ms", "edges_per_step", "flopbound_tflops",
+    "flopbound_mfu_vs_ceiling", "flopbound_bound_ms", "flopbound_step_ms",
+    "flopbound_bf16_tflops", "flopbound_bf16_mfu_vs_ceiling",
+    "flopbound_bf16_bound_ms", "flopbound_bf16_step_ms",
+    "flopbound_contig_step_ms", "flopbound_roofline_ratio",
+    "roofline_pred_ms", "hbm_stream_gbps", "gather_mrows_per_s",
+    "gather_wide_row_ratio", "gather_bf16_row_ratio", "flopbound_config",
+    "platform", "card"}
+BENCH_SHARE_MAX = 1.05   # a share of the bound above this: the count errs
+BENCH_EDGES = 5760       # bench.py's edges_per_step at B=128, L=2, T=3
+
+
+def positive_leaves(value) -> bool:
+    """Every number in ``value`` (nested dicts) finite and > 0, every
+    string non-empty, nothing None."""
+    import math
+
+    if isinstance(value, dict):
+        return all(positive_leaves(v) for v in value.values())
+    if isinstance(value, str):
+        return bool(value)
+    return (isinstance(value, (int, float)) and not isinstance(value, bool)
+            and math.isfinite(value) and value > 0)
+
+
+def run_bench_path(dev) -> dict:
+    """``bench.run`` on ``dev`` cut to BENCH_ARGV, with the launch counters
+    set to 0 first: the headline step (K3 and its backward), the FLOP-bound
+    step in f32 (K2 and its backward), in bf16 (K2's 16-bit form) and on
+    contiguous ids, the gather and stream yardsticks.  Fails unless its
+    JSON has an uncut run's keys, ``edges_per_step`` is BENCH_EDGES, every
+    value is finite and positive, both shares of the bound are at most
+    BENCH_SHARE_MAX, the contiguous control ran, every kernel of the path
+    ran and ``BENCH_BASELINE.json`` is byte for byte as it was."""
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import bench
+
+    with open(bench.BASELINE_PATH, "rb") as f:
+        baseline = f.read()
+    reset_kernel_counts()
+    t = time.perf_counter()
+    out = bench.run(bench.parse_args([*BENCH_ARGV, "--device", str(dev)]))
+    sync(torch, dev)
+    wall = time.perf_counter() - t
+    counts = kernel_counts()
+    log(f"bench (cut): {json.dumps(out)}")
+    with open(bench.BASELINE_PATH, "rb") as f:
+        baseline_kept = f.read() == baseline
+    need = ("dma_agg", "agg_backward_dma", "agg", "agg_split", "agg_project",
+            "agg_gather_mean", "agg_backward_stream", "agg_bf16",
+            "agg_bf16_project", "agg_backward_stream_bf16", "probe_gather",
+            "probe_l2")
+    checks = {
+        "keys_as_uncut": set(out) == BENCH_KEYS,
+        "edges_per_step": out.get("edges_per_step") == BENCH_EDGES,
+        "finite_and_positive": positive_leaves(out),
+        "shares_at_most_1.05": all(
+            out.get(k, 2.0) <= BENCH_SHARE_MAX
+            for k in ("flopbound_mfu_vs_ceiling",
+                      "flopbound_bf16_mfu_vs_ceiling")),
+        "contiguous_control_ran": out.get("flopbound_contig_step_ms", 0) > 0,
+        "baseline_file_unchanged": baseline_kept,
+        "kernels_launched": all(counts[k] > 0 for k in need)}
+    log(f"launches on the bench path: {counts}")
+    if not all(checks.values()):
+        raise AssertionError(f"bench: {checks}; {out}")
+    return {"bench": out, "checks": checks, "counts": counts,
+            "walls": {"bench_s": wall}}
+
+
+def probe_row(torch, name, kernel, plain, read, library, nbytes, flops,
+              launches, shape) -> dict:
+    """A yardstick's entry of the ``kernels`` line: its 0-d sum held
+    against the float64 sum of what it reads (``read`` [the entries in
+    float64]: within 1e-6 of the sum of their magnitudes), its times
+    beside its plain version's and the library call's, and its bound."""
+    from gcn_song_embeddings_tpu_torch.ops import agg
+
+    got = float(kernel())
+    want, scale = float(read.sum()), float(read.abs().sum())
+    err = abs(got - want)
+    log(f"{name}: {got:.6g} vs float64 {want:.6g}, |diff| / sum|x| "
+        f"{err / scale:.3g}")
+    if not err <= 1e-6 * scale:
+        raise AssertionError(f"{name} differs from the float64 sum by "
+                             f"{err} (sum |x| {scale})")
+    bound_ms, bound_by = bound(flops, nbytes)
+    return {"name": name, "route": "cuda", "source": agg.SOURCE,
+            "replaces": "none (not a port kernel: a yardstick of bench.py)",
+            "launches": launches, "launches_by_path": {"bench": launches},
+            "max_abs_err": err, "rel_err_of_abs_sum": err / scale,
+            "ms": cuda_ms(torch, kernel, reps=10),
+            "host_ms": cuda_ms(torch, kernel, reps=10, queued=False),
+            "plain_ms": cuda_ms(torch, plain, reps=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms(torch, library, reps=10),
+            "shape": shape}
+
+
+def hold_bench_kernels(torch, bp, dev) -> list:
+    """The kernels at the bench's shapes against their plain versions:
+    K3 with its backward at both aggregations of a headline step (B=128,
+    T=3, Din 512 then 128, H 512), K2 with its backward and K2's bf16
+    form at the four full-graph layers of the FLOP-bound step (N=20,000,
+    T=3, Din 512 then 256, H 1024), and the two yardsticks (one gather
+    pass of 60,000 random rows of a 20,000 x 1024 f32 table; one read of
+    the 256 MiB stream array).  Returns the kernels line's rows."""
+    import types
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from gcn_song_embeddings_tpu_torch import bench
+    from gcn_song_embeddings_tpu_torch.models.pinsage import (
+        cast_params,
+        conv_from_table,
+        init_pinsage,
+    )
+    from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
+    from gcn_song_embeddings_tpu_torch.ops.ppr import block_generator
+    from gcn_song_embeddings_tpu_torch.train.trainer import (
+        TrainTables,
+        sample_train_batch,
+    )
+
+    counts = bp["counts"]
+    features, nb_w, nb_n, positives = bench.build_problem()
+    n = len(features)
+    rows = []
+
+    def seeded(mcfg):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return init_pinsage(gen, mcfg.n_layers, bench.FEAT_DIM,
+                            mcfg.hidden_dim, mcfg.out_dim)
+
+    cfg = bench.headline_config()
+    tables = TrainTables.build(features, nb_w, nb_n, bench.T, dev)
+    step = types.SimpleNamespace(cfg=cfg, tables=tables,
+                                 params=seeded(cfg.model))
+    batch = sample_train_batch(block_generator(4242, 0, dev),
+                               torch.as_tensor(positives, device=dev),
+                               tables, cfg.train, n, 0)
+    shapes = step_conv_inputs(torch, step, batch)
+    k3 = measure_aggregation(torch, agg, "dma", shapes)
+    rows.append(kernel_row(
+        "K3 fused 3xTF32 gather + Q-MLP + weighted mean "
+        "(agg.conv_aggregate, mode dma) at the bench's headline step",
+        dma_agg.SOURCE, dma_agg.REPLACES,
+        {"bench_headline": counts["dma_agg"]}, counts["agg_backward_dma"],
+        k3, "both aggregations of a frontier step at B=128, L=2, T=3, "
+        "H=512: " + ", ".join(
+            f"{ids.shape[0]} nodes Din={table.shape[1]} (table "
+            f"{table.shape[0]} rows)" for _, table, ids, _, _ in shapes)))
+    del shapes, step
+
+    fb = bench.flopbound_config().model
+    params = seeded(fb)
+    nb_idx = tables.nbhd_n[:, :bench.T].contiguous()
+    nb_wt = tables.nbhd_w[:, :bench.T].contiguous()
+    shapes, h = [], tables.features
+    with torch.inference_mode():
+        for l, layer in enumerate(params.layers):
+            shapes.append((layer, h, nb_idx, nb_wt, l > 0))
+            h = conv_from_table(layer, h, h, nb_idx, nb_wt)
+    k2 = measure_aggregation(torch, agg, "stream", shapes)
+    shape = (f"the {fb.n_layers} full-graph layers of the FLOP-bound step, "
+             f"N={n} T={bench.T}: Din=" + ", ".join(
+                 str(x[1].shape[1]) for x in shapes)
+             + f", H={fb.hidden_dim}")
+    rows.append(kernel_row(
+        "K2 3xTF32 Q-MLP of every table row, then gather + weighted mean "
+        "(agg.conv_aggregate, mode stream) at the bench's FLOP-bound step",
+        agg.SOURCE, agg.REPLACES,
+        {"bench_flopbound_f32_and_contig": counts["agg"]},
+        counts["agg_backward_stream"], k2,
+        shape + "; backward at the same shapes (dh after the first layer)"))
+    rows[-1]["header"] = agg.HEADER
+    del shapes
+
+    pc = cast_params(params, torch.bfloat16)
+    wt16 = nb_wt.to(torch.bfloat16)
+    shapes16, h = [], tables.features.to(torch.bfloat16)
+    with torch.inference_mode():
+        for layer in pc.layers:
+            shapes16.append((h, nb_idx, wt16, layer.Wq.detach(),
+                             layer.bq.detach().float()))
+            h = conv_from_table(layer, h, h, nb_idx, wt16).to(torch.bfloat16)
+    k2_16 = measure_aggregation16(torch, agg, "stream", shapes16)
+    rows.append(kernel_row16(
+        "K2 bf16 Q-MLP of every table row, then gather + weighted mean "
+        "(agg.conv_aggregate on a bf16 table, mode stream) at the bench's "
+        "FLOP-bound step", agg.SOURCE, agg.REPLACES,
+        {"bench_flopbound_bf16": counts["agg_bf16"]},
+        counts["agg_backward_stream_bf16"], k2_16,
+        shape + "; bf16 rows (each layer's output stored in bf16), Wq and "
+        "weights"))
+    rows[-1]["header"] = agg.HEADER
+    del shapes16, h, params, pc
+    torch.cuda.empty_cache()
+
+    d, n_idx = 1024, n * bench.T
+    rng = np.random.default_rng(7)
+    idx = torch.as_tensor(rng.integers(0, n, n_idx).astype(np.int32),
+                          device=dev)
+    table = torch.as_tensor(np.random.default_rng(8).normal(
+        size=(n, d)).astype(np.float32), device=dev)
+    bag = torch.zeros(1, dtype=torch.long, device=dev)
+    rows.append(probe_row(
+        torch, "gather_probe_kernel (agg.gather_read_probe): one pass of "
+        "random rows summed, never written back",
+        lambda: agg.gather_read_probe(table, idx, 1),
+        lambda: agg.gather_read_probe_plain(table, idx, 1),
+        table.double()[idx.long()],
+        lambda: F.embedding_bag(idx, table, bag, mode="sum"),
+        4.0 * (n * d + n_idx), float(n_idx * d), counts["probe_gather"],
+        f"{n_idx} random rows (ids of bench.py's draw) of a {n} x {d} f32 "
+        f"table, one pass; library: one embedding_bag sum"))
+    del table
+    x = torch.rand(bench.STREAM_MIB * 1024 * 1024 // 4, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(3))
+    rows.append(probe_row(
+        torch, "l2_probe_kernel (agg.l2_read_probe): one read of an "
+        "array larger than L2", lambda: agg.l2_read_probe(x, 1).sum(),
+        lambda: x.sum(dtype=torch.float32), x.double(),
+        lambda: x.sum(), 4.0 * x.numel(), float(x.numel()),
+        counts["probe_l2"],
+        f"{bench.STREAM_MIB} MiB f32, one pass; library: torch.sum"))
+    del x
+    torch.cuda.empty_cache()
+    return rows
 
 # ---- the 1M-track catalog (scale_demo, refresh_1m, hybrid_1m, serve_bench)
 # scale_demo's co-listen capstone (RESULTS.md:713-716) with its 1,000,000
@@ -4654,7 +4979,8 @@ def measure_k2_blocked(torch, agg, layers, ids, wts, block_rows) -> dict:
     out = dict.fromkeys(("ms", "host_ms", "plain_ms", "library_ms", "flops",
                          "products", "bytes", "err", "err64", "plain_err64",
                          "bwd_ms", "bwd_plain_ms", "bwd_flops", "bwd_bytes",
-                         "bwd_err", "bwd_plain_err"), 0.0)
+                         "bwd_err", "bwd_plain_err", "bwd_branch_flips"),
+                        0.0)
     n = ids.shape[0]
     for layer, h in layers:
         Wq, bq = layer.Wq.detach(), layer.bq.detach()
@@ -4974,6 +5300,19 @@ def main() -> int:
     del hp, tools
     torch.cuda.empty_cache()
 
+    # ---- the bench module: headline, FLOP-bound steps, roofline (cut) ---
+    t = time.perf_counter()
+    bp = run_bench_path(dev)
+    bench_counts = bp["counts"]
+    rows_bench = hold_bench_kernels(torch, bp, dev)
+    bp["walls"]["phase_s"] = time.perf_counter() - t
+    st.walls["bench"] = bp["walls"]
+    log(card_line())
+    log(json.dumps({"bench_checks": {k: bp[k] for k in (
+        "bench", "checks", "walls")}}))
+    del bp
+    torch.cuda.empty_cache()
+
     # ---- the 1M catalog: scale_demo, refresh_1m, hybrid_1m, serve_bench --
     t = time.perf_counter()
     reset_counts()
@@ -5106,10 +5445,12 @@ def main() -> int:
          **{f"sharded_{w}": c["agg"] for w, c in sharded.items()},
          "hard": hard_launches["agg"], "colisten_ab": ab_launches["agg"],
          **{path: c["agg"] for path, c in tool_counts.items()},
-         "scaling": sh["scaling_counts"]["agg"]},
+         "scaling": sh["scaling_counts"]["agg"],
+         "bench": bench_counts["agg"]},
         train_launches["agg_backward_stream"]
         + sum(c["agg_backward_stream"] for c in sharded.values())
-        + sum(c["agg_backward_stream"] for c in tool_counts.values()), k2,
+        + sum(c["agg_backward_stream"] for c in tool_counts.values())
+        + bench_counts["agg_backward_stream"], k2,
         f"both embed_all layers, N={graph.n_items} T={mcfg.T}: Din=512 and "
         f"Din=128, H={mcfg.hidden_dim}; backward at the same shapes (the "
         f"full-graph train step), launched "
@@ -5126,7 +5467,8 @@ def main() -> int:
             "hard": hard_launches[f"agg_{name}"],
             "colisten_ab": ab_launches[f"agg_{name}"],
             **{path: c[f"agg_{name}"] for path, c in tool_counts.items()},
-            "scaling": sh["scaling_counts"][f"agg_{name}"]}
+            "scaling": sh["scaling_counts"][f"agg_{name}"],
+            "bench": bench_counts[f"agg_{name}"]}
     results.append(row)
     row = kernel_row(
         "K3 fused 3xTF32 gather + Q-MLP + weighted mean "
@@ -5137,14 +5479,16 @@ def main() -> int:
          "hard": hard_launches["dma_agg"],
          "colisten_ab": ab_launches["dma_agg"],
          **{path: c["dma_agg"] for path, c in tool_counts.items()},
-         "scaling": sh["scaling_counts"]["dma_agg"]},
+         "scaling": sh["scaling_counts"]["dma_agg"],
+         "bench": bench_counts["dma_agg"]},
         train_launches["agg_backward_dma"]
         + prepare_launches["agg_backward_dma"]
         + sum(c["agg_backward_dma"] for c in sharded.values())
         + hard_launches["agg_backward_dma"]
         + ab_launches["agg_backward_dma"]
         + sum(c["agg_backward_dma"] for c in tool_counts.values())
-        + sh["scaling_counts"]["agg_backward_dma"], k3,
+        + sh["scaling_counts"]["agg_backward_dma"]
+        + bench_counts["agg_backward_dma"], k3,
         f"both aggregations of a frontier train step at B=128: "
         f"{step_shapes[0][2].shape[0]} nodes x T={mcfg.T}, Din=512 and "
         f"{step_shapes[1][2].shape[0]} nodes x T={mcfg.T}, Din=128; "
@@ -5191,6 +5535,7 @@ def main() -> int:
         results[-1]["ms_over_f32_k2_ms"] = k2_16["ms"] / k2["ms"]
     results.extend(rows_colisten)
     results.extend(rows_tools)
+    results.extend(rows_bench)
     results.extend(rows_1m)
     shutil.rmtree(work, ignore_errors=True)
     log(card_line())

@@ -254,6 +254,43 @@ l2_probe_kernel(const float4* __restrict__ src, int n4, int passes,
   sink[i0] = s;
 }
 
+// Not part of K2 either: a yardstick for the full-graph step's row
+// gathers (the port's counterpart of bench.py's `measure_gather_rates`,
+// whose XLA gather + reduce never writes the rows back).  `reps` passes
+// over the `n_idx` ids, pass r reading row (idx[j] + r) % n_rows of the
+// table (rows of `row16` 16-byte pieces, f32, or bf16 where `bf16` != 0),
+// one warp a row, each lane summing its pieces into a register; each
+// thread's sum goes to `sink` so that no load is dropped.  Nothing is
+// written but the sink, so the rate it gives is the gather's read rate.
+__global__ void __launch_bounds__(256)
+gather_probe_kernel(const uint4* __restrict__ table, int n_rows, int row16,
+                    const int* __restrict__ idx, int n_idx, int reps,
+                    int bf16, float* __restrict__ sink) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  const int n_warps = gridDim.x * blockDim.x / 32;
+  float s = 0.f;
+  for (int r = 0; r < reps; ++r) {
+    for (int j = tid / 32; j < n_idx; j += n_warps) {
+      const long long row = ((long long)idx[j] + r) % n_rows;
+      const uint4* src = table + row * row16;
+      for (int c = lane; c < row16; c += 32) {
+        const uint4 v = src[c];
+        if (bf16) {
+          s += (__uint_as_float(v.x << 16) + __uint_as_float(v.x & 0xffff0000u))
+             + (__uint_as_float(v.y << 16) + __uint_as_float(v.y & 0xffff0000u))
+             + (__uint_as_float(v.z << 16) + __uint_as_float(v.z & 0xffff0000u))
+             + (__uint_as_float(v.w << 16) + __uint_as_float(v.w & 0xffff0000u));
+        } else {
+          s += (__uint_as_float(v.x) + __uint_as_float(v.y))
+             + (__uint_as_float(v.z) + __uint_as_float(v.w));
+        }
+      }
+    }
+  }
+  sink[tid] = s;
+}
+
 extern "C" int agg_split_launch(const void* wq, void* big_t, void* small_t,
                                 int hdim, int din, void* stream) {
   if (hdim < 1 || din < 1 || din % 4 != 0 || (uintptr_t)wq % 16 != 0 ||
@@ -362,6 +399,20 @@ extern "C" int agg_l2_probe_launch(const void* src, int n4, int passes,
     return (int)cudaErrorInvalidValue;
   l2_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
       (const float4*)src, n4, passes, (float*)sink);
+  return (int)cudaGetLastError();
+}
+
+// sink: blocks x 256 floats
+extern "C" int agg_gather_probe_launch(const void* table, int n_rows,
+                                       int row16, const void* idx, int n_idx,
+                                       int reps, int bf16, void* sink,
+                                       int blocks, void* stream) {
+  if (n_rows < 1 || row16 < 1 || n_idx < 1 || reps < 1 || blocks < 1 ||
+      (uintptr_t)table % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  gather_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const uint4*)table, n_rows, row16, (const int*)idx, n_idx, reps, bf16,
+      (float*)sink);
   return (int)cudaGetLastError();
 }
 

@@ -105,11 +105,30 @@ def strategy_config(b: int, strategy: str) -> RunConfig:
         "train.fullgraph_forward": strategy})
 
 
-def seeded_params(dev, in_dim: int):
-    """The script's two-layer model (hidden 512, out 128) from seed 0."""
+def seeded_params(dev, in_dim: int, n_layers: int = L,
+                  hidden: int = HIDDEN, out: int = OUT):
+    """The script's model (by default two layers, hidden 512, out 128)
+    from seed 0."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    return init_pinsage(gen, L, in_dim, HIDDEN, OUT)
+    return init_pinsage(gen, n_layers, in_dim, hidden, out)
+
+
+def chunk_difference(wall, small: int, large: int, reps: int = 3,
+                     log=None) -> float:
+    """Seconds a batch by the script's difference method: the median over
+    ``reps`` of (``wall(large, 3 + 2i)`` - ``wall(small, 2 + 2i)``) /
+    (large - small), ``wall(n_chunk, i)`` being the seconds of a chunk of
+    ``n_chunk`` steps on the batches of generator i."""
+    diffs = []
+    for i in range(reps):
+        t_small = wall(small, 2 + 2 * i)
+        t_large = wall(large, 3 + 2 * i)
+        if log is not None:
+            log(f"rep {i}: small({small})={t_small:.3f}s "
+                f"large({large})={t_large:.3f}s")
+        diffs.append((t_large - t_small) / (large - small))
+    return float(np.median(diffs))
 
 
 def run(args: argparse.Namespace, log=print) -> dict:
@@ -141,15 +160,13 @@ def run(args: argparse.Namespace, log=print) -> dict:
                     cfg.train, cfg.model, n, n_chunk, strat == "on")
                 return float(metrics.sum())
 
+            def wall(n_chunk, i):
+                return timed(lambda: chunk(n_chunk, i))
+
             s, bg = args.chunk_small, args.chunk_large
-            timed(lambda: chunk(s, 0))
-            timed(lambda: chunk(bg, 1))
-            diffs = []
-            for i in range(3):
-                t1 = timed(lambda: chunk(s, 2 + 2 * i))
-                t2 = timed(lambda: chunk(bg, 3 + 2 * i))
-                diffs.append((t2 - t1) / (bg - s))
-            ms = float(np.median(diffs)) * 1e3
+            wall(s, 0)
+            wall(bg, 1)
+            ms = chunk_difference(wall, s, bg) * 1e3
             eps = edges_per_step(b) / (ms * 1e-3)
             log(f"B={b} fullgraph={strat}: {ms:.3f} ms/batch "
                 f"({eps / 1e6:.1f}M edges/s)")

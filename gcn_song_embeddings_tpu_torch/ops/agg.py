@@ -76,6 +76,9 @@ kernel_launches_f16 = {"tile": 0, "project": 0}
 # ConvAggregate.backward calls on CUDA tensors, by forward mode and form
 backward_launches = {"stream": 0, "dma": 0, "stream_bf16": 0, "dma_bf16": 0,
                      "stream_f16": 0, "dma_f16": 0}
+# launches of the yardsticks on CUDA tensors (not port kernels:
+# ``l2_read_probe``, ``gather_read_probe``)
+probe_launches = {"l2": 0, "gather": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"split": [_P] * 3 + [_I] * 2 + [_P],
@@ -83,7 +86,8 @@ _ARGTYPES = {"split": [_P] * 3 + [_I] * 2 + [_P],
              "gather": [_P] * 4 + [_I] * 5 + [_P],
              "tile16": [_P] * 2 + [_I] * 2 + [_P],
              "project16": [_P] * 4 + [_I] * 4 + [_P],
-             "l2_probe": [_P] + [_I] * 2 + [_P, _I, _P]}
+             "l2_probe": [_P] + [_I] * 2 + [_P, _I, _P],
+             "gather_probe": [_P, _I, _I, _P] + [_I] * 3 + [_P, _I, _P]}
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -372,10 +376,13 @@ def gather_mean(proj: torch.Tensor, nb_nodes: torch.Tensor,
 
 
 def l2_read_probe(src: torch.Tensor, passes: int) -> torch.Tensor:
-    """Not a port kernel: read the f32 tensor ``src`` (contiguous, small
-    enough that L2 holds it) ``passes`` times through L2 on CUDA, as a
-    yardstick for the rate at which this card's L2 serves ``gather_mean``'s
-    reads.  Returns each thread's sum of what it read."""
+    """Not a port kernel: read the f32 tensor ``src`` (contiguous)
+    ``passes`` times through L2 on CUDA, as a yardstick.  A ``src`` that
+    L2 holds gives the rate at which this card's L2 serves
+    ``gather_mean``'s reads; one larger than L2 (50 MB on the H100)
+    streams from device memory every pass, so the time of a pass is the
+    card's streaming read rate for its bytes (``bench.measure_stream_bw``).
+    Returns each thread's sum of what it read."""
     _check_tensors((("src", src, torch.float32, src.dim()),))
     if src.numel() % 4 or src.numel() == 0 or passes < 1:
         raise ValueError("src must hold a positive multiple of 4 floats "
@@ -388,7 +395,56 @@ def l2_read_probe(src: torch.Tensor, passes: int) -> torch.Tensor:
     with torch.cuda.device(src.device):
         _launch("l2_probe", src.data_ptr(), src.numel() // 4, passes,
                 sink.data_ptr(), blocks)
+    probe_launches["l2"] += 1
     return sink
+
+
+def gather_read_probe_plain(table: torch.Tensor, idx: torch.Tensor,
+                            reps: int) -> torch.Tensor:
+    """``gather_read_probe``'s function: the sum, in f32, of the rows
+    ``(idx + r) % N`` of ``table`` [N, d] over r < ``reps`` (0-d f32)."""
+    ids = idx.long()
+    total = table.new_zeros((), dtype=torch.float32)
+    for r in range(reps):
+        total = total + table[(ids + r) % table.shape[0]].sum(
+            dtype=torch.float32)
+    return total
+
+
+def gather_read_probe(table: torch.Tensor, idx: torch.Tensor,
+                      reps: int) -> torch.Tensor:
+    """Not a port kernel: ``reps`` gathers of the rows ``(idx + r) % N``
+    of the f32 or bf16 ``table`` [N, d] (rows of a multiple of 16
+    bytes), summed to a 0-d f32 tensor without writing the rows back, as
+    a yardstick for the row rate of the full-graph step's gathers (the
+    port's counterpart of ``bench.py``'s ``measure_gather_rates``).  On
+    CUDA it launches ``gather_probe_kernel`` (``csrc/agg.cu``), one warp
+    a row; on the CPU it runs ``gather_read_probe_plain``."""
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"table must be f32 or bf16, got {table.dtype}")
+    _check_tensors((("table", table, table.dtype, 2),
+                    ("idx", idx, torch.int32, 1)))
+    n, d = table.shape
+    if n == 0 or idx.numel() == 0 or reps < 1:
+        raise ValueError("table and idx must not be empty and reps be >= 1")
+    if table.device.type == "cpu":
+        return gather_read_probe_plain(table, idx, reps)
+    row_bytes = d * table.element_size()
+    if row_bytes % 16:
+        raise ValueError(f"a table row must be a multiple of 16 bytes, "
+                         f"got {row_bytes}")
+    _check_aligned(table=table)
+    _check_cuda("the gather probe", table.device)
+    blocks = 8 * torch.cuda.get_device_properties(
+        table.device).multi_processor_count
+    sink = torch.empty(blocks * 256, dtype=torch.float32,
+                       device=table.device)
+    with torch.cuda.device(table.device):
+        _launch("gather_probe", table.data_ptr(), n, row_bytes // 16,
+                idx.data_ptr(), idx.numel(), reps,
+                int(table.dtype == torch.bfloat16), sink.data_ptr(), blocks)
+    probe_launches["gather"] += 1
+    return sink.sum()
 
 
 def _sixteen(name: str, t: torch.Tensor) -> torch.dtype:
