@@ -201,7 +201,25 @@
    Random on hr@100.  Prints an ``eval_walls`` line and, after the card
    line, a ``colisten_checks`` line (the A/B rows beside JAX's, the
    ratios, both roster tables, the walls); the kernels line gains the
-   five new-shape rows.
+   five new-shape rows.  Between the new shapes and the roster's eval,
+   the matmul precision policy (``GCN_TPU_MATMUL_PRECISION``, set in the
+   process by ``utils.precision.override``): co1_T10_wide at full width
+   (hidden 1024, out 256, T=10) on the A/B's data, 3 steps from one
+   seeded init on the same batches and ``embed_all``, unset, ``default``
+   and ``high``, the counters set to 0 before each (``run_precision_path``:
+   unset runs K3 and K2 in 3xTF32 only, ``default`` / ``high`` their
+   bf16x1 / bf16x3 forms and the backward in the same passes only; the
+   final loss within 1e-2 of the f32 one and not equal to it at
+   ``default``, ``high``'s embeddings nearer the f32 ones than
+   ``default``'s; kNN, ``rank_eval`` and the f32 and int8 serving indexes
+   over one table bit-equal under every value), then each bf16x form
+   held against its plain version at those shapes
+   (``hold_precision_kernels``: within K2_ATOL, within 4x a pass the
+   plain version's error against float64 of the same rounded function, the
+   backward within GRAD_RTOL of float64 autograd of it, or within 1.25x
+   of the plain version's own distance where that is larger).  Prints a
+   ``precision_checks`` line after the card line; the kernels line gains
+   the four bf16x rows.
 14. Right after the co-listen phase, the repository tools, each with the
    counters set to 0 again: ``grid_refschedule.run`` with the colisten
    schedule on a copy of the hard phase's dataset and PPR caches (the
@@ -1231,11 +1249,13 @@ def bound(flops: float, nbytes: float, products: float = 0.0,
                                    else "bytes")
 
 
-def float64_error(torch, agg, h, ids, wts, Wq, bq, got, plain):
+def float64_error(torch, agg, h, ids, wts, Wq, bq, got, plain, passes=None):
     """Max |error| of the kernel's and the plain f32 version's outputs
     against the aggregation in float64 (each table row projected once,
-    the T weighted rows summed one at a time, so no [B, T, H] tensor)."""
-    proj = agg.project_table_plain(h.double(), Wq.double(), bq.double())
+    the T weighted rows summed one at a time, so no [B, T, H] tensor;
+    with ``passes`` the products of the same bf16-rounded operands)."""
+    proj = agg.project_table_plain(h.double(), Wq.double(), bq.double(),
+                                   passes)
     w64 = wts.double()
     ref = torch.zeros(got.shape, dtype=torch.float64, device=got.device)
     for t in range(ids.shape[1]):
@@ -1297,14 +1317,19 @@ def k2_parts(torch, agg, h, ids, wts, Wq, bq, got) -> dict:
     }
 
 
-def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh):
+def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh,
+                    passes=None):
     """(relative Frobenius errors, the plain version's own errors, ms,
     plain ms, entries at another slope in float64) of the aggregation's
     backward at one shape, the errors per gradient against autograd
     through the plain version in float64 (at the backward's f32
     leaky_relu slopes where some entry's differs: ``branch_slopes``),
     with the inputs that need a gradient in the train step (Wq and bq; h
-    too where it is an activation)."""
+    too where it is an activation).  With ``passes`` the forward is the
+    precision policy's bf16x form and the reference the same function
+    (bf16-rounded operands and cotangents) in float64."""
+    from gcn_song_embeddings_tpu_torch.utils import precision
+
     def leaves(dtype):
         # copies: the table may be an inference-mode tensor
         h = table.detach().to(dtype, copy=True).requires_grad_(need_dh)
@@ -1318,16 +1343,19 @@ def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh):
                       device=table.device, generator=gen)
     h, Wq, bq, inputs = leaves(torch.float64)
     slope, flips = branch_slopes(torch, table, ids, layer.Wq.detach(),
-                                 layer.bq.detach(), h, Wq, bq)
+                                 layer.bq.detach(), h, Wq, bq, passes)
     ref = torch.autograd.grad(
-        agg.conv_aggregate_plain(h, ids, wts.double(), Wq, bq)
+        agg.conv_aggregate_plain(h, ids, wts.double(), Wq, bq, passes)
         if slope is None else
-        plain_at_slopes(torch, agg, h, ids, wts.double(), Wq, bq, slope),
+        plain_at_slopes(torch, agg, h, ids, wts.double(), Wq, bq, slope,
+                        passes),
         inputs, cot.double())
     del slope
     h, Wq, bq, inputs = leaves(torch.float32)
-    out = agg.conv_aggregate(h, ids, wts, Wq, bq, mode=mode)
-    plain = agg.conv_aggregate_plain(h, ids, wts, Wq, bq)
+    value = {None: None, 1: "default", 3: "high"}[passes]
+    with precision.override(value):
+        out = agg.conv_aggregate(h, ids, wts, Wq, bq, mode=mode)
+    plain = agg.conv_aggregate_plain(h, ids, wts, Wq, bq, passes)
     got = torch.autograd.grad(out, inputs, cot, retain_graph=True)
     want = torch.autograd.grad(plain, inputs, cot, retain_graph=True)
 
@@ -1345,17 +1373,29 @@ def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh):
     return err, plain_err, ms, plain_ms, flips
 
 
-def branch_slopes(torch, table, ids, Wq32, bq32, h64, Wq64, bq64):
+def recomputed_pre(torch, agg, h, Wq, bq, passes=None):
+    """h Wq^T + bq as the aggregation's backward recomputes it: one
+    ``addmm``, or in ``passes`` bf16 passes."""
+    if passes is None:
+        return torch.addmm(bq, h, Wq.t())
+    return agg._passes_product(h, Wq.t(), passes) + bq
+
+
+def branch_slopes(torch, table, ids, Wq32, bq32, h64, Wq64, bq64,
+                  passes=None):
     """([B*T, H] float64 leaky_relu slopes of the gathered entries as the
-    aggregation's backward takes them, from its f32 ``torch.addmm``
-    projection, or None where every slope is float64's; the number of
-    entries whose slope differs from float64's).  Fails unless each such
-    entry lies within BRANCH_ATOL of 0."""
+    aggregation's backward takes them, from its f32 projection (in
+    ``passes`` bf16 passes where given), or None where every slope is
+    float64's; the number of entries whose slope differs from
+    float64's).  Fails unless each such entry lies within BRANCH_ATOL of
+    0."""
+    from gcn_song_embeddings_tpu_torch.ops import agg
+
     flat = ids.reshape(-1).long()
     with torch.no_grad():
-        pre32 = torch.addmm(bq32.float(), table.float(),
-                            Wq32.float().t())[flat]
-        pre64 = torch.addmm(bq64, h64, Wq64.t())[flat]
+        pre32 = recomputed_pre(torch, agg, table.float(), Wq32.float(),
+                               bq32.float(), passes)[flat]
+        pre64 = recomputed_pre(torch, agg, h64, Wq64, bq64, passes)[flat]
         differ = (pre32 >= 0) != (pre64 >= 0)
         flips = int(differ.sum())
         worst = float(pre64[differ].abs().max()) if flips else 0.0
@@ -1369,11 +1409,13 @@ def branch_slopes(torch, table, ids, Wq32, bq32, h64, Wq64, bq64):
     return slope, flips
 
 
-def plain_at_slopes(torch, agg, h, ids, wts, Wq, bq, slope):
+def plain_at_slopes(torch, agg, h, ids, wts, Wq, bq, slope, passes=None):
     """The plain aggregation with each gathered entry's leaky_relu slope
-    given (``slope`` [B*T, H]): differentiable in h, Wq and bq."""
+    given (``slope`` [B*T, H]): differentiable in h, Wq and bq (in
+    ``passes`` bf16 passes where given, ``agg.matmul``)."""
     b, t = ids.shape
-    pre = torch.addmm(bq, h, Wq.t())[ids.reshape(-1).long()]
+    pre = (torch.addmm(bq, h, Wq.t()) if passes is None
+           else agg.matmul(h, Wq.t(), passes) + bq)[ids.reshape(-1).long()]
     q = (pre * slope).reshape(b, t, -1)
     return (wts[:, :, None] * q).sum(dim=1) / agg._denominator(wts)
 
@@ -2663,8 +2705,11 @@ def reset_kernel_counts() -> None:
         mod.launches = 0
     agg.launches_bf16 = dma_agg.launches_bf16 = 0
     agg.launches_f16 = dma_agg.launches_f16 = 0
+    agg.launches_bf16x1 = dma_agg.launches_bf16x1 = 0
+    agg.launches_bf16x3 = dma_agg.launches_bf16x3 = 0
     for counts in (agg.backward_launches, agg.kernel_launches,
                    agg.kernel_launches_bf16, agg.kernel_launches_f16,
+                   agg.kernel_launches_bf16x1, agg.kernel_launches_bf16x3,
                    agg.probe_launches):
         for key in counts:
             counts[key] = 0
@@ -2674,7 +2719,7 @@ def kernel_counts() -> dict:
     from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
 
     counts = {name: mod.launches for name, mod in kernel_modules().items()}
-    for form in ("bf16", "f16"):
+    for form in ("bf16", "f16", "bf16x1", "bf16x3"):
         counts[f"agg_{form}"] = getattr(agg, f"launches_{form}")
         counts[f"dma_agg_{form}"] = getattr(dma_agg, f"launches_{form}")
         counts.update({f"agg_{form}_{name}": n for name, n in getattr(
@@ -3963,6 +4008,365 @@ def hold_colisten_kernels(torch, ab_state, shapes: dict) -> list:
         row["header"] = agg.HEADER
         rows.append(row)
         del h1
+    return rows
+
+# the precision policy's phase: co1_T10_wide at full width (hidden 1024,
+# out 256, T=10) on the A/B's data, PRECISION_STEPS steps from one init on
+# the same batches and the embed, unset (f32) and at each value
+PRECISION_ARM = "co1_T10_wide"
+PRECISION_STEPS = 3
+PRECISION_VALUES = {"unset": None, "default": 1, "high": 3}
+# |first step's loss at a value - the f32 one| over the arm's margin, at
+# most: the same init, so only the forward's rounding differs, and the
+# loss is a mean of cosine differences near the margin (1e-5), which one
+# bf16 pass moves by ~1e-7 on these unit rows
+PRECISION_LOSS_MARGINS = 0.1
+PRECISION_RANK_ROWS = 256  # served and kNN query rows held bit-equal
+
+
+def _ranking_outputs(torch, dev, emb, test_pos) -> list:
+    """kNN, ``rank_eval`` and the f32 and int8 serving indexes' answers
+    over one table: what the precision policy must leave alone."""
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch.evals.device_eval import rank_eval
+    from gcn_song_embeddings_tpu_torch.ops.knn import knn_from_emb
+    from gcn_song_embeddings_tpu_torch.serve import EmbeddingIndex
+
+    table = emb.cpu().numpy()
+    rows = np.arange(PRECISION_RANK_ROWS)
+    w, n = knn_from_emb(table, queries=rows, k=100, device=dev)
+    served = [[(o["index"], o["score"]) for r in EmbeddingIndex(
+        table, quantized=q, device=dev).knn_rows(rows, 10) for o in r]
+        for q in (False, True)]
+    return [w, n, rank_eval(table, test_pos, device=dev), served]
+
+
+def run_precision_path(dev, ab_state) -> dict:
+    """The matmul precision policy (``utils.precision``) on the card, as
+    ``GCN_TPU_MATMUL_PRECISION`` sets it for a process: PRECISION_ARM's
+    config on the A/B's data and co-listen cache, PRECISION_STEPS train
+    steps from the trainer's seeded init on the same batches and then
+    ``embed_all``, once for each of PRECISION_VALUES with the counters
+    set to 0 before it (unset: K3 and K2 in 3xTF32; default / high: their
+    bf16x1 / bf16x3 forms, with the backward in the same passes), then
+    the step's wall and device time at that value (``time_train_steps``,
+    after the counts are read).  Then
+    kNN, ``rank_eval`` and both serving indexes over the unset run's
+    table under each value.  Returns the runs, their counts and the
+    checks."""
+    import copy
+
+    import numpy as np
+
+    from gcn_song_embeddings_tpu_torch import colisten_ab as ab
+    from gcn_song_embeddings_tpu_torch.config import config_with_overrides
+    from gcn_song_embeddings_tpu_torch.models.pinsage import embed_all
+    from gcn_song_embeddings_tpu_torch.ops.ppr import block_generator
+    from gcn_song_embeddings_tpu_torch.train.trainer import (
+        PinSageTrainer,
+        make_optimizer,
+        train_step,
+    )
+    from gcn_song_embeddings_tpu_torch.utils import precision
+
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = config_with_overrides(
+        ab.arm_config(PRECISION_ARM, dict(ab.ARMS)[PRECISION_ARM]),
+        {"train.epochs": 1, "train.batches_per_epoch": PRECISION_STEPS})
+    data = ab_state["data"]
+    g = data.graph
+    trainer = PinSageTrainer(
+        data.dg, g.n_items, g.features, data.train_pos, cfg=cfg,
+        base_run_dir=os.path.join(ab_state["work"], "precision"),
+        nbhds_path=os.path.join(data.ds_path, "neighborhoods.npz"),
+        log=False, load_save=False, verbose=False)
+    if trainer.fullgraph:
+        raise AssertionError(f"{PRECISION_ARM} trains full-graph")
+    tcfg, mcfg, tables = cfg.train, cfg.model, trainer.tables
+    gen = block_generator(2718, 0, trainer.device)
+    batches = [trainer.sample(gen) for _ in range(PRECISION_STEPS)]
+    init = copy.deepcopy(trainer.params)
+    runs = {}
+    for value, passes in PRECISION_VALUES.items():
+        params = copy.deepcopy(init)
+        opt = make_optimizer(params, tcfg)
+        reset_kernel_counts()
+        t = time.perf_counter()
+        with precision.override(None if passes is None else value):
+            losses = [float(train_step(params, opt, b, tables, tcfg, mcfg,
+                                       False)[0]) for b in batches]
+            steps_s = time.perf_counter() - t
+            emb = embed_all(params, tables.features, tables.nbhd_w,
+                            tables.nbhd_n, trainer.n, mcfg.n_layers, mcfg.T)
+        sync(torch, dev)
+        counts = kernel_counts()
+        # the step's wall and device time at this value (B=128, frontier)
+        with precision.override(None if passes is None else value):
+            step_ms, profile = time_train_steps(torch, trainer, reps=20,
+                                                profiled=5)
+        runs[value] = {"losses": losses, "emb": emb, "counts": counts,
+                       "steps_s": steps_s, "step_ms": step_ms,
+                       "profile": profile}
+        launched = {k: n for k, n in counts.items() if n}
+        log(f"precision {value}: losses {losses}, {PRECISION_STEPS} steps "
+            f"{steps_s:.3f} s, launches {json.dumps(launched)}")
+        if not (np.isfinite(losses).all() and emb.shape == (
+                trainer.n, mcfg.out_dim) and bool(torch.isfinite(emb).all())):
+            raise AssertionError(f"precision {value}: losses {losses}, "
+                                 f"embeddings {tuple(emb.shape)}")
+        form = "" if passes is None else f"_bf16x{passes}"
+        need = [f"dma_agg{form}", f"agg_backward_dma{form}", f"agg{form}"]
+        need += ([f"agg_bf16x{passes}_tile", f"agg_bf16x{passes}_project"]
+                 if passes else ["agg_split", "agg_project"])
+        missing = [k for k in need if counts[k] == 0]
+        others = [k for k in ("dma_agg", "agg", *(
+            f"{m}_bf16x{p}" for m in ("dma_agg", "agg") for p in (1, 3)))
+                  if counts[k] and k not in need]
+        if missing or others:
+            raise AssertionError(f"precision {value}: kernels never "
+                                 f"launched {missing}, other forms "
+                                 f"launched {others}")
+    f32 = runs["unset"]
+    checks = {"losses": {v: r["losses"] for v, r in runs.items()}}
+    for value in ("default", "high"):
+        checks[f"{value}_first_loss_diff_over_margin"] = abs(
+            runs[value]["losses"][0] - f32["losses"][0]) / tcfg.margin
+        checks[f"{value}_emb_rel_diff"] = float(
+            torch.linalg.vector_norm(runs[value]["emb"] - f32["emb"])
+            / torch.linalg.vector_norm(f32["emb"]))
+    log(f"precision: {json.dumps(checks)}")
+    if not (runs["default"]["losses"][-1] != f32["losses"][-1]
+            and max(checks[f"{v}_first_loss_diff_over_margin"]
+                    for v in ("default", "high")) <= PRECISION_LOSS_MARGINS
+            and checks["high_emb_rel_diff"] < checks["default_emb_rel_diff"]):
+        raise AssertionError(f"the policy's steps: {checks}")
+    # ranking reads no policy: bit-equal under every value
+    test = data.test_pos[:4096]
+    want = _ranking_outputs(torch, dev, f32["emb"], test)
+    for value in ("default", "high"):
+        with precision.override(value):
+            got = _ranking_outputs(torch, dev, f32["emb"], test)
+        same = [np.array_equal(got[0], want[0]),
+                np.array_equal(got[1], want[1]), got[2] == want[2],
+                got[3] == want[3]]
+        if not all(same):
+            raise AssertionError(f"ranking under {value} differs (kNN "
+                                 f"weights, ids, rank_eval, serving): "
+                                 f"{same}")
+    checks["ranking_bit_equal"] = True
+    checks["rank_eval"] = want[2]
+    checks["phase_s"] = time.perf_counter() - t0
+    return {"trainer": trainer, "batch": batches[0], "runs": runs,
+            "checks": checks}
+
+
+def measure_aggregation_bf16x(torch, agg, mode, shapes, passes) -> dict:
+    """Hold the aggregation of ``mode`` in its bf16x form (``passes``
+    bf16 passes on an f32 table) against its plain version at each
+    (layer, table, ids, weights, need_dh) of ``shapes``: max |diff|
+    within K2_ATOL (the products of the same rounded operands are exact
+    in f32 on both sides, only the order of the f32 sums differs), the
+    error against float64 of the same rounded function within 4x the
+    plain version's a pass (the tensor cores sum every pass into the one
+    accumulator, less carefully than an FMA: K3-bf16x3 erred 4.1x at
+    Din 256 on the H100), the backward against float64 autograd of the
+    same function within GRAD_RTOL or, where the plain version's own f32
+    backward is further than that, within 1.25x of it (the rounded
+    function is discontinuous: f32 and float64 round a cotangent entry
+    near a bf16 boundary to neighbours 2^-8 apart, and at the 20,000-row
+    embed both sit 1.7e-3 from float64 in dWq); timed as
+    ``measure_aggregation`` times (``ms``, ``host_ms``, plain, backward),
+    the library yardstick a bf16 cast of the table and Wq, the gather
+    and one ``einsum`` (three einsums of the hi / lo casts for three
+    passes).  Mode "stream" also
+    holds K2's tiling bit for bit and its projection (``parts``)."""
+    from gcn_song_embeddings_tpu_torch.utils import precision
+
+    value = {1: "default", 3: "high"}[passes]
+    out = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "flops": 0.0, "products": 0.0, "bytes": 0.0, "err": 0.0,
+           "err64": 0.0, "plain_err64": 0.0, "bwd_ms": 0.0,
+           "bwd_plain_ms": 0.0, "bwd_flops": 0.0, "bwd_bytes": 0.0,
+           "bwd_err": 0.0, "bwd_plain_err": 0.0, "bwd_branch_flips": 0}
+    if mode == "stream":
+        out["parts"] = {"tile": {"max_abs_err": 0.0, "ms": 0.0},
+                        "project": {"max_abs_err": 0.0, "ms": 0.0,
+                                    "plain_ms": 0.0}}
+    kernel = f"{agg.MODES[mode]} {agg.BF16X[passes]}"
+
+    def run(h, ids, wts, Wq, bq):
+        with precision.override(value):
+            return agg.conv_aggregate(h, ids, wts, Wq, bq, mode=mode)
+
+    def library(h, ids, wts, Wq, bq):
+        if passes == 1:
+            return torch.einsum("btd,hd->bth", h.bfloat16()[ids.long()],
+                                Wq.bfloat16())
+        (hh, hl), (wh, wl) = (
+            tuple(x.bfloat16() for x in agg.bf16_split3(t)) for t in (h, Wq))
+        rows_h, rows_l = hh[ids.long()], hl[ids.long()]
+        return (torch.einsum("btd,hd->bth", rows_h, wl)
+                + torch.einsum("btd,hd->bth", rows_l, wh)
+                + torch.einsum("btd,hd->bth", rows_h, wh))
+
+    for layer, h, ids, wts, need_dh in shapes:
+        Wq, bq = layer.Wq.detach(), layer.bq.detach()
+        n, din = h.shape
+        hdim = Wq.shape[0]
+        with torch.inference_mode():
+            got = run(h, ids, wts, Wq, bq)
+            want = agg.conv_aggregate_plain(h, ids, wts, Wq, bq, passes)
+            err = float((got - want).abs().max())
+            err64, plain_err64 = float64_error(torch, agg, h, ids, wts, Wq,
+                                               bq, got, want, passes)
+            log(f"{kernel} B={ids.shape[0]} T={ids.shape[1]} Din={din} "
+                f"H={hdim} (table {n} rows): max |diff| {err:.3g}; "
+                f"against float64 kernel {err64:.3g}, plain {plain_err64:.3g}")
+            if not (err <= K2_ATOL and err64 <= 4 * passes * plain_err64):
+                raise AssertionError(f"{kernel}: max |diff| {err} (bar "
+                                     f"{K2_ATOL}), against float64 {err64} "
+                                     f"(plain {plain_err64})")
+            out["err"] = max(out["err"], err)
+            out["err64"] = max(out["err64"], err64)
+            out["plain_err64"] = max(out["plain_err64"], plain_err64)
+            if mode == "stream":
+                hi, lo = agg.tile_wq_bf16x(Wq, passes)
+                want_hi, want_lo = (agg.tile_wq_plain(x.bfloat16())
+                                    for x in agg.bf16_split3(Wq))
+                if not (torch.equal(hi.view(torch.int16),
+                                    want_hi.view(torch.int16))
+                        and (lo is None or torch.equal(
+                            lo.view(torch.int16),
+                            want_lo.view(torch.int16)))):
+                    raise AssertionError(f"{kernel}: the Wq tiling differs "
+                                         f"from tile_wq_plain")
+                rows = agg.slabs_to_rows(agg.project_table_bf16x(
+                    h, hi, lo, bq, passes), hdim)
+                perr = float((rows - agg.project_table_plain(
+                    h, Wq, bq, passes)).abs().max())
+                if not perr <= K2_ATOL:
+                    raise AssertionError(f"{kernel} projection: {perr}")
+                parts = out["parts"]
+                parts["project"]["max_abs_err"] = max(
+                    parts["project"]["max_abs_err"], perr)
+                parts["tile"]["ms"] += cuda_ms(torch, lambda: agg.
+                                               tile_wq_bf16x(Wq, passes),
+                                               reps=10)
+                parts["project"]["ms"] += cuda_ms(
+                    torch, lambda: agg.project_table_bf16x(h, hi, lo, bq,
+                                                           passes), reps=5)
+                parts["project"]["plain_ms"] += cuda_ms(
+                    torch, lambda: agg.project_table_plain(h, Wq, bq,
+                                                           passes), reps=3)
+                del rows, hi, lo
+            del got, want
+            out["ms"] += cuda_ms(torch, lambda: run(h, ids, wts, Wq, bq),
+                                 reps=5)
+            out["host_ms"] += cuda_ms(torch, lambda: run(h, ids, wts, Wq,
+                                                         bq),
+                                      reps=5, queued=False)
+            out["plain_ms"] += cuda_ms(torch, lambda: agg.
+                                       conv_aggregate_plain(h, ids, wts, Wq,
+                                                            bq, passes),
+                                       reps=3)
+            out["library_ms"] += cuda_ms(torch, lambda: library(
+                h, ids, wts, Wq, bq), reps=3)
+        flops, nbytes, distinct, _ = agg_work(torch, ids, wts, din, hdim, n)
+        out["flops"] += flops
+        out["products"] += 2.0 * distinct * din * hdim
+        out["bytes"] += nbytes
+        errs, plain_errs, ms, plain_ms, flips = backward_timing(
+            torch, agg, mode, layer, h, ids, wts, need_dh, passes)
+        log(f"{kernel} backward vs float64 autograd of the rounded "
+            f"function: relative Frobenius {errs} (f32 plain {plain_errs}; "
+            f"{flips} entries at another slope)")
+        if not all(e <= max(GRAD_RTOL, 1.25 * p)
+                   for e, p in zip(errs, plain_errs)):
+            raise AssertionError(f"{kernel} backward errors {errs} against "
+                                 f"float64, the plain version's "
+                                 f"{plain_errs} (bar {GRAD_RTOL})")
+        out["bwd_err"] = max(out["bwd_err"], *errs)
+        out["bwd_plain_err"] = max(out["bwd_plain_err"], *plain_errs)
+        out["bwd_branch_flips"] += flips
+        out["bwd_ms"] += ms
+        out["bwd_plain_ms"] += plain_ms
+        flops, nbytes, _, _ = agg_work(torch, ids, wts, din, hdim, n,
+                                       backward=True, need_dh=need_dh)
+        out["bwd_flops"] += flops
+        out["bwd_bytes"] += nbytes
+    return out
+
+
+def kernel_row_bf16x(name, source, replaces, launches_by_path, bwd_launches,
+                     m, shape, passes) -> dict:
+    """One bf16x entry of the ``kernels`` line: its products bound on the
+    bf16 tensor cores at ``passes`` passes each; the backward (plain
+    PyTorch in the same passes) bound as the f32 one."""
+    row = kernel_row(name, source, replaces, launches_by_path, bwd_launches,
+                     m, shape)
+    row["bound_ms"], row["bound_by"] = bound(
+        m["flops"], m["bytes"], m["products"], H100_BF16_FLOPS, passes)
+    row["backward"]["route"] = (f"plain PyTorch (agg.ConvAggregate."
+                                f"backward, {passes} bf16 passes)")
+    row["bf16_passes"] = passes
+    row.pop("bound_f32_simt_ms")
+    return row
+
+
+def hold_precision_kernels(torch, pp) -> list:
+    """K3's bf16x forms with their backward at both aggregations of
+    PRECISION_ARM's frontier step and K2's at both ``embed_all`` layers
+    over the 20,000-track catalog, each against its plain version
+    (``measure_aggregation_bf16x``).  Returns the kernels line's rows."""
+    from gcn_song_embeddings_tpu_torch.models.pinsage import conv_from_table
+    from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
+
+    trainer = pp["trainer"]
+    mcfg, t_nb = trainer.cfg.model, trainer.tables
+    step = step_conv_inputs(torch, trainer, pp["batch"])
+    nb_idx = t_nb.nbhd_n[:, :mcfg.T].to(torch.int32).contiguous()
+    nb_wt = t_nb.nbhd_w[:, :mcfg.T].contiguous()
+    layers = trainer.params.layers
+    with torch.inference_mode():
+        h1 = conv_from_table(layers[0], t_nb.features, t_nb.features,
+                             nb_idx, nb_wt)
+    embed = [(layers[0], t_nb.features, nb_idx, nb_wt, False),
+             (layers[1], h1, nb_idx, nb_wt, True)]
+    rows = []
+    for value, passes in (("default", 1), ("high", 3)):
+        form = agg.BF16X[passes]
+        counts = pp["runs"][value]["counts"]
+        k3 = measure_aggregation_bf16x(torch, agg, "dma", step, passes)
+        rows.append(kernel_row_bf16x(
+            f"K3 {form} fused gather + Q-MLP + weighted mean of an f32 "
+            f"table in {passes} bf16 pass{'es' if passes > 1 else ''} "
+            f"(GCN_TPU_MATMUL_PRECISION={value})", dma_agg.SOURCE,
+            dma_agg.REPLACES, {f"precision_{value}_steps":
+                               counts[f"dma_agg_{form}"]},
+            counts[f"agg_backward_dma_{form}"], k3,
+            f"both aggregations of {PRECISION_ARM}'s frontier step at B="
+            f"{trainer.cfg.train.batch_size}: {step[0][2].shape[0]} nodes "
+            f"x T={mcfg.T}, Din={step[0][1].shape[1]} and "
+            f"{step[1][2].shape[0]} nodes x T={mcfg.T}, Din="
+            f"{step[1][1].shape[1]}; H={mcfg.hidden_dim}", passes))
+        rows[-1]["header"] = agg.HEADER
+        k2 = measure_aggregation_bf16x(torch, agg, "stream", embed, passes)
+        row = kernel_row_bf16x(
+            f"K2 {form} Q-MLP of every row of an f32 table in {passes} bf16 "
+            f"pass{'es' if passes > 1 else ''}, then gather + weighted mean "
+            f"(GCN_TPU_MATMUL_PRECISION={value})", agg.SOURCE, agg.REPLACES,
+            {f"precision_{value}_embed": counts[f"agg_{form}"]}, 0, k2,
+            f"both embed_all layers of {PRECISION_ARM}, N={trainer.n} T="
+            f"{mcfg.T}: Din={t_nb.features.shape[1]} and {h1.shape[1]}, H="
+            f"{mcfg.hidden_dim}; backward at the same shapes", passes)
+        row["header"] = agg.HEADER
+        for name in ("tile", "project"):
+            row["parts"][name]["launches"] = counts[f"agg_{form}_{name}"]
+        rows.append(row)
+    del h1
     return rows
 
 
@@ -5264,6 +5668,21 @@ def main() -> int:
     rows_colisten = hold_colisten_kernels(torch, ab_state, shapes)
     del shapes
     torch.cuda.empty_cache()
+    # the precision policy at the wide arm's width, counters set to 0
+    # before each value's steps and embed
+    prec = run_precision_path(dev, ab_state)
+    t_hold = time.perf_counter()
+    rows_precision = hold_precision_kernels(torch, prec)
+    prec["checks"]["hold_s"] = time.perf_counter() - t_hold
+    log(card_line())
+    log(json.dumps({"precision_checks": {
+        **prec["checks"], "launches": {
+            v: {k: n for k, n in r["counts"].items() if n}
+            for v, r in prec["runs"].items()},
+        "step_ms": {v: r["step_ms"] for v, r in prec["runs"].items()},
+        "step_profile": {v: r["profile"] for v, r in prec["runs"].items()}}}))
+    del prec
+    torch.cuda.empty_cache()
     reset_counts()
     ev = run_eval_path(dev, hp, ab_state, work)
     eval_launches = read_counts(("walk",))
@@ -5534,6 +5953,7 @@ def main() -> int:
         results[-1]["header"] = agg.HEADER
         results[-1]["ms_over_f32_k2_ms"] = k2_16["ms"] / k2["ms"]
     results.extend(rows_colisten)
+    results.extend(rows_precision)
     results.extend(rows_tools)
     results.extend(rows_bench)
     results.extend(rows_1m)

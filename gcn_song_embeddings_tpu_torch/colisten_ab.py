@@ -26,6 +26,14 @@ PinSage arm resumes from ``<work-dir>/runs/<arm>``::
 
     python -m gcn_song_embeddings_tpu_torch.colisten_ab \\
         [--work-dir DIR] [--arms cf_als,co1_T10] [--quick] [--device cpu]
+        [--train-seed N]
+
+``--train-seed N`` (not in the JAX script) trains every PinSage arm at
+``train.seed`` N, as ``<arm>_s<N>`` (its run dir and its row's name)
+where N is not 0; the PPR caches in ``<work-dir>/ds`` are shared.  Under
+the matmul precision policy (``GCN_TPU_MATMUL_PRECISION``, read by
+``utils.precision``) every PinSage row also names it
+(``"matmul_precision"``), and a seeded row its ``"train_seed"``.
 
 Runs on the GPU unless ``--device`` names another device.
 """
@@ -65,6 +73,7 @@ from gcn_song_embeddings_tpu_torch.ops.walks import (
     fused_walk_tables,
 )
 from gcn_song_embeddings_tpu_torch.train.trainer import PinSageTrainer
+from gcn_song_embeddings_tpu_torch.utils import precision
 from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
 
 TUNED = {  # the hard-grid winner schedule (results/grid_search_hard.json)
@@ -142,6 +151,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="CPU smoke mode: tiny schedules, structure only")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
+    ap.add_argument("--train-seed", type=int, default=0,
+                    help="train.seed of the PinSage arms (not 0: each arm "
+                         "runs as <arm>_s<N>)")
     return ap.parse_args(argv)
 
 
@@ -290,11 +302,16 @@ def run(args: argparse.Namespace, log=print, data: Data | None = None
     done = done_arms(out_path)
     sel = set(args.arms.split(",")) if args.arms else None
 
-    def wanted(arm: str) -> bool:
-        if arm in done or (sel is not None and arm not in sel):
-            log(f"skip {arm}")
+    def wanted(arm: str, name: str | None = None) -> bool:
+        if (name or arm) in done or (sel is not None and arm not in sel):
+            log(f"skip {name or arm}")
             return False
         return True
+
+    seed = args.train_seed
+    tags = {**({"train_seed": seed} if seed else {}),
+            **({"matmul_precision": os.environ.get(precision.ENV)}
+               if precision.PASSES is not None else {})}
 
     rows = {}
     # ---- CF reference rows (identical split) ----
@@ -316,10 +333,13 @@ def run(args: argparse.Namespace, log=print, data: Data | None = None
                               "evaluator": "knn_list"}, log)
 
     for arm, overrides in ARMS:
-        if not wanted(arm):
+        name = f"{arm}_s{seed}" if seed else arm
+        if not wanted(arm, name):
             continue
-        log(f"=== arm {arm} {overrides}")
-        cfg = arm_config(arm, overrides, args.quick)
+        if seed:
+            overrides = {**overrides, "train.seed": seed}
+        log(f"=== arm {name} {overrides}")
+        cfg = arm_config(name, overrides, args.quick)
         t0 = time.time()
         trainer = pinsage_trainer(data, cfg, work)
         t_pre = time.time() - t0
@@ -328,10 +348,10 @@ def run(args: argparse.Namespace, log=print, data: Data | None = None
         t_train = time.time() - t0
         t0 = time.time()
         m = score(trainer.embed(), data.test_pos, dev)
-        rows[arm] = emit(out_path, arm, m, {
+        rows[name] = emit(out_path, name, m, {
             "precompute_s": round(t_pre, 1), "train_s": round(t_train, 1),
             "embed_eval_s": round(time.time() - t0, 1),
-            "overrides": overrides}, log)
+            "overrides": overrides, **tags}, log)
     return rows
 
 

@@ -51,6 +51,12 @@
 // The gather is the f32 one; `den_round` rounds the weight sum to bf16
 // (1) or f16 (2) before the divide, as the JAX package's sum of a
 // 16-bit weight array is (an f32 sum cast back).
+//
+// The bf16x forms are the precision policy's (GCN_TPU_MATMUL_PRECISION
+// default / high, the JAX package's products on the TPU): an f32 table
+// projected in one bf16 pass or three on the same 16-bit core, each row
+// rounded (or split into hi and lo) as the producer stages it, Wq tiled
+// once by `wq_tile_bf16x_kernel` (agg_tc.cuh); then the f32 gather.
 
 #include <cuda_fp16.h>
 
@@ -171,10 +177,13 @@ struct SlabEpilogue {
   }
 };
 
-template <bool F16>
+// SRC TABLE16: h bf16 / f16 (F16); F32_X1 / F32_X3: h f32, rounded to
+// bf16 as it is staged, in one or three passes (wq_lo_t: F32_X3's lo)
+template <bool F16, int SRC>
 __global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
-project16_kernel(const uint16_t* __restrict__ h,     // [N, Din] bf16 / f16
+project16_kernel(const void* __restrict__ h,         // [N, Din]
                  const uint16_t* __restrict__ wq_t,  // Wq, tiled
+                 const uint16_t* __restrict__ wq_lo_t,
                  const float* __restrict__ bq,       // [H]
                  float* __restrict__ P,              // [S][N][64]
                  int n_rows, int din, int hdim, int n_slabs, int n_col_tiles,
@@ -182,10 +191,35 @@ project16_kernel(const uint16_t* __restrict__ h,     // [N, Din] bf16 / f16
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       aligned_ring(smem_raw));
-  run_tiles16<F16>(smem, h, din, wq_t, (hdim + BN - 1) / BN, n_col_tiles,
-                   n_tiles, TableRows{n_rows, n_col_tiles},
-                   SlabEpilogue{bq, P, smem, n_rows, hdim, n_slabs,
-                                n_col_tiles});
+  run_tiles16<F16, SRC>(smem, h, din, wq_t, wq_lo_t, (hdim + BN - 1) / BN,
+                        n_col_tiles, n_tiles, TableRows{n_rows, n_col_tiles},
+                        SlabEpilogue{bq, P, smem, n_rows, hdim, n_slabs,
+                                     n_col_tiles});
+}
+
+// One 16-bit-core form of K2's projection on a checked problem
+template <bool F16, int SRC>
+static cudaError_t project_core16(const void* h, const void* tiles,
+                                  const void* lo_tiles, const void* bq,
+                                  void* P, int n_rows, int din, int hdim,
+                                  cudaStream_t stream) {
+  const void* kernel = (const void*)project16_kernel<F16, SRC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
+  if (err != cudaSuccess) return err;
+  const int n_col_tiles = (hdim + BN16 - 1) / BN16;
+  const int n_slabs = (hdim + SLAB - 1) / SLAB;
+  const long long n_row_tiles = (n_rows + BM16 - 1) / BM16;
+  const long long n_tiles = n_row_tiles * n_col_tiles;
+  unsigned blocks = 0;
+  err = grid16(kernel,
+               (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * n_col_tiles,
+               &blocks);
+  if (err != cudaSuccess) return err;
+  project16_kernel<F16, SRC><<<blocks, THREADS16, SMEM16, stream>>>(
+      h, (const uint16_t*)tiles, (const uint16_t*)lo_tiles, (const float*)bq,
+      (float*)P, n_rows, din, hdim, n_slabs, n_col_tiles, (int)n_tiles);
+  return cudaGetLastError();
 }
 
 // x rounded to the nearest bf16 (ties to even), as f32 bits; finite x
@@ -351,29 +385,49 @@ extern "C" int agg_project16_launch(const void* h, const void* tiles,
       (uintptr_t)h % 16 != 0 || (uintptr_t)tiles % 16 != 0 ||
       (uintptr_t)P % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const void* kernel = f16 ? (const void*)project16_kernel<true>
-                           : (const void*)project16_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
-  if (err != cudaSuccess) return (int)err;
-  const int n_col_tiles = (hdim + BN16 - 1) / BN16;
-  const int n_slabs = (hdim + SLAB - 1) / SLAB;
-  const long long n_row_tiles = (n_rows + BM16 - 1) / BM16;
-  const long long n_tiles = n_row_tiles * n_col_tiles;
-  unsigned blocks = 0;
-  err = grid16(kernel,
-               (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * n_col_tiles,
-               &blocks);
-  if (err != cudaSuccess) return (int)err;
-  if (f16)
-    project16_kernel<true><<<blocks, THREADS16, SMEM16, (cudaStream_t)stream>>>(
-        (const uint16_t*)h, (const uint16_t*)tiles, (const float*)bq,
-        (float*)P, n_rows, din, hdim, n_slabs, n_col_tiles, (int)n_tiles);
-  else
-    project16_kernel<false><<<blocks, THREADS16, SMEM16, (cudaStream_t)stream>>>(
-        (const uint16_t*)h, (const uint16_t*)tiles, (const float*)bq,
-        (float*)P, n_rows, din, hdim, n_slabs, n_col_tiles, (int)n_tiles);
+  return (int)(f16 ? project_core16<true, TABLE16>(h, tiles, nullptr, bq, P,
+                                                   n_rows, din, hdim,
+                                                   (cudaStream_t)stream)
+                   : project_core16<false, TABLE16>(h, tiles, nullptr, bq, P,
+                                                    n_rows, din, hdim,
+                                                    (cudaStream_t)stream));
+}
+
+// Wq f32 -> its bf16 tiles `hi` and, where `lo` is not null, the tiles of
+// what the rounding leaves over (three passes)
+extern "C" int agg_tile_bf16x_launch(const void* wq, void* hi, void* lo,
+                                     int hdim, int din, void* stream) {
+  if (hdim < 1 || din < 1 || din % 8 != 0 || (uintptr_t)wq % 16 != 0 ||
+      (uintptr_t)hi % 16 != 0 || (uintptr_t)lo % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int k_tiles = (din + BK16 - 1) / BK16;
+  const long long n_chunks =
+      (long long)((hdim + BN - 1) / BN) * k_tiles * BN * 8;
+  const unsigned blocks = (unsigned)((n_chunks + 255) / 256);
+  wq_tile_bf16x_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)wq, (uint16_t*)hi, (uint16_t*)lo, hdim, din, k_tiles,
+      n_chunks);
   return (int)cudaGetLastError();
+}
+
+// h f32, rounded to bf16 as it is staged: passes 1 (hi tiles only) or 3
+// (hi and lo tiles of Wq)
+extern "C" int agg_project_bf16x_launch(const void* h, const void* hi,
+                                        const void* lo, const void* bq,
+                                        void* P, int n_rows, int din,
+                                        int hdim, int passes, void* stream) {
+  if (n_rows < 1 || din < 1 || hdim < 1 || din % 8 != 0 ||
+      (passes != 1 && passes != 3) || (passes == 3) != (lo != nullptr) ||
+      (uintptr_t)h % 16 != 0 || (uintptr_t)hi % 16 != 0 ||
+      (uintptr_t)lo % 16 != 0 || (uintptr_t)P % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)(passes == 1
+                   ? project_core16<false, F32_X1>(h, hi, nullptr, bq, P,
+                                                   n_rows, din, hdim,
+                                                   (cudaStream_t)stream)
+                   : project_core16<false, F32_X3>(h, hi, lo, bq, P, n_rows,
+                                                   din, hdim,
+                                                   (cudaStream_t)stream));
 }
 
 extern "C" int agg_gather_launch(const void* P, const void* nb, const void* w,

@@ -47,6 +47,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -339,6 +340,18 @@ constexpr int SMEM_ALIGN_SLACK = 1024;
 // 128-row tile the tensor cores idled through every epilogue (on the
 // H100, K3-bf16 stayed slower than its gather + einsum yardstick);
 // ping-pong hides the epilogue under the other warpgroup's products.
+// f32 tables under the precision policy (GCN_TPU_MATMUL_PRECISION, the
+// JAX package's TPU numerics: an f32 product as one bf16 pass, or three)
+// run on the same core as its SRC forms F32_X1 and F32_X3.  The producer
+// reads the f32 rows with 16-byte loads (two a chunk of 8 elements),
+// issued before it waits for the stage, rounds each to bf16 to nearest
+// even (XLA's convert) in registers and stores the swizzled chunk itself;
+// F32_X3 also stores lo = bf16(x - hi) in a second A tile, Wq comes as
+// hi and lo tiles (`wq_tile_bf16x_kernel`), and each k-step runs
+// hi*lo + lo*hi + hi*hi into the same f32 accumulator.  No table copy and
+// no cast launch: the rounding is the staging.  A three-pass stage holds
+// two A and two Wq copies (80 KB), so its ring has STAGES16 / 2 stages:
+// the same 160 KB as the 16-bit forms' four of 40 KB.
 // The kernels give `run_tiles16` the id of each row of a tile (< 0: a
 // zero row) and an epilogue over the accumulator fragment of one
 // warpgroup: its thread t (t = threadIdx.x % 128) holds tile rows
@@ -356,6 +369,9 @@ constexpr int WQ_TILE_BYTES16 = BN * 128;      // one 128-row tile of Wq
 constexpr int A_STAGE16 = BM16 * 128;          // a k chunk of 64 rows
 constexpr int STAGE16 = A_STAGE16 + BN16 * 128;  // + 256 Wq rows
 constexpr int STAGES16 = 4;
+// what A's rows are in device memory: the table's own 16-bit rows, or f32
+// rows rounded to bf16 as they are staged for one or three bf16 passes
+constexpr int TABLE16 = 0, F32_X1 = 1, F32_X3 = 3;
 constexpr int EPI_COLS16 = 64;                 // columns an epilogue pass
 // floats between staged rows: a half-warp's fragment stores (rows
 // lane / 4, 8 bytes apart along a row) hit 32 distinct banks
@@ -607,6 +623,63 @@ wq_tile16_kernel(const uint16_t* __restrict__ wq,
   reinterpret_cast<uint4*>(tiles)[q] = v;
 }
 
+// x -> its bf16 bits, rounded to nearest even
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// 8 f32 values -> their bf16 roundings packed in a 16-byte chunk (element
+// j in the low half of word j / 2 when j is even), and, where `lo` is
+// wanted, the roundings of what each leaves over
+template <bool LO>
+__device__ __forceinline__ void bf16_chunk(const float4& a, const float4& b,
+                                           uint4& hi, uint4& lo) {
+  const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t h0 = bf16_bits(x[2 * j]), h1 = bf16_bits(x[2 * j + 1]);
+    h[j] = h0 | (h1 << 16);
+    if (LO)
+      l[j] = bf16_bits(x[2 * j] - __uint_as_float(h0 << 16)) |
+             (bf16_bits(x[2 * j + 1] - __uint_as_float(h1 << 16)) << 16);
+  }
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  if (LO) lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// Wq [H, Din] f32 (Din % 8 == 0) -> `wq_tile16_kernel`'s bf16 tiles of
+// its rounding `hi` and, where `lo` is not null, of what that leaves over
+// (the three-pass split).  One thread per chunk of 8 elements.
+__global__ void __launch_bounds__(256)
+wq_tile_bf16x_kernel(const float* __restrict__ wq, uint16_t* __restrict__ hi,
+                     uint16_t* __restrict__ lo, int hdim, int din,
+                     int k_tiles, long long n_chunks) {
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n_chunks) return;
+  const int phys = (int)(q % 8);
+  const long long rowq = q / 8;              // global tile row
+  const int r = (int)(rowq % BN);
+  const long long tile = rowq / BN;
+  const int kt = (int)(tile % k_tiles), nt = (int)(tile / k_tiles);
+  const int n = nt * BN + r, k = kt * BK16 + 8 * (phys ^ (r % 8));
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+  if (n < hdim && k < din) {
+    const float4* src =
+        reinterpret_cast<const float4*>(wq + (size_t)n * din + k);
+    a = src[0];
+    b = src[1];
+  }
+  uint4 h, l;
+  if (lo != nullptr) {
+    bf16_chunk<true>(a, b, h, l);
+    reinterpret_cast<uint4*>(lo)[q] = l;
+  } else {
+    bf16_chunk<false>(a, b, h, l);
+  }
+  reinterpret_cast<uint4*>(hi)[q] = h;
+}
+
 __device__ __forceinline__ void wgmma_wait_one() {
   asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
@@ -622,18 +695,32 @@ __device__ __forceinline__ void wgmma_wait_one() {
 // which there are n_wq_tiles (a last column tile of at most 128 columns
 // reads one, and the other 128 accumulator columns are not read).  A
 // block whose pair has no second row tile runs its chunks on zero rows
-// and skips the epilogue.  On a tile's first k chunk its warpgroup calls
-// `epilogue.prefetch(tile, wg)` (cp.async of the epilogue's operands;
-// one commit group), and after its last `epilogue(tile, acc, wg)` with
+// and skips the epilogue.  SRC is TABLE16 (`h` 16-bit rows), F32_X1 or
+// F32_X3 (`h` f32 rows, rounded as they are staged; `wq_lo_t` the lo
+// tiles of Wq for F32_X3, else unused).  On a tile's first k chunk its
+// warpgroup calls `epilogue.prefetch(tile, wg)` (cp.async of the
+// epilogue's operands; one commit group), and after its last
+// `epilogue(tile, acc, wg)` with
 // every product of the tile done; the epilogue's threads are the
 // warpgroup's 128, which meet by `consumer_sync(wg)`.  The kernel is
 // launched with THREADS16 threads; `smem` is SMEM16 - SMEM_ALIGN_SLACK
 // bytes, 1024-byte aligned; n_tiles = row tiles x n_col_tiles.
-template <bool F16, class RowId, class Epilogue>
+template <bool F16, int SRC, class RowId, class Epilogue>
 __device__ __forceinline__ void run_tiles16(
-    unsigned char* smem, const uint16_t* __restrict__ h, int din,
-    const uint16_t* __restrict__ wq_t, int n_wq_tiles, int n_col_tiles,
-    int n_tiles, RowId row_id, Epilogue epilogue) {
+    unsigned char* smem, const void* __restrict__ h, int din,
+    const uint16_t* __restrict__ wq_t, const uint16_t* __restrict__ wq_lo_t,
+    int n_wq_tiles, int n_col_tiles, int n_tiles, RowId row_id,
+    Epilogue epilogue) {
+  static_assert(SRC == TABLE16 || ((SRC == F32_X1 || SRC == F32_X3) && !F16),
+                "f32 rows round to bf16");
+  // copies of A and of Wq a stage holds (hi, lo), the ring's stages, and
+  // where a stage's Wq tiles start
+  constexpr int PARTS = SRC == F32_X3 ? 2 : 1;
+  constexpr int STAGES = STAGES16 / PARTS;
+  constexpr int STAGE = PARTS * STAGE16;
+  constexpr int B_OFF = PARTS * A_STAGE16;
+  static_assert(STAGES * STAGE == STAGES16 * STAGE16,
+                "every form's ring is the same size");
   const int tid = threadIdx.x;
   const int k_tiles = (din + BK16 - 1) / BK16;
   const int rank = cluster_special(0), cid = cluster_special(1),
@@ -653,7 +740,7 @@ __device__ __forceinline__ void run_tiles16(
   };
 
   if (tid == 0) {
-    for (int s = 0; s < STAGES16; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       // every producer thread's copies, and thread 0's expected Wq bytes
       mbar_init(full + s, PRODUCER_THREADS16 + 1);
       // the warps of the consuming warpgroup in both blocks: a stage is
@@ -671,7 +758,7 @@ __device__ __forceinline__ void run_tiles16(
   const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
   if (role == CONSUMERS16 / 128) {
     // ---- producer: k chunk q of the block (its q / k_tiles-th tile,
-    // chunk q % k_tiles) into stage q % STAGES16 once the consumers of
+    // chunk q % k_tiles) into stage q % STAGES once the consumers of
     // both blocks have freed it
     const int p = tid - CONSUMERS16;
     const int c = p % 8;                       // this thread's A chunk
@@ -700,28 +787,69 @@ __device__ __forceinline__ void run_tiles16(
       const int ct = pair_of(j) % n_col_tiles;
       const int nb = min(2, n_wq_tiles - 2 * ct);
       for (int kc = 0; kc < k_tiles; ++kc) {
-        const int q = j * k_tiles + kc, s = q % STAGES16;
-        if (q >= STAGES16) mbar_wait(empty + s, ((q / STAGES16) + 1) & 1);
-        unsigned char* st = smem + s * STAGE16;
-        if (p == 0) {
-          mbar_arrive_expect_tx(full + s, nb * WQ_TILE_BYTES16);
-          for (int b = rank; b < nb; b += CLUSTER16)  // Wq tile 2 ct + b
-            bulk_copy_multicast(
-                st + A_STAGE16 + b * WQ_TILE_BYTES16,
-                wq_t + ((size_t)(2 * ct + b) * k_tiles + kc) *
-                           (WQ_TILE_BYTES16 / 2),
-                WQ_TILE_BYTES16, full + s, (1 << CLUSTER16) - 1);
-        }
+        const int q = j * k_tiles + kc, s = q % STAGES;
         const int k = kc * BK16 + 8 * c;
+        constexpr int CHUNKS = BM16 * 8 / PRODUCER_THREADS16;
+        // f32 rows: this thread's chunks loaded before the stage is free
+        float4 v[SRC == TABLE16 ? 1 : CHUNKS][2];
+        if (SRC != TABLE16) {
+          const float* hf = static_cast<const float*>(h);
 #pragma unroll
-        for (int i = 0; i < BM16 * 8 / PRODUCER_THREADS16; ++i) {
-          const int r = p / 8 + i * (PRODUCER_THREADS16 / 8);
-          const int id = rows[r];
-          const bool ok = id >= 0 && k < din;
-          cp_async16(st + r * 128 + ((c ^ (r & 7)) << 4),
-                     ok ? h + (size_t)id * din + k : h, ok ? 16 : 0);
+          for (int i = 0; i < CHUNKS; ++i) {
+            const int id = rows[p / 8 + i * (PRODUCER_THREADS16 / 8)];
+            v[i][0] = v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (id >= 0 && k < din) {
+              const float4* src = reinterpret_cast<const float4*>(
+                  hf + (size_t)id * din + k);
+              v[i][0] = __ldg(src);
+              v[i][1] = __ldg(src + 1);
+            }
+          }
         }
-        cp_async_arrive(full + s);
+        if (q >= STAGES) mbar_wait(empty + s, ((q / STAGES) + 1) & 1);
+        unsigned char* st = smem + s * STAGE;
+        if (p == 0) {
+          mbar_arrive_expect_tx(full + s, PARTS * nb * WQ_TILE_BYTES16);
+          for (int b = rank; b < nb; b += CLUSTER16) {  // Wq tile 2 ct + b
+            const size_t off = ((size_t)(2 * ct + b) * k_tiles + kc) *
+                               (WQ_TILE_BYTES16 / 2);
+            bulk_copy_multicast(st + B_OFF + b * WQ_TILE_BYTES16,
+                                wq_t + off, WQ_TILE_BYTES16, full + s,
+                                (1 << CLUSTER16) - 1);
+            if (SRC == F32_X3)
+              bulk_copy_multicast(
+                  st + B_OFF + BN16 * 128 + b * WQ_TILE_BYTES16,
+                  wq_lo_t + off, WQ_TILE_BYTES16, full + s,
+                  (1 << CLUSTER16) - 1);
+          }
+        }
+        if (SRC == TABLE16) {
+          const uint16_t* h16 = static_cast<const uint16_t*>(h);
+#pragma unroll
+          for (int i = 0; i < CHUNKS; ++i) {
+            const int r = p / 8 + i * (PRODUCER_THREADS16 / 8);
+            const int id = rows[r];
+            const bool ok = id >= 0 && k < din;
+            cp_async16(st + r * 128 + ((c ^ (r & 7)) << 4),
+                       ok ? h16 + (size_t)id * din + k : h16, ok ? 16 : 0);
+          }
+          cp_async_arrive(full + s);
+        } else {
+#pragma unroll
+          for (int i = 0; i < CHUNKS; ++i) {
+            const int r = p / 8 + i * (PRODUCER_THREADS16 / 8);
+            const int at = r * 128 + ((c ^ (r & 7)) << 4);
+            uint4 hi, lo;
+            bf16_chunk<SRC == F32_X3>(v[i][0], v[i][1], hi, lo);
+            *reinterpret_cast<uint4*>(st + at) = hi;
+            if (SRC == F32_X3)
+              *reinterpret_cast<uint4*>(st + A_STAGE16 + at) = lo;
+          }
+          // the stores are generic-proxy writes that wgmma reads through
+          // the async proxy; the arrival releases them to the consumers
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_arrive(full + s);
+        }
       }
     }
     cp_async_wait<0>();
@@ -739,20 +867,33 @@ __device__ __forceinline__ void run_tiles16(
       if (j > 0) mbar_wait(order + wg, ((j - 1) / 2) & 1);
       const int tile = tile_of(j);
       for (int kc = 0; kc < k_tiles; ++kc) {
-        const int q = j * k_tiles + kc, s = q % STAGES16;
-        mbar_wait(full + s, (q / STAGES16) & 1);
+        const int q = j * k_tiles + kc, s = q % STAGES;
+        mbar_wait(full + s, (q / STAGES) & 1);
         // the A copies landed through the generic proxy; wgmma reads
         // them through the async proxy
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        const unsigned char* st = smem + s * STAGE16;
+        const unsigned char* st = smem + s * STAGE;
         const uint64_t da = b_desc(reinterpret_cast<const float*>(st)),
                        db = b_desc(reinterpret_cast<const float*>(
-                           st + A_STAGE16));
+                           st + B_OFF));
         fence_acc128(acc);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < BK16 / 16; ++ks)  // +32 bytes a k-step
-          wgmma_n256<F16>(acc, da + 2 * ks, db + 2 * ks, kc > 0 || ks > 0);
+        for (int ks = 0; ks < BK16 / 16; ++ks) {  // +32 bytes a k-step
+          if (SRC == F32_X3) {
+            // hi*lo and lo*hi first, then hi*hi
+            const uint64_t da_lo = b_desc(reinterpret_cast<const float*>(
+                               st + A_STAGE16)),
+                           db_lo = b_desc(reinterpret_cast<const float*>(
+                               st + B_OFF + BN16 * 128));
+            wgmma_n256<F16>(acc, da + 2 * ks, db_lo + 2 * ks,
+                            kc > 0 || ks > 0);
+            wgmma_n256<F16>(acc, da_lo + 2 * ks, db + 2 * ks, 1);
+            wgmma_n256<F16>(acc, da + 2 * ks, db + 2 * ks, 1);
+          } else {
+            wgmma_n256<F16>(acc, da + 2 * ks, db + 2 * ks, kc > 0 || ks > 0);
+          }
+        }
         wgmma_commit();
         if (kc == k_tiles - 1 && tid % 128 == 0)
           mbar_arrive(order + (1 - wg));       // the other's turn
@@ -760,11 +901,11 @@ __device__ __forceinline__ void run_tiles16(
         if (kc < k_tiles - 1) {
           wgmma_wait_one();                    // chunk q - 1 is done
           fence_acc128(acc);
-          if (kc > 0) release((q - 1) % STAGES16);
+          if (kc > 0) release((q - 1) % STAGES);
         } else {
           wgmma_wait_all();
           fence_acc128(acc);
-          if (kc > 0) release((q - 1) % STAGES16);
+          if (kc > 0) release((q - 1) % STAGES);
           release(s);
           if (tile >= 0) epilogue(tile, acc, wg);
         }

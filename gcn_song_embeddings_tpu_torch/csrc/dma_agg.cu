@@ -50,6 +50,16 @@
 // tensor cores idled through every epilogue and K3-bf16 stayed slower
 // than its gather + einsum yardstick; with the tiles alternating it is
 // below it, at about three times its bound (PERF.md, the kernel table).
+//
+// The bf16x forms (`dma_agg_launch_bf16x`) are the precision policy's
+// (GCN_TPU_MATMUL_PRECISION default / high: the JAX package's train-step
+// products on the TPU, one bf16 pass or three).  They take the f32 table
+// as it is and the same core rounds each gathered row to bf16 as its
+// producer stages it (F32_X1), or splits it into hi and lo tiles
+// (F32_X3: hi*lo + lo*hi + hi*hi against Wq's hi and lo tiles), so no
+// bf16 copy of the table is made.  Bound at the step's layer 0: one pass
+// 22.7 GFLOP at 989 TFLOP/s = 0.023 ms against 87 MB of f32 rows (0.026
+// ms), bytes; three passes 68 GFLOP, 0.069 ms, the tensor cores.
 
 #include "agg_tc.cuh"
 
@@ -245,12 +255,15 @@ struct NodeMeanEpilogue {
   }
 };
 
-template <bool F16>
+// SRC TABLE16: h bf16 / f16 (F16); F32_X1 / F32_X3: h f32, rounded to
+// bf16 as it is staged, in one or three passes (wq_lo_t: F32_X3's lo)
+template <bool F16, int SRC>
 __global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
-dma_agg16_kernel(const uint16_t* __restrict__ h,   // [N, Din] bf16 / f16
+dma_agg16_kernel(const void* __restrict__ h,       // [N, Din]
                  const int* __restrict__ nb,       // [B, T]
                  const float* __restrict__ w,      // [B, T]
                  const uint16_t* __restrict__ wq_t,  // Wq, tiled
+                 const uint16_t* __restrict__ wq_lo_t,
                  const float* __restrict__ bq,     // [H]
                  float* __restrict__ out,          // [B, H]
                  int n_nodes, int T, int din, int hdim, int nodes_per_tile,
@@ -261,8 +274,37 @@ dma_agg16_kernel(const uint16_t* __restrict__ h,   // [N, Din] bf16 / f16
   const NodeTileRows rows{nb, n_nodes, T, nodes_per_tile, n_col_tiles};
   const NodeMeanEpilogue epilogue{w, bq, out, smem, n_nodes, T, hdim,
                                   nodes_per_tile, n_col_tiles};
-  run_tiles16<F16>(smem, h, din, wq_t, (hdim + BN - 1) / BN, n_col_tiles,
-                   n_tiles, rows, epilogue);
+  run_tiles16<F16, SRC>(smem, h, din, wq_t, wq_lo_t, (hdim + BN - 1) / BN,
+                        n_col_tiles, n_tiles, rows, epilogue);
+}
+
+// One 16-bit-core form of K3 on a checked problem: the persistent grid of
+// block pairs over the node tiles
+template <bool F16, int SRC>
+static cudaError_t launch_core16(const void* h, const void* nb,
+                                 const void* w, const void* tiles,
+                                 const void* lo_tiles, const void* bq,
+                                 void* out, int n_nodes, int T, int din,
+                                 int hdim, cudaStream_t stream) {
+  const void* kernel = (const void*)dma_agg16_kernel<F16, SRC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
+  if (err != cudaSuccess) return err;
+  const int nodes_per_tile = BM16 / T;
+  const int n_col_tiles = (hdim + BN16 - 1) / BN16;
+  const long long n_row_tiles =
+      (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
+  const long long n_tiles = n_row_tiles * n_col_tiles;
+  unsigned blocks = 0;
+  err = grid16(kernel,
+               (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * n_col_tiles,
+               &blocks);
+  if (err != cudaSuccess) return err;
+  dma_agg16_kernel<F16, SRC><<<blocks, THREADS16, SMEM16, stream>>>(
+      h, (const int*)nb, (const float*)w, (const uint16_t*)tiles,
+      (const uint16_t*)lo_tiles, (const float*)bq, (float*)out, n_nodes, T,
+      din, hdim, nodes_per_tile, n_col_tiles, (int)n_tiles);
+  return cudaGetLastError();
 }
 
 extern "C" int dma_agg_launch(const void* h, const void* nb, const void* w,
@@ -300,32 +342,34 @@ extern "C" int dma_agg_launch16(const void* h, const void* nb, const void* w,
       (uintptr_t)out % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (n_nodes < 1) return (int)cudaSuccess;
-  const void* kernel = f16 ? (const void*)dma_agg16_kernel<true>
-                           : (const void*)dma_agg16_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
-  if (err != cudaSuccess) return (int)err;
-  const int nodes_per_tile = BM16 / T;
-  const int n_col_tiles = (hdim + BN16 - 1) / BN16;
-  const long long n_row_tiles =
-      (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
-  const long long n_tiles = n_row_tiles * n_col_tiles;
-  unsigned blocks = 0;
-  err = grid16(kernel,
-               (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * n_col_tiles,
-               &blocks);
-  if (err != cudaSuccess) return (int)err;
-  if (f16)
-    dma_agg16_kernel<true><<<blocks, THREADS16, SMEM16, (cudaStream_t)stream>>>(
-        (const uint16_t*)h, (const int*)nb, (const float*)w,
-        (const uint16_t*)tiles, (const float*)bq, (float*)out, n_nodes, T,
-        din, hdim, nodes_per_tile, n_col_tiles, (int)n_tiles);
-  else
-    dma_agg16_kernel<false><<<blocks, THREADS16, SMEM16, (cudaStream_t)stream>>>(
-        (const uint16_t*)h, (const int*)nb, (const float*)w,
-        (const uint16_t*)tiles, (const float*)bq, (float*)out, n_nodes, T,
-        din, hdim, nodes_per_tile, n_col_tiles, (int)n_tiles);
-  return (int)cudaGetLastError();
+  return (int)(f16 ? launch_core16<true, TABLE16>(
+                         h, nb, w, tiles, nullptr, bq, out, n_nodes, T, din,
+                         hdim, (cudaStream_t)stream)
+                   : launch_core16<false, TABLE16>(
+                         h, nb, w, tiles, nullptr, bq, out, n_nodes, T, din,
+                         hdim, (cudaStream_t)stream));
+}
+
+// h f32, rounded to bf16 as it is staged: passes 1 (hi tiles only) or 3
+// (hi and lo tiles of Wq, from agg_tile_bf16x_launch)
+extern "C" int dma_agg_launch_bf16x(const void* h, const void* nb,
+                                    const void* w, const void* hi,
+                                    const void* lo, const void* bq, void* out,
+                                    int n_nodes, int T, int din, int hdim,
+                                    int passes, void* stream) {
+  if (T < 1 || T > MAX_T16 || din < 1 || hdim < 1 || din % 8 != 0 ||
+      hdim % 4 != 0 || (passes != 1 && passes != 3) ||
+      (passes == 3) != (lo != nullptr) || (uintptr_t)h % 16 != 0 ||
+      (uintptr_t)hi % 16 != 0 || (uintptr_t)lo % 16 != 0 ||
+      (uintptr_t)out % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_nodes < 1) return (int)cudaSuccess;
+  return (int)(passes == 1 ? launch_core16<false, F32_X1>(
+                                 h, nb, w, hi, nullptr, bq, out, n_nodes, T,
+                                 din, hdim, (cudaStream_t)stream)
+                           : launch_core16<false, F32_X3>(
+                                 h, nb, w, hi, lo, bq, out, n_nodes, T, din,
+                                 hdim, (cudaStream_t)stream));
 }
 
 extern "C" const char* dma_agg_error_string(int err) {

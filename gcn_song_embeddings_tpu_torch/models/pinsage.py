@@ -27,6 +27,14 @@ before a dense product, the 16-bit forms of K2 and K3 inside the
 aggregation).  A layer's output is
 f32; ``fullgraph_embeddings`` stores it back in the features' dtype.
 With f32 params and features every function here runs as before.
+
+The matmul precision policy (``utils.precision``,
+``GCN_TPU_MATMUL_PRECISION=default|high``) runs every product of an f32
+step or embed in one or three bf16 passes, forward and backward, as the
+JAX package's default precision does on the TPU: the aggregation's Q
+product (the kernels' bf16x forms), the W half and the head
+(``ops.agg.matmul`` on rounded operands).  Elementwise ops, the norm and
+the loss stay f32; a 16-bit step's products run as before.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ from gcn_song_embeddings_tpu_torch.ops.agg import (
     _denominator,
     _f32,
     conv_aggregate,
+    matmul,
+    policy_passes,
 )
 
 WIDTH_MULTIPLE = 4  # the aggregation kernels' 16-byte loads (f32)
@@ -167,7 +177,8 @@ def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor,
     A bf16 or f16 table with a Wq of its type aggregates in that 16-bit
     form; an f32 table takes Wq upcast, as the JAX package promotes the
     product's operands; bq is upcast either way.  A Din that is not a
-    multiple of 4 (8 for a 16-bit table) or an H that is not one of 4 is
+    multiple of 4 (8 for a 16-bit table, or an f32 one in bf16 passes
+    under the precision policy) or an H that is not one of 4 is
     padded with zero columns (of the table and Wq, and zero entries of
     bq): a zero column
     adds exactly 0 to each product and projects to leaky_relu(0) = 0, and
@@ -181,7 +192,8 @@ def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor,
         table, Wq = _f32(table), _f32(Wq)
     bq = _f32(bq)
     din, hdim = table.shape[1], Wq.shape[0]
-    pad_d = -din % (WIDTH_MULTIPLE_16 if sixteen else WIDTH_MULTIPLE)
+    bf16_loads = sixteen or policy_passes(table, Wq) is not None
+    pad_d = -din % (WIDTH_MULTIPLE_16 if bf16_loads else WIDTH_MULTIPLE)
     pad_h = -hdim % WIDTH_MULTIPLE
     if pad_d or pad_h:
         table = F.pad(table, (0, pad_d))
@@ -208,13 +220,16 @@ def conv_from_table(p: ConvParams, h_self: torch.Tensor,
     """One conv layer whose neighbors are rows ``nb_nodes`` [B, T] of
     ``table``: the aggregation never materializes them on the GPU (K2 for
     mode "stream", K3 for "dma").  Returns f32 (16-bit operands of the
-    dense products upcast: products exact, sums in f32)."""
+    dense products upcast: products exact, sums in f32; f32 ones in the
+    precision policy's bf16 passes)."""
     agg = aggregate(table, nb_nodes, nb_w, p.Wq, p.bq, mode, block_rows)
     d = h_self.shape[1]
+    passes = policy_passes(h_self, p.Ww)
     # split-W product: [a, b] @ M^T == a @ M[:, :d]^T + b @ M[:, d:]^T,
     # without materializing the [B, Din + hidden] concat
-    new_h = F.leaky_relu(_f32(h_self) @ _f32(p.Ww[:, :d]).t()
-                         + agg @ _f32(p.Ww[:, d:]).t() + _f32(p.bw), 0.01)
+    new_h = F.leaky_relu(matmul(h_self, p.Ww[:, :d].t(), passes)
+                         + matmul(agg, p.Ww[:, d:].t(), passes)
+                         + _f32(p.bw), 0.01)
     norm = torch.linalg.vector_norm(new_h, dim=1, keepdim=True)
     return new_h / torch.where(norm == 0.0, torch.ones_like(norm), norm)
 
@@ -233,10 +248,12 @@ def conv_apply(p: ConvParams, h_self: torch.Tensor, h_nb: torch.Tensor,
 
 
 def head_apply(params: PinSageParams, x: torch.Tensor) -> torch.Tensor:
-    """G2(leaky_relu(G1(x))) in f32, not re-normalized."""
-    hidden = F.leaky_relu(_f32(x) @ _f32(params.G1_w).t()
+    """G2(leaky_relu(G1(x))) in f32, not re-normalized (f32 products in
+    the precision policy's bf16 passes)."""
+    passes = policy_passes(x, params.G1_w)
+    hidden = F.leaky_relu(matmul(x, params.G1_w.t(), passes)
                           + _f32(params.G1_b), 0.01)
-    return hidden @ _f32(params.G2_w).t()
+    return matmul(hidden, params.G2_w.t(), passes)
 
 
 def forward_with_gather(params: PinSageParams, gather_features,

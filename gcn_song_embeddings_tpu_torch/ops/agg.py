@@ -39,6 +39,21 @@ each dispatching on the table's type; Din must then be a
 multiple of 8.  Weights may be 16-bit in mode "stream" only (the
 full-graph forward's): their sum is taken in f32 and rounded to their
 type (``_denominator``), as the JAX package's sum of a 16-bit array is.
+
+Under the matmul precision policy (``utils.precision``,
+``GCN_TPU_MATMUL_PRECISION``) an f32 table's product runs as the JAX
+package's does on the TPU: one bf16 pass (``default``: bf16(h) bf16(Wq)
+summed in f32) or three (``high``: hi*lo + lo*hi + hi*hi of
+``bf16_split3``'s parts).  On CUDA those are the "bf16x1" and "bf16x3"
+forms of K2 (``project_table_bf16x``, then ``gather_mean``) and K3
+(``dma_agg.launch_bf16x``) on the 16-bit core: they read the f32 rows
+and round them as the producer stages them, and Wq is tiled once in bf16
+(``tile_wq_bf16x``: hi, and lo for three passes); Din must then be a
+multiple of 8.  The plain versions take ``passes`` and round the same
+operands; ``ConvAggregate.backward`` rounds its recomputed projection
+and its products the same way (each gathered row's gradient rounded
+before it is summed onto its table row, as the TPU's backward dots
+round their cotangent).
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from gcn_song_embeddings_tpu_torch.ops import cuda_build, dma_agg
+from gcn_song_embeddings_tpu_torch.utils import precision
 
 NAME = "agg"
 SOURCE = "gcn_song_embeddings_tpu_torch/csrc/agg.cu"
@@ -62,6 +78,8 @@ BK16 = 64  # 16-bit elements of a Wq tile row (agg_tc.cuh's 16-bit core)
 # the 16-bit table types, each with its form's name and the gather's
 # rounding of the weight sum (agg.cu ``den_round``)
 SIXTEEN = {torch.bfloat16: ("bf16", 1), torch.float16: ("f16", 2)}
+# the forms of an f32 table under the precision policy, by bf16 passes
+BF16X = {1: "bf16x1", 3: "bf16x3"}
 
 launches = 0  # K2 op calls on f32 CUDA tables since the last reset
 launches_bf16 = 0  # K2 op calls on bf16 CUDA tables since the last reset
@@ -73,9 +91,17 @@ kernel_launches = {"split": 0, "project": 0, "gather_mean": 0}
 # every 16-bit K3 call)
 kernel_launches_bf16 = {"tile": 0, "project": 0}
 kernel_launches_f16 = {"tile": 0, "project": 0}
+# K2 op calls on f32 CUDA tables in one and three bf16 passes, and the
+# launches of those forms' own kernels (the tiling also runs for every
+# K3 call of the form)
+launches_bf16x1 = 0
+launches_bf16x3 = 0
+kernel_launches_bf16x1 = {"tile": 0, "project": 0}
+kernel_launches_bf16x3 = {"tile": 0, "project": 0}
 # ConvAggregate.backward calls on CUDA tensors, by forward mode and form
-backward_launches = {"stream": 0, "dma": 0, "stream_bf16": 0, "dma_bf16": 0,
-                     "stream_f16": 0, "dma_f16": 0}
+backward_launches = {f"{mode}{form}": 0 for mode in ("stream", "dma")
+                     for form in ("", "_bf16", "_f16", "_bf16x1",
+                                  "_bf16x3")}
 # launches of the yardsticks on CUDA tensors (not port kernels:
 # ``l2_read_probe``, ``gather_read_probe``)
 probe_launches = {"l2": 0, "gather": 0}
@@ -86,6 +112,8 @@ _ARGTYPES = {"split": [_P] * 3 + [_I] * 2 + [_P],
              "gather": [_P] * 4 + [_I] * 5 + [_P],
              "tile16": [_P] * 2 + [_I] * 2 + [_P],
              "project16": [_P] * 4 + [_I] * 4 + [_P],
+             "tile_bf16x": [_P] * 3 + [_I] * 2 + [_P],
+             "project_bf16x": [_P] * 5 + [_I] * 4 + [_P],
              "l2_probe": [_P] + [_I] * 2 + [_P, _I, _P],
              "gather_probe": [_P, _I, _I, _P] + [_I] * 3 + [_P, _I, _P]}
 
@@ -116,21 +144,33 @@ def _denominator(nb_weights: torch.Tensor) -> torch.Tensor:
 
 def conv_aggregate_plain(h: torch.Tensor, nb_nodes: torch.Tensor,
                          nb_weights: torch.Tensor, Wq: torch.Tensor,
-                         bq: torch.Tensor) -> torch.Tensor:
+                         bq: torch.Tensor, passes: int | None = None
+                         ) -> torch.Tensor:
     """Plain PyTorch version: materialized gather, einsum, weighted mean
-    (16-bit operands upcast, products and sums in f32)."""
+    (16-bit operands upcast, products and sums in f32; with ``passes``
+    the product of the gathered rows and Wq in that many bf16 passes,
+    ``matmul``)."""
     nb = h[nb_nodes.reshape(-1).long()].reshape(*nb_nodes.shape, h.shape[1])
-    q = F.leaky_relu(torch.einsum("btd,hd->bth", _f32(nb), _f32(Wq))
-                     + _f32(bq), 0.01)
+    if passes is None:
+        prod = torch.einsum("btd,hd->bth", _f32(nb), _f32(Wq))
+    else:
+        prod = matmul(nb.reshape(-1, h.shape[1]), Wq.t(), passes).reshape(
+            *nb_nodes.shape, Wq.shape[0])
+    q = F.leaky_relu(prod + _f32(bq), 0.01)
     return ((_f32(nb_weights)[:, :, None] * q).sum(dim=1)
             / _denominator(nb_weights))
 
 
 def project_table_plain(h: torch.Tensor, Wq: torch.Tensor,
-                        bq: torch.Tensor) -> torch.Tensor:
+                        bq: torch.Tensor, passes: int | None = None
+                        ) -> torch.Tensor:
     """K2's first phase, plain: every table row projected once, [N, H]
-    f32 (16-bit operands upcast)."""
-    return F.leaky_relu(torch.addmm(_f32(bq), _f32(h), _f32(Wq).t()), 0.01)
+    f32 (16-bit operands upcast; with ``passes`` in that many bf16
+    passes)."""
+    if passes is None:
+        return F.leaky_relu(torch.addmm(_f32(bq), _f32(h), _f32(Wq).t()),
+                            0.01)
+    return F.leaky_relu(matmul(h, Wq.t(), passes) + bq, 0.01)
 
 
 def gather_mean_plain(proj: torch.Tensor, nb_nodes: torch.Tensor,
@@ -154,6 +194,81 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     the operand split of the 3xTF32 product."""
     big = tf32_round(x)
     return big, tf32_round(x - big)
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 value (8 significant bits), ties to even,
+    as XLA's f32 -> bf16 convert, returned in x's type."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def bf16_split3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x -> (hi, lo) = (bf16(x), bf16(x - hi)), in x's type: the operand
+    split of the three-pass (bf16_3x) product."""
+    hi = bf16_round(x)
+    return hi, bf16_round(x - hi)
+
+
+def _parts(x: torch.Tensor, passes: int) -> tuple[torch.Tensor, ...]:
+    return (bf16_round(x),) if passes == 1 else bf16_split3(x)
+
+
+def _passes_sum(a_parts, b_parts) -> torch.Tensor:
+    """hi hi (one pass), or hi lo + lo hi + hi hi (three: the small terms
+    first), of operands split by ``_parts``; each product of bf16 values
+    is exact in f32, so only the order of the sums is the framework's."""
+    if len(a_parts) == 1:
+        return a_parts[0] @ b_parts[0]
+    (ah, al), (bh, bl) = a_parts, b_parts
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _passes_product(a: torch.Tensor, b: torch.Tensor, passes: int
+                    ) -> torch.Tensor:
+    return _passes_sum(_parts(a, passes), _parts(b, passes))
+
+
+class _PassesMatmul(torch.autograd.Function):
+    """a @ b in ``passes`` bf16 passes, with the gradients' products in
+    the same passes (XLA's transposed dots keep the forward's precision,
+    so the TPU rounds the cotangent too)."""
+
+    @staticmethod
+    def forward(ctx, a, b, passes):
+        ctx.save_for_backward(a, b)
+        ctx.passes = passes
+        return _passes_product(a, b, passes)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        need_a, need_b = ctx.needs_input_grad[:2]
+        da = _passes_product(g, b.t(), ctx.passes) if need_a else None
+        db = _passes_product(a.t(), g, ctx.passes) if need_b else None
+        return da, db, None
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, passes: int | None = None
+           ) -> torch.Tensor:
+    """a [M, K] @ b [K, N] in f32 (16-bit operands upcast exactly): with
+    ``passes`` None as it is, else in that many bf16 passes (1 or 3)
+    forward and backward, as the TPU runs an f32 dot at JAX's default
+    (1) or ``high`` (3) precision."""
+    if passes is None:
+        return _f32(a) @ _f32(b)
+    _check_passes(passes)
+    return _PassesMatmul.apply(_f32(a), _f32(b), passes)
+
+
+def policy_passes(*operands: torch.Tensor) -> int | None:
+    """The bf16 passes the precision policy gives a product of these
+    operands: ``precision.PASSES`` where every operand is f32 (or
+    float64, which the tests' references run in), else None (a product
+    with a 16-bit operand runs as it did)."""
+    if any(t.dtype not in (torch.float32, torch.float64) for t in operands):
+        return None
+    return precision.PASSES
 
 
 def tile_wq_plain(x: torch.Tensor) -> torch.Tensor:
@@ -297,6 +412,39 @@ def _project_table16(h: torch.Tensor, tiles: torch.Tensor,
                 proj.data_ptr(), n, din, hdim,
                 int(h.dtype == torch.float16))
     _kernel_counts16(h.dtype)["project"] += 1
+    return proj
+
+
+def _kernel_counts_bf16x(passes: int) -> dict:
+    return kernel_launches_bf16x1 if passes == 1 else kernel_launches_bf16x3
+
+
+def _tile_wq_bf16x(Wq: torch.Tensor, passes: int
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    if Wq.data_ptr() % 16:
+        Wq = Wq.clone()                       # 16-byte loads
+    shape = _tiles_shape(*Wq.shape, BK16)
+    hi = torch.empty(shape, dtype=torch.bfloat16, device=Wq.device)
+    lo = torch.empty_like(hi) if passes == 3 else None
+    with torch.cuda.device(Wq.device):
+        _launch("tile_bf16x", Wq.data_ptr(), hi.data_ptr(),
+                0 if lo is None else lo.data_ptr(), *Wq.shape)
+    _kernel_counts_bf16x(passes)["tile"] += 1
+    return hi, lo
+
+
+def _project_table_bf16x(h: torch.Tensor, hi: torch.Tensor,
+                         lo: torch.Tensor | None, bq: torch.Tensor,
+                         passes: int) -> torch.Tensor:
+    n, din = h.shape
+    hdim = bq.shape[0]
+    proj = torch.empty((-(-hdim // SLAB), n, SLAB), dtype=torch.float32,
+                       device=h.device)
+    with torch.cuda.device(h.device):
+        _launch("project_bf16x", h.data_ptr(), hi.data_ptr(),
+                0 if lo is None else lo.data_ptr(), bq.data_ptr(),
+                proj.data_ptr(), n, din, hdim, passes)
+    _kernel_counts_bf16x(passes)["project"] += 1
     return proj
 
 
@@ -488,6 +636,53 @@ def project_table16(h: torch.Tensor, tiles: torch.Tensor,
     return _project_table16(h, tiles, bq)
 
 
+def _check_passes(passes) -> None:
+    if passes not in BF16X:
+        raise ValueError(f"passes must be 1 or 3, got {passes!r}")
+
+
+def tile_wq_bf16x(Wq: torch.Tensor, passes: int
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Wq [H, Din] f32 on CUDA -> its bf16 tiles for ``passes`` bf16
+    passes: (hi, None) for one, (hi, lo) for three, equal bit for bit to
+    ``tile_wq_plain`` of ``bf16_round(Wq)`` (and of ``bf16_split3``'s lo)
+    in bf16."""
+    _check_passes(passes)
+    kernel = f"the {BF16X[passes]} Wq tiling"
+    _refuse_grad(kernel, Wq)
+    _check_tensors((("Wq", Wq, torch.float32, 2),))
+    _check_widths(kernel, Wq.shape[0], Wq.shape[1], din_multiple=8)
+    _check_cuda(kernel, Wq.device)
+    return _tile_wq_bf16x(Wq, passes)
+
+
+def project_table_bf16x(h: torch.Tensor, hi: torch.Tensor,
+                        lo: torch.Tensor | None, bq: torch.Tensor,
+                        passes: int) -> torch.Tensor:
+    """K2's projection of an f32 table in ``passes`` bf16 passes on
+    CUDA: P = leaky_relu(h Wq^T + bq) in f32 for every row of h [N, Din]
+    f32, each row rounded as it is loaded, as [ceil(H/64), N, 64] slabs,
+    from ``tile_wq_bf16x``'s tiles of Wq [H, Din] and bq [H] f32."""
+    _check_passes(passes)
+    kernel = f"K2's {BF16X[passes]} projection"
+    _refuse_grad(kernel, h, bq)
+    parts = (("hi", hi), ("lo", lo))[:1 if passes == 1 else 2]
+    if passes == 1 and lo is not None:
+        raise ValueError("one bf16 pass takes no lo tiles")
+    _check_tensors((("h", h, torch.float32, 2),
+                    *((name, t, torch.bfloat16, 4) for name, t in parts),
+                    ("bq", bq, torch.float32, 1)))
+    (n, din), hdim = h.shape, bq.shape[0]
+    if any(t.shape != _tiles_shape(hdim, din, BK16) for _, t in parts):
+        raise _mismatch(h=h, bq=bq, **dict(parts))
+    _check_widths(kernel, hdim, din, din_multiple=8)
+    if n == 0:
+        raise ValueError("h has no rows to project")
+    _check_aligned(h=h, **dict(parts))
+    _check_cuda(kernel, h.device)
+    return _project_table_bf16x(h, hi, lo, bq, passes)
+
+
 def _check_weights(kernel: str, nb_weights: torch.Tensor,
                    sixteen_ok: bool) -> None:
     ok = (torch.float32, *SIXTEEN) if sixteen_ok else (torch.float32,)
@@ -500,21 +695,29 @@ def _check_weights(kernel: str, nb_weights: torch.Tensor,
 def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
                         nb_weights: torch.Tensor, Wq: torch.Tensor,
                         bq: torch.Tensor, mode: str = "stream",
-                        block_rows: int | None = None) -> torch.Tensor:
+                        block_rows: int | None = None,
+                        passes: int | None = None) -> torch.Tensor:
     """Launch K2 (mode "stream") or K3 (mode "dma") on CUDA tensors: h
     [N, Din] f32, bf16 or f16, nb_nodes [B, T] int32 (ids in [0, N)),
     nb_weights [B, T] f32 (or 16-bit in mode "stream"), Wq [H, Din] of
     h's type, bq [H] f32 -> [B, H] f32.  A 16-bit h runs the kernel's
-    form of that type.  K2 projects the table once, then gathers all B
-    nodes, or with ``block_rows`` one block of that many nodes at a time
-    (the projection is freed on return).  Records no graph, so it
-    refuses inputs that need a gradient: ``conv_aggregate`` is the
-    differentiable entry."""
+    form of that type; an f32 h with ``passes`` (1 or 3) the form that
+    rounds it to bf16 as it loads it (Din a multiple of 8).  K2 projects
+    the table once, then gathers all B nodes, or with ``block_rows`` one
+    block of that many nodes at a time (the projection is freed on
+    return).  Records no graph, so it refuses inputs that need a
+    gradient: ``conv_aggregate`` is the differentiable entry."""
     global launches, launches_bf16, launches_f16
+    global launches_bf16x1, launches_bf16x3
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
     kernel = MODES[mode]
     sixteen = h.dtype in SIXTEEN
+    if passes is not None:
+        _check_passes(passes)
+        if sixteen:
+            raise ValueError("bf16 passes apply to f32 tables; a 16-bit "
+                             "table runs its own form")
     table_dtype = h.dtype if sixteen else torch.float32
     _refuse_grad(kernel, h, nb_weights, Wq, bq)
     _check_weights(kernel, nb_weights, sixteen_ok=mode == "stream")
@@ -533,7 +736,7 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
         raise _mismatch(h=h, nb_nodes=nb_nodes, nb_weights=nb_weights, Wq=Wq,
                         bq=bq)
     _check_widths(kernel, hdim, din, t, MAX_T if mode == "dma" else None,
-                  din_multiple=8 if sixteen else 4)
+                  din_multiple=8 if sixteen or passes else 4)
     _check_aligned(h=h)
     _check_cuda(kernel, h.device)
     out = torch.empty((b, hdim), dtype=torch.float32, device=h.device)
@@ -547,6 +750,13 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
             dma_agg.launch16(h, nb_nodes, nb_weights, tiles, bq, out)
             return out
         proj = _project_table16(h, tiles, bq)
+    elif passes:
+        hi, lo = _tile_wq_bf16x(Wq, passes)
+        if mode == "dma":
+            dma_agg.launch_bf16x(h, nb_nodes, nb_weights, hi, lo, bq, out,
+                                 passes)
+            return out
+        proj = _project_table_bf16x(h, hi, lo, bq, passes)
     else:
         big, small = _split_wq(Wq)
         if mode == "dma":
@@ -561,6 +771,10 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
         launches_bf16 += 1
     elif h.dtype == torch.float16:
         launches_f16 += 1
+    elif passes == 1:
+        launches_bf16x1 += 1
+    elif passes == 3:
+        launches_bf16x3 += 1
     else:
         launches += 1
     return out
@@ -591,17 +805,25 @@ class ConvAggregate(torch.autograd.Function):
     plain version) rounds each gathered row's gradient and accumulates
     in 16 bits: a deliberate divergence, the once-rounded sum being the
     more accurate (``tests/test_torch_f16_gpu.py`` pins it on the
-    card)."""
+    card).  With ``passes`` (an f32 table under the precision policy)
+    the recomputed projection runs in the forward's bf16 passes, so the
+    leaky_relu takes the forward's branch, and each gathered row's
+    gradient is rounded (one pass) or split (three) before it is summed
+    onto its table row: ``dh`` and ``dWq`` are then the sums of the
+    TPU's backward dots, which round their cotangent, in another order;
+    ``dbq`` sums the unrounded rows."""
 
     @staticmethod
-    def forward(ctx, h, nb_nodes, nb_weights, Wq, bq, mode, block_rows=None):
+    def forward(ctx, h, nb_nodes, nb_weights, Wq, bq, mode, block_rows=None,
+                passes=None):
         if h.device.type == "cpu":
-            out = conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq)
+            out = conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq,
+                                       passes)
         else:
             out = conv_aggregate_cuda(h, nb_nodes, nb_weights, Wq, bq, mode,
-                                      block_rows)
+                                      block_rows, passes)
         ctx.save_for_backward(h, nb_nodes, nb_weights, Wq, bq)
-        ctx.mode = mode
+        ctx.mode, ctx.passes = mode, passes
         return out
 
     @staticmethod
@@ -609,21 +831,33 @@ class ConvAggregate(torch.autograd.Function):
     def backward(ctx, dagg):
         h, nb_nodes, nb_weights, Wq, bq = ctx.saved_tensors
         need_h, _, _, need_wq, need_bq = ctx.needs_input_grad[:5]
+        passes = ctx.passes
         h32, wq32 = _f32(h), _f32(Wq)
         ids = nb_nodes.reshape(-1).long()
-        proj = torch.addmm(bq, h32, wq32.t())                # [N, H]
+        if passes is None:
+            proj = torch.addmm(bq, h32, wq32.t())            # [N, H]
+        else:
+            proj = _passes_product(h32, wq32.t(), passes) + bq
         pre = proj[ids]                                       # [B*T, H]
         dq = ((_f32(nb_weights) / _denominator(nb_weights))[:, :, None]
               * dagg[:, None, :]).reshape(pre.shape)
         dpre = torch.where(pre >= 0.0, dq, 0.01 * dq)
-        s = torch.zeros_like(proj).index_add_(0, ids, dpre)  # [N, H]
-        dh = (s @ wq32).to(h.dtype) if need_h else None
-        dwq = (s.t() @ h32).to(Wq.dtype) if need_wq else None
-        dbq = s.sum(dim=0) if need_bq else None
+        if passes is None:
+            s = torch.zeros_like(proj).index_add_(0, ids, dpre)  # [N, H]
+            dh = (s @ wq32).to(h.dtype) if need_h else None
+            dwq = (s.t() @ h32).to(Wq.dtype) if need_wq else None
+            dbq = s.sum(dim=0) if need_bq else None
+        else:
+            s = [torch.zeros_like(proj).index_add_(0, ids, d)
+                 for d in _parts(dpre, passes)]
+            dh = _passes_sum(s, _parts(wq32, passes)) if need_h else None
+            dwq = (_passes_sum([x.t() for x in s], _parts(h32, passes))
+                   if need_wq else None)
+            dbq = dpre.sum(dim=0) if need_bq else None
         if dagg.device.type == "cuda":
-            form = _form(h.dtype)
+            form = _form(h.dtype) or BF16X.get(passes, "")
             backward_launches[ctx.mode + (f"_{form}" if form else "")] += 1
-        return dh, None, None, dwq, dbq, None, None
+        return dh, None, None, dwq, dbq, None, None, None
 
 
 def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
@@ -634,15 +868,20 @@ def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
     through ``ConvAggregate`` (K2 for mode "stream", K3 for "dma"), on CPU
     tensors the plain version (both modes: they compute one function).
     ``block_rows`` bounds the nodes aggregated at once: K2 still projects
-    the table once; the plain version gathers one block at a time."""
+    the table once; the plain version gathers one block at a time.  An
+    f32 h and Wq take the precision policy's bf16 passes
+    (``policy_passes``)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+    passes = policy_passes(h, Wq)
     if h.device.type == "cpu":
         if not block_rows or block_rows >= nb_nodes.shape[0]:
-            return conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq)
+            return conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq,
+                                        passes)
         return torch.cat([
             conv_aggregate_plain(h, nb_nodes[s:s + block_rows],
-                                 nb_weights[s:s + block_rows], Wq, bq)
+                                 nb_weights[s:s + block_rows], Wq, bq,
+                                 passes)
             for s in range(0, nb_nodes.shape[0], block_rows)])
     if h.device.type != "cuda":
         raise ValueError(f"{MODES[mode]} runs on CUDA or CPU tensors, not "
@@ -652,4 +891,4 @@ def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
                          "the neighborhood cache): pass them detached")
     return ConvAggregate.apply(h, nb_nodes.to(torch.int32).contiguous(),
                                nb_weights.contiguous(), Wq.contiguous(),
-                               bq.contiguous(), mode, block_rows)
+                               bq.contiguous(), mode, block_rows, passes)

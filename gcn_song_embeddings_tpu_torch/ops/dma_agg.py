@@ -12,6 +12,11 @@ of the train step runs on it.  ``launch16`` is its 16-bit form (a bf16
 or f16 table and Wq, Wq tiled by ``ops.agg.tile_wq16``) on the 16-bit
 core of ``csrc/agg_tc.cuh``: the deepest layer of the frontier forward under ``train.dtype="bfloat16"`` or
 ``"float16"``, counted in ``launches_bf16`` and ``launches_f16``.
+``launch_bf16x`` runs an f32 table in one or three bf16 passes on the
+same core (the precision policy, ``utils.precision``): the producer
+reads the f32 rows and rounds them (or splits them into bf16 hi and lo)
+as it stages them, Wq tiled by ``ops.agg.tile_wq_bf16x``; counted in
+``launches_bf16x1`` and ``launches_bf16x3``.
 """
 
 from __future__ import annotations
@@ -29,9 +34,13 @@ REPLACES = "gcn_song_embeddings_tpu/ops/pallas_agg.py:148"
 launches = 0  # kernel launches (not plain-version calls) since the last reset
 launches_bf16 = 0  # the bf16 form's launches since the last reset
 launches_f16 = 0  # the f16 form's launches since the last reset
+launches_bf16x1 = 0  # an f32 table's one-bf16-pass form's launches
+launches_bf16x3 = 0  # an f32 table's three-bf16-pass form's launches
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGTYPES16 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES_BF16X = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
 
 
 def launch(h: torch.Tensor, nb_nodes: torch.Tensor, nb_weights: torch.Tensor,
@@ -79,3 +88,30 @@ def launch16(h: torch.Tensor, nb_nodes: torch.Tensor,
         launches_f16 += 1
     else:
         launches_bf16 += 1
+
+
+def launch_bf16x(h: torch.Tensor, nb_nodes: torch.Tensor,
+                 nb_weights: torch.Tensor, hi: torch.Tensor,
+                 lo: torch.Tensor | None, bq: torch.Tensor, out: torch.Tensor,
+                 passes: int) -> None:
+    """Launch K3 on an f32 table in ``passes`` (1 or 3) bf16 passes, on
+    checked CUDA tensors: h [N, Din] f32 (Din a multiple of 8),
+    nb_nodes [B, T] int32, nb_weights [B, T] f32, Wq's bf16 tiles ``hi``
+    (and ``lo`` for three passes) from ``ops.agg.tile_wq_bf16x``, bq [H]
+    f32 -> out [B, H] f32 (contiguous, h 16-byte aligned)."""
+    global launches_bf16x1, launches_bf16x3
+    b, t = nb_nodes.shape
+    lib = cuda_build.bind(NAME, _ARGTYPES_BF16X, "launch_bf16x")
+    dev = h.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dma_agg_launch_bf16x(
+            h.data_ptr(), nb_nodes.data_ptr(), nb_weights.data_ptr(),
+            hi.data_ptr(), 0 if lo is None else lo.data_ptr(),
+            bq.data_ptr(), out.data_ptr(), b, t, h.shape[1], bq.shape[0],
+            passes, stream)
+    cuda_build.check(lib, NAME, err)
+    if passes == 1:
+        launches_bf16x1 += 1
+    else:
+        launches_bf16x3 += 1

@@ -212,14 +212,24 @@ def _wait_for(proc, log, prefix, count):
     raise AssertionError(f"no {count} {prefix!r} lines: {_lines(log)}")
 
 
-def _sigkill(proc):
-    """SIGKILL the ranks, then torchrun."""
-    for pid in _children(proc.pid) + [proc.pid]:
+def _sigkill(proc) -> list:
+    """SIGKILL the ranks, then torchrun; returns the ranks as (pid, start
+    time) once each has ended or LINE_TIMEOUT_S has passed.  A SIGKILL
+    ends a process only once the kernel has torn it down (its threads,
+    its memory), which under load can outlast torchrun's own exit, so
+    the ranks are waited for, not read the moment torchrun is reaped."""
+    ranks = [(pid, _start_time(pid)) for pid in _children(proc.pid)]
+    for pid in [pid for pid, _ in ranks] + [proc.pid]:
         try:
             os.kill(pid, signal.SIGKILL)
         except ProcessLookupError:
             pass
     proc.wait()
+    deadline = time.monotonic() + LINE_TIMEOUT_S
+    while (any(_alive(*rank) for rank in ranks)
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    return ranks
 
 
 def test_train_mesh_graph_sigkilled_resumes_to_an_uninterrupted_run(
@@ -247,13 +257,11 @@ def test_train_mesh_graph_sigkilled_resumes_to_an_uninterrupted_run(
             else:   # the first run, in its sweep (rank 0's block line)
                 _wait_for(proc, log, "neighborhoods[rank 0/2]", 1)
             had_state = os.path.isfile(state)
-            ranks = _children(proc.pid)
-            _sigkill(proc)
+            ranks = _sigkill(proc)
         finally:
             stop(proc)
         assert proc.returncode == -signal.SIGKILL, _lines(log)
-        assert len(ranks) == 2 and not any(
-            os.path.exists(f"/proc/{pid}") and _alive(pid) for pid in ranks)
+        assert len(ranks) == 2 and not any(_alive(*rank) for rank in ranks)
         landed.append(had_state and not any(
             "embeddings ->" in line for line in _lines(log)))
 
@@ -287,11 +295,25 @@ def test_train_mesh_graph_sigkilled_resumes_to_an_uninterrupted_run(
         np.load(os.path.join(runs, "whole", "emb.npy")))
 
 
-def _alive(pid: int) -> bool:
-    """Whether ``pid`` runs (a zombie, killed and not yet reaped by its
-    parent, does not)."""
+def _stat(pid: int) -> list:
+    """The fields of ``/proc/<pid>/stat`` after the command name ([] once
+    the process is gone)."""
     try:
         with open(f"/proc/{pid}/stat") as f:
-            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+            return f.read().rsplit(")", 1)[1].split()
     except OSError:
-        return False
+        return []
+
+
+def _start_time(pid: int) -> str:
+    """When ``pid`` started (clock ticks after boot), which tells it from
+    a later process given the same pid."""
+    fields = _stat(pid)
+    return fields[19] if fields else ""
+
+
+def _alive(pid: int, start: str) -> bool:
+    """Whether the process ``pid`` that started at ``start`` runs (a
+    zombie, killed and not yet reaped by its parent, does not)."""
+    fields = _stat(pid)
+    return bool(fields) and fields[19] == start and fields[0] != "Z"

@@ -18,7 +18,16 @@ the card.
   (an activation), and K2's bf16 form on bf16 tables, Wq and weights;
 * ``agg.gather_read_probe`` (f32 at widths 256, 512 and 1024, bf16 at
   512) and ``agg.l2_read_probe`` over an array larger than L2 against
-  float64 sums of what they read.
+  float64 sums of what they read;
+* the precision policy's bf16x forms (``GCN_TPU_MATMUL_PRECISION``
+  default and high: an f32 table in one or three bf16 passes) at the
+  wide co-listen arm's shapes (hidden 1024, T=10): Wq's bf16 tiling bit
+  for bit, K3 at both aggregations of its frontier step (4,224 nodes
+  over 128-d rows, 384 over 256-d ones) and K2 at its two embed layers
+  (20,000 rows, Din 128 and 256), each within 1e-4 of the plain version
+  at the same passes and within 4x its error a pass against float64 of
+  the same rounded function, and the backward in the same passes within 1e-3 of
+  float64 autograd of it.
 
 Ids index the table as the frontier forward does (node ``i``'s T
 neighbours are rows ``m + i * T ..``).  The forward within 1e-4 of the
@@ -229,3 +238,97 @@ def test_l2_probe_sums_every_pass_of_a_table_larger_than_l2(cuda):
     assert agg.probe_launches["l2"] == before + 1
     want = 2 * float(x.double().sum())
     assert float(got) == pytest.approx(want, rel=1e-6)
+
+
+PASSES = {1: "default", 3: "high"}
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_bf16x_wq_tiling_is_the_plain_tiling(cuda, passes):
+    Wq = torch.randn((1024, 256), device=cuda) * 0.05
+    before = agg.kernel_launches_bf16x1["tile"] + agg.kernel_launches_bf16x3[
+        "tile"]
+    hi, lo = agg.tile_wq_bf16x(Wq, passes)
+    torch.cuda.synchronize()
+    want = [agg.tile_wq_plain(x.bfloat16()) for x in agg.bf16_split3(Wq)]
+    assert torch.equal(hi.view(torch.int16), want[0].view(torch.int16))
+    if passes == 1:
+        assert lo is None
+    else:
+        assert torch.equal(lo.view(torch.int16), want[1].view(torch.int16))
+    assert (agg.kernel_launches_bf16x1["tile"]
+            + agg.kernel_launches_bf16x3["tile"]) == before + 1
+
+
+def _bf16x_holds(cuda, args, mode, passes, need_dh):
+    """The bf16x form of ``mode`` on ``args`` against its plain version
+    (AGG_ATOL), float64 of the same rounded function (4x the plain
+    version's error a pass: the tensor cores sum each pass's Din products
+    into the one accumulator, less carefully than an FMA) and its
+    backward (GRAD_RTOL of float64 autograd of the same function, the
+    cotangent rounded too)."""
+    from gcn_song_embeddings_tpu_torch.utils import precision
+
+    form = agg.BF16X[passes]
+    counter = (dma_agg, f"launches_{form}") if mode == "dma" else (
+        agg, f"launches_{form}")
+    before = getattr(*counter)
+    with torch.inference_mode(), precision.override(PASSES[passes]):
+        got = agg.conv_aggregate(*args, mode=mode)
+    with torch.inference_mode():
+        want = agg.conv_aggregate_plain(*args, passes)
+        ref = agg.conv_aggregate_plain(
+            *(a if a.dtype == torch.int32 else a.double() for a in args),
+            passes)
+    torch.cuda.synchronize()
+    assert getattr(*counter) == before + 1
+    assert float((got - want).abs().max()) <= AGG_ATOL
+    assert float((got.double() - ref).abs().max()) <= 4 * passes * float(
+        (want.double() - ref).abs().max())
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+    b = args[1].shape[0]
+    cot = torch.randn((b, args[3].shape[0]), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(5))
+
+    def grads(dtype, fn):
+        tab, nb, w, Wq, bq = (a if a.dtype == torch.int32
+                              else a.to(dtype, copy=True) for a in args)
+        inputs = ((tab, Wq, bq) if need_dh else (Wq, bq))
+        for x in inputs:
+            x.requires_grad_()
+        return torch.autograd.grad(fn(tab, nb, w, Wq, bq), inputs,
+                                   cot.to(dtype))
+
+    ref = grads(torch.float64,
+                lambda *a: agg.conv_aggregate_plain(*a, passes))
+    before = agg.backward_launches[f"{mode}_{form}"]
+    with precision.override(PASSES[passes]):
+        got = grads(torch.float32,
+                    lambda *a: agg.conv_aggregate(*a, mode=mode))
+    torch.cuda.synchronize()
+    assert agg.backward_launches[f"{mode}_{form}"] == before + 1
+    for g, r in zip(got, ref):
+        assert float(torch.linalg.vector_norm(g.double() - r)
+                     / torch.linalg.vector_norm(r)) <= GRAD_RTOL
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("m,din,need_dh", [(4224, 128, False),
+                                           (384, 256, True)],
+                         ids=["deep", "top"])
+def test_k3_bf16x_at_the_wide_arms_step(cuda, passes, m, din, need_dh):
+    args = _frontier_args(cuda, m, 10, din, 1024, seed=m + passes)
+    _bf16x_holds(cuda, args, "dma", passes, need_dh)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("din,need_dh", [(128, False), (256, True)],
+                         ids=["features", "activation"])
+def test_k2_bf16x_at_the_wide_arms_embed(cuda, passes, din, need_dh):
+    args = _fullgraph_args(cuda, 20000, 10, din, 1024, seed=din + passes)
+    before = agg.kernel_launches_bf16x1["project"] + \
+        agg.kernel_launches_bf16x3["project"]
+    _bf16x_holds(cuda, args, "stream", passes, need_dh)
+    assert (agg.kernel_launches_bf16x1["project"]
+            + agg.kernel_launches_bf16x3["project"]) == before + 2
