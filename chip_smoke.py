@@ -217,9 +217,15 @@
    (``hold_precision_kernels``: within K2_ATOL, within 4x a pass the
    plain version's error against float64 of the same rounded function, the
    backward within GRAD_RTOL of float64 autograd of it, or within 1.25x
-   of the plain version's own distance where that is larger).  Prints a
-   ``precision_checks`` line after the card line; the kernels line gains
-   the four bf16x rows.
+   of the plain version's own distance where that is larger).  The same
+   phase holds the policy's reach outside PinSage (``run_precision_reach``):
+   3 ``GNNCore`` steps each for sage, gat and gcn at the roster's widths,
+   one 20-step skip-gram chunk at the roster's shapes, MFCC of 8 clips and
+   one VGGish forward, unset, ``default`` and ``high``, each held against
+   the same run on the CPU at the CPU tests' tolerances (REACH_TOL), then
+   unset again, bit-equal to the first unset run, and ``default`` off
+   every unset output's bits.  Prints a ``precision_checks`` line after
+   the card line; the kernels line gains the four bf16x rows.
 14. Right after the co-listen phase, the repository tools, each with the
    counters set to 0 again: ``grid_refschedule.run`` with the colisten
    schedule on a copy of the hard phase's dataset and PPR caches (the
@@ -4042,6 +4048,231 @@ def _ranking_outputs(torch, dev, emb, test_pos) -> list:
     return [w, n, rank_eval(table, test_pos, device=dev), served]
 
 
+# the policy's reach outside PinSage (the GNN rows, node2vec's skip-gram,
+# MFCC, the audio nets), each run on the card and on the CPU from the same
+# inputs at every value.  The GNN rows at the roster's widths (hidden and
+# out 128, 10 samples) on a seeded graph of REACH_NODES nodes with 128-d
+# features, REACH_GNN_STEPS steps of batch REACH_GNN_BATCH; one chunk of
+# REACH_SG_STEPS skip-gram steps at the roster's shapes (dim 128, batch
+# 8,192, 5 negatives); MFCC-40 of REACH_CLIPS 30 s clips; VGGish on
+# REACH_PATCHES patches of seeded weights
+REACH_NODES = 1000
+REACH_GNN_STEPS = 3
+REACH_GNN_BATCH = 128
+REACH_SG_STEPS = 20
+REACH_CLIPS = 8
+REACH_PATCHES = 4
+# card vs CPU at the CPU tests' tolerances (tests/test_torch_precision_
+# gnn.py, _audio.py): relative Frobenius.  Unset and default 1e-3 (an f32
+# intermediate rounded again: neighbouring bf16 values are 2^-8 apart;
+# unset within it); high 2e-5 (a flip moves the lo part only, 2^-16).
+# MFCC unset and high 1e-4 (tests/test_torch_features.py's bar); the deep
+# net at default 1e-2 (flips accumulate through nine stacked layers).  A
+# GNN row's first loss (the same init and draws) within 1e-5 relative.
+REACH_TOL = {"unset": 1e-3, "default": 1e-3, "high": 2e-5}
+REACH_MFCC_TOL = {"unset": 1e-4, "default": 1e-3, "high": 1e-4}
+REACH_NET_TOL = {"unset": 1e-3, "default": 1e-2, "high": 2e-5}
+
+
+def _reach_inputs():
+    """The reach checks' seeded inputs, on the CPU: the GNN graph and
+    features, each layer's initial parameters and draws, skip-gram's
+    walks, initial W_in and draws, the clips and VGGish's patches."""
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch.models import gnnlib
+    from gcn_song_embeddings_tpu_torch.models.baselines.node2vec import (
+        SkipgramDraws,
+        skipgram_steps,
+    )
+    from gcn_song_embeddings_tpu_torch.ops.ppr import seeded_generator
+
+    rng = np.random.default_rng(2718)
+    n = REACH_NODES
+    deg = rng.integers(0, 20, n)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    indices = rng.integers(0, n, indptr[-1]).astype(np.int64)
+    feats = rng.normal(size=(n, 128)).astype(np.float32)
+    gnn = {}
+    for layer in ("sage", "gat", "gcn"):
+        core = gnnlib.GNNCore(layer=layer, hidden_dim=128, out_dim=128,
+                              n_sample=10, batch=REACH_GNN_BATCH,
+                              device="cpu")
+        core._gen = seeded_generator([core.seed, 1], "cpu")
+        gnn[layer] = (core.init_params(128, 128, torch.device("cpu")),
+                      [core.draws(s, n, None)
+                       for s in range(REACH_GNN_STEPS)])
+    # 820 walks of 20 at context 10 make REACH_SG_STEPS steps of 8,192
+    n_sg, batch = 20_000, 8192
+    walks = rng.integers(0, n_sg, (820, 20)).astype(np.int64)
+    if skipgram_steps(820, 20, 10, 1, batch) != REACH_SG_STEPS:
+        raise AssertionError("the skip-gram chunk's walks give another "
+                             "number of steps")
+    gen = torch.Generator().manual_seed(3)
+    sg_draws = [SkipgramDraws(
+        torch.randint(0, walks.shape[0], (batch,), generator=gen),
+        torch.randint(0, 20, (batch,), generator=gen),
+        torch.randint(1, 11, (batch,), generator=gen),
+        torch.rand((batch,), generator=gen),
+        torch.randint(0, n_sg, (batch, 5), generator=gen))
+        for _ in range(REACH_SG_STEPS)]
+    W_in = (torch.rand((n_sg, 128), generator=gen) - 0.5) / 128
+    t = np.arange(480_000) / 16_000
+    clips = np.stack([
+        0.3 * np.sin(2 * np.pi * (110 * (k + 1)) * t)
+        + 0.05 * rng.normal(size=t.shape)
+        for k in range(REACH_CLIPS)]).astype(np.float32)
+    patches = rng.normal(size=(REACH_PATCHES, 96, 64)).astype(np.float32)
+    return {"graph": (indptr, indices, feats), "gnn": gnn,
+            "skipgram": (walks, n_sg, W_in, sg_draws), "clips": clips,
+            "patches": patches}
+
+
+def _reach_run(dev, inp, vggish) -> dict:
+    """The reach checks' outputs on ``dev`` under the current policy:
+    each GNN row's losses, first-step gradients and final parameters,
+    skip-gram's W_in after its chunk, MFCC of the clips, VGGish of the
+    patches; all as CPU numpy."""
+    import torch
+
+    from gcn_song_embeddings_tpu_torch import features as F
+    from gcn_song_embeddings_tpu_torch.models import audio_embedders as P
+    from gcn_song_embeddings_tpu_torch.models import gnnlib
+    from gcn_song_embeddings_tpu_torch.models.baselines.node2vec import (
+        train_skipgram,
+    )
+
+    def to(tree):   # a copy: fit trains its parameters in place
+        if isinstance(tree, torch.Tensor):
+            return tree.to(dev, copy=True)
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        return type(tree)(*map(to, tree)) if hasattr(tree, "_fields") \
+            else type(tree)(map(to, tree))
+
+    out = {}
+    indptr, indices, feats = inp["graph"]
+    for layer, (init, draws) in inp["gnn"].items():
+        core = gnnlib.GNNCore(layer=layer, hidden_dim=128, out_dim=128,
+                              n_sample=10, steps=REACH_GNN_STEPS,
+                              batch=REACH_GNN_BATCH, device=dev)
+        core.init_params = lambda i, o, d, init=init: to(init)
+        core.draws = lambda step, n, pool, draws=draws: to(draws[step])
+        core.fit(indptr, indices, feats, REACH_NODES)
+        params = to(init)
+        leaves = [t.requires_grad_() for lp in params.values()
+                  for t in lp.values()]
+        grads = torch.autograd.grad(core.loss(params, to(draws[0])), leaves)
+        out[f"gnn_{layer}_losses"] = core.losses
+        out[f"gnn_{layer}_grads"] = [g.cpu().numpy() for g in grads]
+        out[f"gnn_{layer}_params"] = [t.cpu().numpy()
+                                      for lp in core._params.values()
+                                      for t in lp.values()]
+    walks, n_sg, W_in, sg_draws = inp["skipgram"]
+    out["skipgram_W_in"] = train_skipgram(
+        torch.as_tensor(walks, device=dev), n_sg, dim=128, context=10,
+        negatives=5, epochs=1, batch=8192, W_in=W_in.to(dev),
+        draws=lambda step: to(sg_draws[step]))
+    out["mfcc"] = F.MFCC(device=dev).embed_batch(inp["clips"])
+    out["vggish"] = P.run_net(
+        vggish.to(dev), torch.as_tensor(inp["patches"], device=dev)
+    ).cpu().numpy()
+    return out
+
+
+def _rel(got, want) -> float:
+    """The relative Frobenius distance of ``got`` from ``want``."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _reach_holds(value, got, want, w_in) -> dict:
+    """The card's reach outputs at ``value`` against the CPU's: each
+    distance beside its bar; raises where one passes it."""
+    tol = REACH_TOL[value]
+    holds = {}
+    for layer in ("sage", "gat", "gcn"):
+        g, w = got[f"gnn_{layer}_losses"], want[f"gnn_{layer}_losses"]
+        holds[f"gnn_{layer}_first_loss"] = (_rel(g[:1], w[:1]), 1e-5)
+        holds[f"gnn_{layer}_losses"] = (_rel(g, w), tol)
+        holds[f"gnn_{layer}_grads"] = (max(
+            _rel(a, b) for a, b in zip(got[f"gnn_{layer}_grads"],
+                                       want[f"gnn_{layer}_grads"])), tol)
+    holds["skipgram_update"] = (_rel(got["skipgram_W_in"] - w_in,
+                                     want["skipgram_W_in"] - w_in), tol)
+    holds["mfcc"] = (_rel(got["mfcc"], want["mfcc"]),
+                     REACH_MFCC_TOL[value])
+    holds["vggish"] = (_rel(got["vggish"], want["vggish"]),
+                       REACH_NET_TOL[value])
+    bad = {k: v for k, v in holds.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"precision reach at {value}: card vs CPU "
+                             f"(distance, bar) {bad}")
+    return holds
+
+
+def run_precision_reach(dev) -> dict:
+    """The matmul precision policy outside PinSage on the card: a few
+    ``GNNCore`` steps for sage, gat and gcn, one skip-gram chunk, MFCC of
+    a batch of clips and one VGGish forward (``_reach_run``), unset, at
+    ``default`` and at ``high``, each held against the same run on the CPU
+    at the same value (``_reach_holds``), then unset again on the card,
+    bit-equal to the first unset run; ``default`` must change each
+    output's bits.  Deterministic algorithms (warn only) for the card's
+    runs, so skip-gram's scatter-adds repeat.  Returns the holds and the
+    walls."""
+    import numpy as np
+    import torch
+
+    from gcn_song_embeddings_tpu_torch.models import audio_embedders as P
+    from gcn_song_embeddings_tpu_torch.utils import precision
+
+    t0 = time.perf_counter()
+    inp = _reach_inputs()
+    nets = {"cpu": P.VGGishNet.build(seed=0, device="cpu")}
+    nets["card"] = copy.deepcopy(nets["cpu"]).to(dev)
+    w_in = inp["skipgram"][2].numpy()
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    runs, holds, walls = {}, {}, {"inputs_s": time.perf_counter() - t0}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for value in ("unset", "default", "high", "unset_again"):
+            name = None if value.startswith("unset") else value
+            with precision.override(name):
+                t = time.perf_counter()
+                runs[value] = _reach_run(dev, inp, nets["card"])
+                sync(torch, dev)
+                walls[f"{value}_card_s"] = time.perf_counter() - t
+                if value == "unset_again":
+                    break
+                t = time.perf_counter()
+                want = _reach_run(torch.device("cpu"), inp, nets["cpu"])
+                walls[f"{value}_cpu_s"] = time.perf_counter() - t
+            holds[value] = _reach_holds(value, runs[value], want, w_in)
+    finally:
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+    def same_bits(a, b):   # an array, or a list of them (gradients)
+        if isinstance(a, list):
+            return all(np.array_equal(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    again = [k for k, v in runs["unset"].items()
+             if not same_bits(v, runs["unset_again"][k])]
+    same = [k for k, v in runs["unset"].items()
+            if same_bits(v, runs["default"][k])]
+    if again or same:
+        raise AssertionError(f"precision reach: unset rerun not bit-equal "
+                             f"{again}; default left the bits of {same}")
+    walls["phase_s"] = time.perf_counter() - t0
+    out = {"holds": holds, "unset_rerun_bit_equal": True, "walls": walls}
+    log(f"precision reach: {json.dumps(out)}")
+    return out
+
+
 def run_precision_path(dev, ab_state) -> dict:
     """The matmul precision policy (``utils.precision``) on the card, as
     ``GCN_TPU_MATMUL_PRECISION`` sets it for a process: PRECISION_ARM's
@@ -4158,6 +4389,8 @@ def run_precision_path(dev, ab_state) -> dict:
                                  f"{same}")
     checks["ranking_bit_equal"] = True
     checks["rank_eval"] = want[2]
+    # the policy's reach outside PinSage, card vs CPU at every value
+    checks["reach"] = run_precision_reach(dev)
     checks["phase_s"] = time.perf_counter() - t0
     return {"trainer": trainer, "batch": batches[0], "runs": runs,
             "checks": checks}

@@ -116,6 +116,7 @@ F32_PRODUCT_FLOPS = H100_TF32_FLOPS / 3
 # scatter-accumulate of dh (bench.py's model)
 GATHER_PASSES = 3
 STREAM_MIB = 256          # the streaming read's array (exceeds the 50 MB L2)
+SPIN_CYCLES = 20_000_000  # device_wall's sleep kernel: ~10 ms at 2 GHz
 
 BASELINE_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -301,7 +302,11 @@ def measure_flopbound(problem, dev, dtype: str = "float32",
 
 def device_wall(dev):
     """``wall(f)``: seconds of ``f()`` on ``dev`` (CUDA events around it
-    on the card, the host's clock on the CPU)."""
+    on the card, the host's clock on the CPU).  On the card a sleep
+    kernel (~10 ms) holds the stream while the events and ``f``'s work
+    are queued, so the events time the device's work and not the host's
+    issuing of it: a probe's wall is well under a millisecond, and a
+    host stall inside it could turn a rep difference negative."""
     def wall(f) -> float:
         if dev.type != "cuda":
             t0 = time.perf_counter()
@@ -309,6 +314,7 @@ def device_wall(dev):
             return time.perf_counter() - t0
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         f()
         end.record()
@@ -522,7 +528,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--chunk-large", type=int, default=CHUNK_LARGE)
     ap.add_argument("--fb-chunk-small", type=int, default=FB_CHUNK_SMALL)
     ap.add_argument("--fb-chunk-large", type=int, default=FB_CHUNK_LARGE)
-    ap.add_argument("--reps", type=int, default=REPS)
+    ap.add_argument("--reps", type=int, default=REPS,
+                    help="repetitions of each chunk difference (the "
+                         "probes always take REPS)")
     ap.add_argument("--skip-probes", action="store_true",
                     help="leave out the gather and stream probes and the "
                          "roofline")
@@ -585,9 +593,10 @@ def run(args: argparse.Namespace) -> dict:
     out["flopbound_contig_step_ms"] = round(fb_c_per_batch * 1e3, 3)
 
     if not args.skip_probes:
-        gather_rates, gather_rate_bf16_512 = measure_gather_rates(
-            dev, n, reps=args.reps)
-        stream_bw = measure_stream_bw(dev, reps=args.reps)
+        # the probes take REPS repetitions whatever --reps says, as
+        # bench.py's do
+        gather_rates, gather_rate_bf16_512 = measure_gather_rates(dev, n)
+        stream_bw = measure_stream_bw(dev)
         gather_pred_s, matmul_pred_s, act_pred_s = roofline_predict(
             gather_rates, stream_bw, flopbound_bound_ms("float32", n) / 1e3,
             n)

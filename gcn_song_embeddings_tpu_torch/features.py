@@ -14,7 +14,9 @@ they are bit-equal too.  The DSP runs on the device as plain tensor ops:
 framing (``unfold``), window, ``torch.fft.rfft`` (in float64),
 magnitude or power, then the mel projection as one f32 matrix product;
 log, then the DCT for MFCC.  Products run in true f32 (TF32 off,
-``ops.knn.exact_f32``).
+``ops.knn.exact_f32``); the mel and DCT products in one or three bf16
+passes under the matmul precision policy (``utils.precision``), as the
+JAX package's ``einsum``s run at its default precision on the TPU.
 
 Every embedder that computes on a device takes ``device`` (default
 ``cuda``: it raises where there is no card, see ``utils.device``).
@@ -30,6 +32,7 @@ import wave
 import numpy as np
 import torch
 
+from gcn_song_embeddings_tpu_torch.ops.agg import matmul, policy_passes
 from gcn_song_embeddings_tpu_torch.ops.knn import exact_f32
 from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
 
@@ -192,8 +195,9 @@ def mel_power(clips: torch.Tensor, fb: torch.Tensor, window: torch.Tensor,
     del frames
     if power != 1.0:
         spec = spec ** power
+    spec = spec.float()
     with exact_f32():
-        return spec.float() @ fb.t()
+        return matmul(spec, fb.t(), policy_passes(spec, fb))
 
 
 def melspectrogram(clips: np.ndarray, sr: int = SAMPLE_RATE,
@@ -271,7 +275,8 @@ class MFCC(Embedder):
         mel = mel_power(x, self._fb, self._window, self.n_fft, self.hop)
         logmel = torch.log(mel + 1e-10)
         with exact_f32():
-            mfcc = logmel @ self._dct.t()
+            mfcc = matmul(logmel, self._dct.t(),
+                          policy_passes(logmel, self._dct))
         return mfcc.mean(dim=1).cpu().numpy()
 
 

@@ -16,7 +16,11 @@ differ by design) and ``warn_untrained`` says the features are untrained.
 The nets and their front ends compute in true f32: every forward turns
 TF32 off for its convolutions and matrix products and restores the
 caller's setting (``ops.knn.exact_f32``).  Nine stacked TF32
-convolutions would err ~1e-3, the whole tolerance of the checks.
+convolutions would err ~1e-3, the whole tolerance of the checks.  Under
+the matmul precision policy (``utils.precision``) the convolutions and
+dense layers run in one or three bf16 passes, the bias added in f32
+after, as the JAX package's run at its default precision on the TPU;
+batch norm, pooling and activations stay f32.
 
 Shapes follow the published models:
 
@@ -54,6 +58,11 @@ from gcn_song_embeddings_tpu_torch.features import (
     frontend_tables,
     mel_power,
     resample_linear,
+)
+from gcn_song_embeddings_tpu_torch.ops.agg import (
+    conv2d,
+    linear,
+    policy_passes,
 )
 from gcn_song_embeddings_tpu_torch.ops.knn import exact_f32
 from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
@@ -100,6 +109,25 @@ class _Net(nn.Module):
         """The net, seeded random-init, in eval mode on ``device``."""
         dev = resolve_device(device)
         return _he_normal_(cls(), seed).to(dev).eval()
+
+
+def _conv(mod: nn.Conv2d, x: torch.Tensor, passes: int | None
+          ) -> torch.Tensor:
+    """``mod(x)``, or in ``passes`` bf16 passes where given (the matmul
+    precision policy), the bias added in f32 after."""
+    if passes is None:
+        return mod(x)
+    return conv2d(x, mod.weight, passes, bias=mod.bias, stride=mod.stride,
+                  padding=mod.padding, dilation=mod.dilation,
+                  groups=mod.groups)
+
+
+def _linear(mod: nn.Linear, x: torch.Tensor, passes: int | None
+            ) -> torch.Tensor:
+    """``mod(x)``, or in ``passes`` bf16 passes where given."""
+    if passes is None:
+        return mod(x)
+    return linear(x, mod.weight, mod.bias, passes)
 
 
 def run_net(net: nn.Module, x: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -247,9 +275,9 @@ class _L3Block(nn.Module):
         # the final conv (audio_embedding_layer) has no BN after it
         self.bn1 = None if last else BatchNorm(cout)
 
-    def forward(self, x):
-        x = F.relu(self.bn0(self.conv0(x)))
-        x = self.conv1(x)
+    def forward(self, x, passes=None):
+        x = F.relu(self.bn0(_conv(self.conv0, x, passes)))
+        x = _conv(self.conv1, x, passes)
         if self.bn1 is not None:
             x = F.max_pool2d(F.relu(self.bn1(x)), 2)
         return x
@@ -267,10 +295,11 @@ class OpenL3Net(_Net):
             setattr(self, f"block{bi}", _L3Block(cin, cout, bi == 3))
 
     def forward(self, mel_db: torch.Tensor) -> torch.Tensor:
+        passes = policy_passes(mel_db)
         with exact_f32():
             x = self.bn_in(mel_db[:, None])
             for bi in range(len(_L3_BLOCKS)):
-                x = getattr(self, f"block{bi}")(x)
+                x = getattr(self, f"block{bi}")(x, passes)
             return F.max_pool2d(x, (16, 24)).reshape(x.shape[0], -1)
 
 
@@ -323,17 +352,18 @@ class VGGishNet(_Net):
         self.fc2 = nn.Linear(4096, 128)
 
     def forward(self, log_mel: torch.Tensor) -> torch.Tensor:
+        passes = policy_passes(log_mel)
         with exact_f32():
             x = log_mel[:, None]
             for group in _VGG_LAYOUT:
                 for ci in group:
-                    x = F.relu(getattr(self, f"conv{ci}")(x))
+                    x = F.relu(_conv(getattr(self, f"conv{ci}"), x, passes))
                 x = F.max_pool2d(x, 2)
             # VGGish flattens (H, W, C): permute, or fc0 reads scrambled
             x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-            x = F.relu(self.fc0(x))
-            x = F.relu(self.fc1(x))
-            return F.relu(self.fc2(x))
+            x = F.relu(_linear(self.fc0, x, passes))
+            x = F.relu(_linear(self.fc1, x, passes))
+            return F.relu(_linear(self.fc2, x, passes))
 
 
 def vggish_log_mel_patches(clips: np.ndarray, sr: int = SAMPLE_RATE,
@@ -570,10 +600,10 @@ class _ConvBN(nn.Module):
         self.bn = BatchNorm(cout, eps)
         self.pad = tf_same_pad(kt)
 
-    def forward(self, x):
+    def forward(self, x, passes=None):
         # F.pad lists the last dim first: (mel, mel, time before, after)
         x = F.pad(x, (0, 0) + self.pad)
-        return self.bn(F.relu(self.conv(x)))
+        return self.bn(F.relu(_conv(self.conv, x, passes)))
 
 
 class MusicNNNet(_Net):
@@ -604,22 +634,26 @@ class MusicNNNet(_Net):
         if feature not in MUSICNN_TAPS:
             raise ValueError(f"feature {feature!r}: one of "
                              f"{sorted(MUSICNN_TAPS)}")
+        passes = policy_passes(log_mel)
         with exact_f32():
             x = self.bn_in(log_mel[:, None])              # [B, 1, T, M]
             feats = []
             for i in range(len(_MCNN_TIMBRAL)):
                 # timbral: VALID in mel, max over the mel left after it
-                feats.append(getattr(self, f"timbral{i}")(x).amax(dim=3))
+                feats.append(getattr(self, f"timbral{i}")(x, passes)
+                             .amax(dim=3))
             for i in range(len(_MCNN_TEMPORAL)):
                 # temporal: [k, 1] over the whole normalized spectrogram,
                 # then the max over every mel band
-                feats.append(getattr(self, f"temporal{i}")(x).amax(dim=3))
+                feats.append(getattr(self, f"temporal{i}")(x, passes)
+                             .amax(dim=3))
             front = torch.cat(feats, dim=1)               # [B, 561, T]
             mid = MUSICNN_SPEC["midend"]
             mids = []
             h = front
             for i in range(mid["n_layers"]):
-                h = getattr(self, f"mid{i}")(h[:, :, :, None])[:, :, :, 0]
+                h = getattr(self, f"mid{i}")(h[:, :, :, None],
+                                             passes)[:, :, :, 0]
                 if i >= mid["residual_from"]:
                     h = h + mids[-1]
                 mids.append(h)
@@ -633,10 +667,10 @@ class MusicNNNet(_Net):
             # the backend's flatten interleaves (max_c, mean_c)
             flat = self.bn_pool(torch.stack([mx, mn], dim=-1)
                                 .reshape(mx.shape[0], -1))
-            pen = self.bn_dense(F.relu(self.dense(flat)))
+            pen = self.bn_dense(F.relu(_linear(self.dense, flat, passes)))
             if feature == "penultimate":
                 return pen
-            return torch.sigmoid(self.dense_out(pen))
+            return torch.sigmoid(_linear(self.dense_out, pen, passes))
 
 
 def musicnn_log_mel_patches(clips: np.ndarray, sr: int = SAMPLE_RATE,

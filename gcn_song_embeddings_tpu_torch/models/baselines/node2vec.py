@@ -19,6 +19,7 @@ import torch
 from gcn_song_embeddings_tpu_torch.models.baselines.base import (
     EmbeddingModel,
 )
+from gcn_song_embeddings_tpu_torch.ops.agg import einsum, policy_passes
 from gcn_song_embeddings_tpu_torch.ops.graph_ops import project_bipartite
 from gcn_song_embeddings_tpu_torch.ops.knn import knn_from_emb
 from gcn_song_embeddings_tpu_torch.ops.node2vec import (
@@ -65,7 +66,13 @@ def train_skipgram(walks: torch.Tensor, n_nodes: int, dim: int = 128,
     uniform negatives; the rate decays linearly from lr0 to lr_min.
     ``W_in`` (default: uniform in [-0.5, 0.5) / dim) and ``draws(step)``
     -> ``SkipgramDraws`` (default: a generator seeded from ``seed``) carry
-    the randomness."""
+    the randomness.
+
+    The two negative-sample products (``einsum`` in the JAX package) run
+    in the bf16 passes of the matmul precision policy
+    (``utils.precision``), as JAX's default precision runs them on the
+    TPU; the positive pair's score and the updates are elementwise in
+    both packages and stay f32."""
     dev = walks.device
     n_walks, walk_len = walks.shape
     walks = walks.long()
@@ -86,6 +93,7 @@ def train_skipgram(walks: torch.Tensor, n_nodes: int, dim: int = 128,
                 torch.rand((batch,), generator=gen, device=dev),
                 ints(0, n_nodes, (batch, negatives)))
 
+    passes = policy_passes(W_in)
     n_steps = skipgram_steps(n_walks, walk_len, context, epochs, batch)
     fracs = np.linspace(0.0, 1.0, n_steps, dtype=np.float32)
     for step in range(n_steps):
@@ -104,11 +112,17 @@ def train_skipgram(walks: torch.Tensor, n_nodes: int, dim: int = 128,
         u_pos = W_out[ctx]                            # [B, d]
         u_neg = W_out[negs]                           # [B, neg, d]
         s_pos = torch.sum(v * u_pos, dim=1)
-        s_neg = torch.sum(v[:, None, :] * u_neg, dim=2)
+        if passes is None:
+            s_neg = torch.sum(v[:, None, :] * u_neg, dim=2)
+        else:
+            s_neg = einsum("bd,bnd->bn", v, u_neg, passes)
         g_pos = torch.sigmoid(s_pos) - 1.0            # dL/ds_pos
         g_neg = torch.sigmoid(s_neg)                  # dL/ds_neg
-        grad_v = g_pos[:, None] * u_pos + torch.sum(
-            g_neg[:, :, None] * u_neg, dim=1)
+        if passes is None:
+            neg_v = torch.sum(g_neg[:, :, None] * u_neg, dim=1)
+        else:
+            neg_v = einsum("bn,bnd->bd", g_neg, u_neg, passes)
+        grad_v = g_pos[:, None] * u_pos + neg_v
         W_in.index_add_(0, center, -lr * grad_v)
         W_out.index_add_(0, ctx, -lr * g_pos[:, None] * v)
         W_out.index_add_(0, negs.reshape(-1),

@@ -11,6 +11,8 @@ gcn_song_embeddings_tpu/models/gnnlib.py), in plain PyTorch on a device
   averaged, one projection).
 - Training is autograd + the port's Adam (``train/adam.py``, optax's
   update) at a constant rate.
+- ``GCN_TPU_MATMUL_PRECISION`` (``utils.precision``) runs the layers'
+  products, and their gradients', in one or three bf16 passes.
 
 Randomness is an input: ``GNNCore.init_params`` gives the initial
 parameters (``params_from_jax`` carries the JAX package's across) and
@@ -25,6 +27,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gcn_song_embeddings_tpu_torch.ops.agg import (
+    einsum,
+    matmul,
+    policy_passes,
+)
 from gcn_song_embeddings_tpu_torch.ops.ppr import seeded_generator
 from gcn_song_embeddings_tpu_torch.train.adam import Adam
 from gcn_song_embeddings_tpu_torch.utils.device import resolve_device
@@ -87,16 +94,23 @@ def gnn_layer_apply(p: dict, layer: str, h_self: torch.Tensor,
                     h_nb: torch.Tensor, activate: bool = True
                     ) -> torch.Tensor:
     """One sampled-neighborhood aggregation: [m, d] self + [m, S, d]
-    neighbors -> [m, d_out]."""
+    neighbors -> [m, d_out].
+
+    Under the matmul precision policy (``utils.precision``) each product
+    runs in its bf16 passes, forward and backward, as the JAX package's
+    default precision runs it on the TPU; unset, in f32."""
+    passes = policy_passes(h_self, p["W"])
     if layer == "sage":
-        z = torch.cat([h_self, h_nb.mean(dim=1)], dim=1) @ p["W"]
+        z = matmul(torch.cat([h_self, h_nb.mean(dim=1)], dim=1), p["W"],
+                   passes)
     elif layer == "gcn":
         s = h_nb.shape[1]
-        z = ((h_self + h_nb.sum(dim=1)) / float(s + 1)) @ p["W"]
-    elif layer == "gat":
+        z = matmul((h_self + h_nb.sum(dim=1)) / float(s + 1), p["W"],
+                   passes)
+    elif layer == "gat" and passes is None:
         # the neighbors' projections h_nb @ W enter only through linear
         # maps, so W is applied after the attention-weighted sum: no
-        # [m, S, d_out] tensor
+        # [m, S, d_out] tensor (exact in f32, not under rounding)
         z_self = h_self @ p["W"]                     # [m, d_out]
         e_l = z_self @ p["a_l"]                      # [m]
         e_self = F.leaky_relu(e_l + z_self @ p["a_r"], 0.2)
@@ -104,6 +118,19 @@ def gnn_layer_apply(p: dict, layer: str, h_self: torch.Tensor,
         w = torch.softmax(torch.cat([e_self[:, None], e_nb], dim=1), dim=1)
         z = w[:, :1] * z_self + torch.einsum("ms,msd->md", w[:, 1:],
                                              h_nb) @ p["W"]
+    elif layer == "gat":
+        # rounded, in the JAX package's association: each product's
+        # operands are the ones the TPU rounds
+        z_self = matmul(h_self, p["W"], passes)      # [m, d_out]
+        z_nb = matmul(h_nb, p["W"], passes)          # [m, S, d_out]
+        e_l = einsum("md,d->m", z_self, p["a_l"], passes)
+        e_self = F.leaky_relu(
+            e_l + einsum("md,d->m", z_self, p["a_r"], passes), 0.2)
+        e_nb = F.leaky_relu(
+            e_l[:, None] + einsum("msd,d->ms", z_nb, p["a_r"], passes), 0.2)
+        w = torch.softmax(torch.cat([e_self[:, None], e_nb], dim=1), dim=1)
+        z = w[:, :1] * z_self + einsum("ms,msd->md", w[:, 1:], z_nb,
+                                       passes)
     else:
         raise ValueError(f"unknown layer type {layer!r}")
     return torch.relu(z) if activate else z

@@ -65,6 +65,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from gcn_song_embeddings_tpu_torch.ops import cuda_build, dma_agg
+from gcn_song_embeddings_tpu_torch.ops.knn import exact_f32
 from gcn_song_embeddings_tpu_torch.utils import precision
 
 NAME = "agg"
@@ -213,19 +214,21 @@ def _parts(x: torch.Tensor, passes: int) -> tuple[torch.Tensor, ...]:
     return (bf16_round(x),) if passes == 1 else bf16_split3(x)
 
 
-def _passes_sum(a_parts, b_parts) -> torch.Tensor:
+def _passes_sum(a_parts, b_parts, product=torch.matmul) -> torch.Tensor:
     """hi hi (one pass), or hi lo + lo hi + hi hi (three: the small terms
-    first), of operands split by ``_parts``; each product of bf16 values
-    is exact in f32, so only the order of the sums is the framework's."""
+    first), of ``product`` (default ``@``) over operands split by
+    ``_parts``; each product of bf16 values is exact in f32, so only the
+    order of the sums is the framework's."""
     if len(a_parts) == 1:
-        return a_parts[0] @ b_parts[0]
+        return product(a_parts[0], b_parts[0])
     (ah, al), (bh, bl) = a_parts, b_parts
-    return ah @ bl + al @ bh + ah @ bh
+    return product(ah, bl) + product(al, bh) + product(ah, bh)
 
 
-def _passes_product(a: torch.Tensor, b: torch.Tensor, passes: int
-                    ) -> torch.Tensor:
-    return _passes_sum(_parts(a, passes), _parts(b, passes))
+def _passes_product(a: torch.Tensor, b: torch.Tensor, passes: int,
+                    product=torch.matmul) -> torch.Tensor:
+    with exact_f32():   # the rounded operands' products summed in f32
+        return _passes_sum(_parts(a, passes), _parts(b, passes), product)
 
 
 class _PassesMatmul(torch.autograd.Function):
@@ -245,13 +248,15 @@ class _PassesMatmul(torch.autograd.Function):
         a, b = ctx.saved_tensors
         need_a, need_b = ctx.needs_input_grad[:2]
         da = _passes_product(g, b.t(), ctx.passes) if need_a else None
-        db = _passes_product(a.t(), g, ctx.passes) if need_b else None
+        db = (_passes_product(a.reshape(-1, a.shape[-1]).t(),
+                              g.reshape(-1, g.shape[-1]), ctx.passes)
+              if need_b else None)
         return da, db, None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, passes: int | None = None
            ) -> torch.Tensor:
-    """a [M, K] @ b [K, N] in f32 (16-bit operands upcast exactly): with
+    """a [..., K] @ b [K, N] in f32 (16-bit operands upcast exactly): with
     ``passes`` None as it is, else in that many bf16 passes (1 or 3)
     forward and backward, as the TPU runs an f32 dot at JAX's default
     (1) or ``high`` (3) precision."""
@@ -259,6 +264,92 @@ def matmul(a: torch.Tensor, b: torch.Tensor, passes: int | None = None
         return _f32(a) @ _f32(b)
     _check_passes(passes)
     return _PassesMatmul.apply(_f32(a), _f32(b), passes)
+
+
+def _einsum_terms(spec: str) -> tuple[str, str, str]:
+    """"ab,bc->ac" -> ("ab", "bc", "ac"), refusing what ``einsum``'s
+    backward cannot transpose: an index repeated in an operand, or one
+    that neither the other operand nor the output holds."""
+    ins, _, out = spec.replace(" ", "").partition("->")
+    a, _, b = ins.partition(",")
+    if not (out and a and b) or "." in spec:
+        raise ValueError(f"einsum takes 'a,b->out' of two operands with "
+                         f"an explicit output, got {spec!r}")
+    for mine, other in ((a, b), (b, a)):
+        if len(set(mine)) != len(mine) or not set(mine) <= set(other + out):
+            raise ValueError(f"einsum {spec!r}: each index of an operand "
+                             f"must appear once, and in the other operand "
+                             f"or the output")
+    return a, b, out
+
+
+class _PassesEinsum(torch.autograd.Function):
+    """``torch.einsum(spec, a, b)`` in ``passes`` bf16 passes, the
+    gradients' (transposed) products in the same passes."""
+
+    @staticmethod
+    def forward(ctx, spec, a, b, passes):
+        ctx.save_for_backward(a, b)
+        ctx.spec, ctx.passes = spec, passes
+        return _passes_product(a, b, passes, _einsum_of(spec))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        sa, sb, so = _einsum_terms(ctx.spec)
+        need_a, need_b = ctx.needs_input_grad[1:3]
+        da = (_passes_product(g, b, ctx.passes,
+                              _einsum_of(f"{so},{sb}->{sa}"))
+              if need_a else None)
+        db = (_passes_product(a, g, ctx.passes,
+                              _einsum_of(f"{sa},{so}->{sb}"))
+              if need_b else None)
+        return None, da, db, None
+
+
+def _einsum_of(spec: str):
+    return lambda x, y: torch.einsum(spec, x, y)
+
+
+def einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
+           passes: int | None = None) -> torch.Tensor:
+    """``torch.einsum(spec, a, b)`` of two f32 operands: with ``passes``
+    None as it is, else in that many bf16 passes forward and backward
+    (the JAX package's ``jnp.einsum`` at its default precision on the
+    TPU)."""
+    _einsum_terms(spec)
+    if passes is None:
+        return torch.einsum(spec, a, b)
+    _check_passes(passes)
+    return _PassesEinsum.apply(spec, a, b, passes)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, passes: int | None = None,
+           bias: torch.Tensor | None = None, **conv_args) -> torch.Tensor:
+    """``F.conv2d(x, w, bias, **conv_args)`` (NCHW, OIHW): with ``passes``
+    None as it is, else the convolution in that many bf16 passes and the
+    bias added in f32 after it, as the JAX package's
+    ``conv_general_dilated`` + bias runs on the TPU (forward only)."""
+    if passes is None:
+        return F.conv2d(x, w, bias, **conv_args)
+    _check_passes(passes)
+    y = _passes_product(x, w, passes,
+                        lambda p, q: F.conv2d(p, q, None, **conv_args))
+    return y if bias is None else y + bias.view(1, -1, 1, 1)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           passes: int | None = None) -> torch.Tensor:
+    """``F.linear(x, w, b)`` (x @ w.T + b): with ``passes`` None as it is,
+    else the product in that many bf16 passes and the bias added in f32
+    after it, as the JAX package's ``x @ w + b`` runs on the TPU (forward
+    only)."""
+    if passes is None:
+        return F.linear(x, w, b)
+    _check_passes(passes)
+    y = _passes_product(x, w, passes, F.linear)
+    return y if b is None else y + b
 
 
 def policy_passes(*operands: torch.Tensor) -> int | None:

@@ -21,7 +21,8 @@ the tree with its own constants:
   ``platform`` and ``card``) and leaves ``BENCH_BASELINE.json``'s bytes
   as they were; without a card and ``--device`` the module raises;
 * the gather yardstick's CPU path computes its function, and the stream
-  rate's CPU stand-in reads every pass.
+  rate's CPU stand-in reads every pass; the probes take ``REPS``
+  repetitions whatever ``--reps`` says, as the script's do.
 """
 
 import ast
@@ -260,6 +261,26 @@ def test_a_tiny_cpu_run_prints_the_full_key_set(script, capsys, extra,
             bench.flopbound_bound_ms("float32", 300), 3)
     else:
         assert out["vs_baseline_this_host"] > 0
+
+
+def test_the_probes_take_the_scripts_reps_whatever_reps_says(monkeypatch):
+    """``bench.py``'s probes take the median of its REPS rep differences
+    whatever its chunks take; ``--reps 1`` cuts the chunks only."""
+    monkeypatch.setattr(bench, "STREAM_MIB", 1)
+    monkeypatch.setattr(bench, "measure_step",
+                        lambda *a, **k: (1e-3, 0.0, "none"))
+    monkeypatch.setattr(bench, "measure_flopbound",
+                        lambda *a, **k: (1e-2, 1.0))
+    reps = []
+
+    def rep_difference(wall, run, small, large, n_reps):
+        reps.append(n_reps)
+        return 1e-3
+
+    monkeypatch.setattr(bench, "rep_difference", rep_difference)
+    bench.run(bench.parse_args(TINY))
+    # three f32 gather widths, the bf16 gather and the stream
+    assert reps == [bench.REPS] * 5
 
 
 def test_the_cached_baseline_is_read_for_the_benchs_config():

@@ -94,6 +94,9 @@ def _tpu_product(f, passes):
     return prod
 
 
+# tests/tpu_numerics.py is the general form of _TpuNumpy: a jaxpr
+# evaluator that rounds every default-precision product of any JAX
+# function, ``@`` and the products inside ``lax.scan`` included.
 class _TpuNumpy:
     """``jax.numpy`` whose ``dot`` and ``einsum`` multiply as the TPU
     does at a precision."""
