@@ -4549,11 +4549,38 @@ def kernel_row_bf16x(name, source, replaces, launches_by_path, bwd_launches,
     return row
 
 
+# the 100k main step's layer 0 as a bf16x aggregation: nodes (of T rows)
+# gathered from a seeded f32 table of that many rows, Din, H
+L0_100K = {"nodes": 4224, "rows": 100_000, "din": 512, "hdim": 512}
+
+
+def l0_100k_shapes(torch, dev, T: int) -> list:
+    """The 100k main step's deepest aggregation as a bf16x problem: 4,224
+    nodes x T ids drawn from a seeded 100,000 x 512 f32 table on ``dev``,
+    seeded weights, Wq and bq, in ``measure_aggregation_bf16x``'s shape
+    list."""
+    from types import SimpleNamespace
+
+    g = torch.Generator(device=dev).manual_seed(100_000)
+    m, n, din, h = (L0_100K[k] for k in ("nodes", "rows", "din", "hdim"))
+    table = torch.randn((n, din), device=dev, generator=g)
+    ids = torch.randint(0, n, (m, T), device=dev, generator=g,
+                        dtype=torch.int32)
+    wts = torch.rand((m, T), device=dev, generator=g)
+    layer = SimpleNamespace(
+        Wq=torch.randn((h, din), device=dev, generator=g) * 0.05,
+        bq=torch.full((h,), 0.01, device=dev))
+    return [(layer, table, ids, wts, False)]
+
+
 def hold_precision_kernels(torch, pp) -> list:
     """K3's bf16x forms with their backward at both aggregations of
-    PRECISION_ARM's frontier step and K2's at both ``embed_all`` layers
-    over the 20,000-track catalog, each against its plain version
-    (``measure_aggregation_bf16x``).  Returns the kernels line's rows."""
+    PRECISION_ARM's frontier step and at the 100k main step's layer 0
+    (``l0_100k_shapes``, Din 512), and K2's at both
+    ``embed_all`` layers over the 20,000-track catalog, each against its
+    plain version (``measure_aggregation_bf16x``).  K3's one-pass rows
+    carry the grid each aggregation took (``dma_agg.card_schedule_bf16x``).
+    Returns the kernels line's rows."""
     from gcn_song_embeddings_tpu_torch.models.pinsage import conv_from_table
     from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
 
@@ -4586,6 +4613,28 @@ def hold_precision_kernels(torch, pp) -> list:
             f"{step[1][2].shape[0]} nodes x T={mcfg.T}, Din="
             f"{step[1][1].shape[1]}; H={mcfg.hidden_dim}", passes))
         rows[-1]["header"] = agg.HEADER
+        if passes == 1:
+            rows[-1]["schedule"] = [dma_agg.card_schedule_bf16x(
+                "dma", ids.shape[0], tab.shape[1], mcfg.hidden_dim,
+                ids.shape[1]) for _, tab, ids, _, _ in step]
+        l0 = l0_100k_shapes(torch, step[0][1].device, mcfg.T)
+        at = kernel_row_bf16x(
+            "", "", "", {}, 0,
+            measure_aggregation_bf16x(torch, agg, "dma", l0, passes),
+            f"the 100k main step's layer 0: {L0_100K['nodes']} nodes x T="
+            f"{mcfg.T} ids drawn from a seeded {L0_100K['rows']} x "
+            f"{L0_100K['din']} f32 table, H={L0_100K['hdim']}", passes)
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "launches_by_path", "bf16_passes"):
+            at.pop(key)
+        if passes == 1:
+            _, tab, ids, _, _ = l0[0]
+            at["schedule"] = dma_agg.card_schedule_bf16x(
+                "dma", ids.shape[0], tab.shape[1], L0_100K["hdim"],
+                ids.shape[1])
+            del tab, ids
+        rows[-1]["at_100k_layer0"] = at
+        del l0
         k2 = measure_aggregation_bf16x(torch, agg, "stream", embed, passes)
         row = kernel_row_bf16x(
             f"K2 {form} Q-MLP of every row of an f32 table in {passes} bf16 "

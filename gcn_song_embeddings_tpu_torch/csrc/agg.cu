@@ -54,9 +54,11 @@
 //
 // The bf16x forms are the precision policy's (GCN_TPU_MATMUL_PRECISION
 // default / high, the JAX package's products on the TPU): an f32 table
-// projected in one bf16 pass or three on the same 16-bit core, each row
-// rounded (or split into hi and lo) as the producer stages it, Wq tiled
-// once by `wq_tile_bf16x_kernel` (agg_tc.cuh); then the f32 gather.
+// projected in one bf16 pass on the bf16x1 core of agg_tc.cuh
+// (`project_x_kernel` on `run_rows_x`: each row loaded and rounded once a
+// run of column tiles) or in three on the 16-bit core (each row split
+// into hi and lo as the producer stages it), Wq tiled once by
+// `wq_tile_bf16x_kernel` (agg_tc.cuh); then the f32 gather.
 
 #include <cuda_fp16.h>
 
@@ -121,23 +123,24 @@ struct TableRows {
 
 // P = leaky_relu(acc + bq), column-slab-major: each 64-column slab of a
 // warpgroup's tile is one contiguous run of P, staged in its shared
-// memory (rows EPI_LD16 floats apart) and stored with coalesced 16-byte
-// stores; the tile's bq is prefetched while it multiplies
+// memory (warpgroup wg's area at wg_smem + wg * WG_BYTES16, rows
+// EPI_LD16 floats apart) and stored with coalesced 16-byte stores; the
+// tile's bq is prefetched while it multiplies
 struct SlabEpilogue {
   const float* bq;
   float* P;
-  unsigned char* smem;
+  unsigned char* wg_smem;
   int n_rows, hdim, n_slabs, n_col_tiles;
   __device__ __forceinline__ void prefetch(int tile, int wg) const {
-    prefetch_bq16(reinterpret_cast<float*>(smem + WG_OFF16 +
-                                           wg * WG_BYTES16 + BQ16),
+    prefetch_bq16(reinterpret_cast<float*>(wg_smem + wg * WG_BYTES16 +
+                                           BQ16),
                   bq, (tile % n_col_tiles) * BN16, hdim);
     cp_async_commit();
   }
   __device__ __forceinline__ void operator()(int tile, float* acc,
                                              int wg) const {
     const int t = threadIdx.x % 128;
-    unsigned char* mine = smem + WG_OFF16 + wg * WG_BYTES16;
+    unsigned char* mine = wg_smem + wg * WG_BYTES16;
     float* stage = reinterpret_cast<float*>(mine + EPI16);
     const float* bq_s = reinterpret_cast<const float*>(mine + BQ16);
     const int m0 = (tile / n_col_tiles) * BM16;
@@ -177,8 +180,8 @@ struct SlabEpilogue {
   }
 };
 
-// SRC TABLE16: h bf16 / f16 (F16); F32_X1 / F32_X3: h f32, rounded to
-// bf16 as it is staged, in one or three passes (wq_lo_t: F32_X3's lo)
+// SRC TABLE16: h bf16 / f16 (F16); F32_X3: h f32, split into bf16 hi and
+// lo as it is staged, three passes (wq_lo_t: Wq's lo tiles)
 template <bool F16, int SRC>
 __global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
 project16_kernel(const void* __restrict__ h,         // [N, Din]
@@ -193,8 +196,8 @@ project16_kernel(const void* __restrict__ h,         // [N, Din]
       aligned_ring(smem_raw));
   run_tiles16<F16, SRC>(smem, h, din, wq_t, wq_lo_t, (hdim + BN - 1) / BN,
                         n_col_tiles, n_tiles, TableRows{n_rows, n_col_tiles},
-                        SlabEpilogue{bq, P, smem, n_rows, hdim, n_slabs,
-                                     n_col_tiles});
+                        SlabEpilogue{bq, P, smem + WG_OFF16, n_rows, hdim,
+                                     n_slabs, n_col_tiles});
 }
 
 // One 16-bit-core form of K2's projection on a checked problem
@@ -219,6 +222,40 @@ static cudaError_t project_core16(const void* h, const void* tiles,
   project16_kernel<F16, SRC><<<blocks, THREADS16, SMEM16, stream>>>(
       h, (const uint16_t*)tiles, (const uint16_t*)lo_tiles, (const float*)bq,
       (float*)P, n_rows, din, hdim, n_slabs, n_col_tiles, (int)n_tiles);
+  return cudaGetLastError();
+}
+
+// The one-pass bf16x projection: h f32, each row rounded to bf16 once a
+// run of the bf16x1 core's column tiles
+__global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
+project_x_kernel(const float* __restrict__ h,          // [N, Din]
+                 const uint16_t* __restrict__ wq_t,    // Wq rounded, tiled
+                 const float* __restrict__ bq,         // [H]
+                 float* __restrict__ P,                // [S][N][64]
+                 int n_rows, int din, int hdim, int n_slabs, int n_col_tiles,
+                 int n_row_tiles, int groups, int resident) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      aligned_ring(smem_raw));
+  run_rows_x(smem, h, din, wq_t, (hdim + BN - 1) / BN, n_col_tiles,
+             n_row_tiles, groups, resident, TableRows{n_rows, n_col_tiles},
+             SlabEpilogue{bq, P, smem + X_WG_OFF, n_rows, hdim, n_slabs,
+                          n_col_tiles});
+}
+
+// The one-pass projection on a checked problem
+static cudaError_t project_x(const void* h, const void* hi, const void* bq,
+                             void* P, int n_rows, int din, int hdim,
+                             cudaStream_t stream) {
+  ScheduleX sc;
+  const int n_row_tiles = (n_rows + BM16 - 1) / BM16;
+  const cudaError_t err =
+      schedule_x(project_x_kernel, din, hdim, n_row_tiles, &sc);
+  if (err != cudaSuccess) return err;
+  project_x_kernel<<<sc.blocks, THREADS16, SMEMX, stream>>>(
+      (const float*)h, (const uint16_t*)hi, (const float*)bq, (float*)P,
+      n_rows, din, hdim, (hdim + SLAB - 1) / SLAB, (hdim + BN16 - 1) / BN16,
+      n_row_tiles, sc.groups, sc.resident);
   return cudaGetLastError();
 }
 
@@ -422,12 +459,25 @@ extern "C" int agg_project_bf16x_launch(const void* h, const void* hi,
       (uintptr_t)lo % 16 != 0 || (uintptr_t)P % 16 != 0)
     return (int)cudaErrorInvalidValue;
   return (int)(passes == 1
-                   ? project_core16<false, F32_X1>(h, hi, nullptr, bq, P,
-                                                   n_rows, din, hdim,
-                                                   (cudaStream_t)stream)
+                   ? project_x(h, hi, bq, P, n_rows, din, hdim,
+                               (cudaStream_t)stream)
                    : project_core16<false, F32_X3>(h, hi, lo, bq, P, n_rows,
                                                    din, hdim,
                                                    (cudaStream_t)stream));
+}
+
+// The grid the one-pass `agg_project_bf16x_launch` takes for a problem on
+// this card: sc = {resident, groups, items, clusters, blocks}
+extern "C" int agg_project_bf16x_schedule(int n_rows, int din, int hdim,
+                                          int* sc) {
+  if (n_rows < 1 || din < 1 || hdim < 1) return (int)cudaErrorInvalidValue;
+  ScheduleX x;
+  const cudaError_t err = schedule_x(project_x_kernel, din, hdim,
+                                     (n_rows + BM16 - 1) / BM16, &x);
+  if (err != cudaSuccess) return (int)err;
+  const int v[5] = {x.resident, x.groups, x.items, x.clusters, x.blocks};
+  for (int i = 0; i < 5; ++i) sc[i] = v[i];
+  return (int)cudaSuccess;
 }
 
 extern "C" int agg_gather_launch(const void* P, const void* nb, const void* w,

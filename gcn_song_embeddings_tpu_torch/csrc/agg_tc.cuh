@@ -340,18 +340,20 @@ constexpr int SMEM_ALIGN_SLACK = 1024;
 // 128-row tile the tensor cores idled through every epilogue (on the
 // H100, K3-bf16 stayed slower than its gather + einsum yardstick);
 // ping-pong hides the epilogue under the other warpgroup's products.
-// f32 tables under the precision policy (GCN_TPU_MATMUL_PRECISION, the
-// JAX package's TPU numerics: an f32 product as one bf16 pass, or three)
-// run on the same core as its SRC forms F32_X1 and F32_X3.  The producer
-// reads the f32 rows with 16-byte loads (two a chunk of 8 elements),
-// issued before it waits for the stage, rounds each to bf16 to nearest
-// even (XLA's convert) in registers and stores the swizzled chunk itself;
-// F32_X3 also stores lo = bf16(x - hi) in a second A tile, Wq comes as
-// hi and lo tiles (`wq_tile_bf16x_kernel`), and each k-step runs
-// hi*lo + lo*hi + hi*hi into the same f32 accumulator.  No table copy and
-// no cast launch: the rounding is the staging.  A three-pass stage holds
-// two A and two Wq copies (80 KB), so its ring has STAGES16 / 2 stages:
-// the same 160 KB as the 16-bit forms' four of 40 KB.
+// f32 tables in three bf16 passes under the precision policy
+// (GCN_TPU_MATMUL_PRECISION=high, the JAX package's TPU numerics) run on
+// the same core as its SRC form F32_X3.  The producer reads the f32 rows
+// with 16-byte loads (two a chunk of 8 elements), issued before it waits
+// for the stage, splits each into bf16 hi and lo = bf16(x - hi), rounded
+// to nearest even (XLA's convert), in registers and stores the swizzled
+// hi and lo tiles itself; Wq comes as hi and lo tiles
+// (`wq_tile_bf16x_kernel`), and each k-step runs hi*lo + lo*hi + hi*hi
+// into the same f32 accumulator.  No table copy and no cast launch: the
+// rounding is the staging.  A three-pass stage holds two A and two Wq
+// copies (80 KB), so its ring has STAGES16 / 2 stages: the same 160 KB as
+// the 16-bit forms' four of 40 KB.  One pass (=default) runs on the bf16x1
+// core at the end of this file (`run_rows_x`), which reads each row once
+// a run of column tiles.
 // The kernels give `run_tiles16` the id of each row of a tile (< 0: a
 // zero row) and an epilogue over the accumulator fragment of one
 // warpgroup: its thread t (t = threadIdx.x % 128) holds tile rows
@@ -370,8 +372,8 @@ constexpr int A_STAGE16 = BM16 * 128;          // a k chunk of 64 rows
 constexpr int STAGE16 = A_STAGE16 + BN16 * 128;  // + 256 Wq rows
 constexpr int STAGES16 = 4;
 // what A's rows are in device memory: the table's own 16-bit rows, or f32
-// rows rounded to bf16 as they are staged for one or three bf16 passes
-constexpr int TABLE16 = 0, F32_X1 = 1, F32_X3 = 3;
+// rows split into bf16 hi and lo as they are staged for three bf16 passes
+constexpr int TABLE16 = 0, F32_X3 = 3;
 constexpr int EPI_COLS16 = 64;                 // columns an epilogue pass
 // floats between staged rows: a half-warp's fragment stores (rows
 // lane / 4, 8 bytes apart along a row) hit 32 distinct banks
@@ -695,9 +697,9 @@ __device__ __forceinline__ void wgmma_wait_one() {
 // which there are n_wq_tiles (a last column tile of at most 128 columns
 // reads one, and the other 128 accumulator columns are not read).  A
 // block whose pair has no second row tile runs its chunks on zero rows
-// and skips the epilogue.  SRC is TABLE16 (`h` 16-bit rows), F32_X1 or
-// F32_X3 (`h` f32 rows, rounded as they are staged; `wq_lo_t` the lo
-// tiles of Wq for F32_X3, else unused).  On a tile's first k chunk its
+// and skips the epilogue.  SRC is TABLE16 (`h` 16-bit rows) or F32_X3
+// (`h` f32 rows, split as they are staged; `wq_lo_t` the lo tiles of Wq,
+// else unused).  On a tile's first k chunk its
 // warpgroup calls `epilogue.prefetch(tile, wg)` (cp.async of the
 // epilogue's operands; one commit group), and after its last
 // `epilogue(tile, acc, wg)` with
@@ -711,8 +713,8 @@ __device__ __forceinline__ void run_tiles16(
     const uint16_t* __restrict__ wq_t, const uint16_t* __restrict__ wq_lo_t,
     int n_wq_tiles, int n_col_tiles, int n_tiles, RowId row_id,
     Epilogue epilogue) {
-  static_assert(SRC == TABLE16 || ((SRC == F32_X1 || SRC == F32_X3) && !F16),
-                "f32 rows round to bf16");
+  static_assert(SRC == TABLE16 || (SRC == F32_X3 && !F16),
+                "f32 rows split into bf16 hi and lo");
   // copies of A and of Wq a stage holds (hi, lo), the ring's stages, and
   // where a stage's Wq tiles start
   constexpr int PARTS = SRC == F32_X3 ? 2 : 1;
@@ -932,6 +934,341 @@ cudaError_t grid16(Kernel kernel, long long n_pairs, unsigned* blocks) {
   if (clusters < 1) return cudaErrorInvalidConfiguration;
   *blocks = (unsigned)(CLUSTER16 * (n_pairs < clusters ? n_pairs : clusters));
   return cudaSuccess;
+}
+
+
+// ---- The bf16x1 core (f32 tables in one bf16 pass) -----------------------
+// The one-pass form of the precision policy (K3's and K2's projection's
+// bf16x1 forms) multiplies as the 16-bit core does (two
+// consumer warpgroups taking turns on 64 x 256 tiles, m64n256k16 from
+// shared memory, block pairs sharing Wq's chunks by multicast, the same
+// epilogues and the same wgmma order, so the same bits), but stages its
+// f32 rows another way:
+//   - a block takes a row tile and sweeps a run of column tiles over it:
+//     every gathered row is read from memory and rounded once a run, not
+//     once a 256-column tile.  Where a row tile's k chunks fit the ring's
+//     A slots (X_A_SLOTS of 64 rows x 64 bf16: Din <= 640) they stay
+//     resident through the run; deeper rows are staged again for every
+//     tile ("streamed");
+//   - three stager warps load the f32 rows into registers by 16-byte
+//     loads, one chunk's loads in flight while the chunk before is
+//     rounded, round them to bf16 to nearest even (XLA's convert) and
+//     store the swizzled chunk into the next free A slot, which the
+//     consumers free once every tile of the run has multiplied it; the
+//     next row tile's chunks fill the free slots meanwhile.  (Loading
+//     into shared memory first -- per-row cp.async.bulk, or 16-byte
+//     cp.async rounded in place -- was slower on the H100: the bulk
+//     copies issued too slowly, and the f32 round trip through shared
+//     memory competed with the tensor cores' operand reads.)  Rounding
+//     here rather than in the consumers' registers (wgmma's RS form):
+//     a consumer holds 128 accumulators in ~154 of its 168 registers,
+//     and would round every row again for every tile;
+//   - one lane of the producer warpgroup's first warp streams Wq's
+//     chunks (three stages of 32 KB), as the 16-bit core's producer
+//     does;
+//   - a tile's epilogue operands are prefetched a whole tile ahead.
+// The ring is 176 KB: the Wq stages, then ten A slots of 8 KB.
+// `choose_x` picks how many equal runs the column tiles are split into:
+// each (row-tile pair, run) is one item of the persistent grid.  Three
+// passes (F32_X3) stay on `run_tiles16`: on the H100 this staging did
+// not make them faster at co1_T10_wide's step (PERF.md's kernel table).
+
+constexpr int X_W_STAGES = 3;
+constexpr int X_W_STAGE = BN16 * 128;          // 256 Wq rows of a k chunk
+constexpr int X_A_OFF = X_W_STAGES * X_W_STAGE;
+constexpr int X_A_SLOTS = 10;                  // rounded k chunks of A
+constexpr int X_RING = X_A_OFF + X_A_SLOTS * A_STAGE16;
+constexpr int X_STAGERS = 96;                  // producer warps 1 to 3
+// a tile's epilogue costs about this many k chunks of its products
+// (`choose_x`; fitted to H100 timings of the bf16x1 core at T = 10)
+constexpr int X_EPILOGUE_CHUNKS = 4;
+// 0 builds the core without its epilogue, so its kernels write nothing:
+// what its tiles cost alone (scripts/bf16x_ab.py --no-epilogue)
+#ifndef AGG_TC_X_EPILOGUE
+#define AGG_TC_X_EPILOGUE 1
+#endif
+// shared memory: ring | per consumer warpgroup: as the 16-bit core's |
+// Wq full and empty barriers, A full and empty barriers, order barriers
+constexpr int X_WG_OFF = X_RING;
+constexpr int X_BAR_OFF = X_WG_OFF + 2 * WG_BYTES16;
+constexpr int SMEMX = SMEM_ALIGN_SLACK + X_BAR_OFF +
+                      (2 * X_W_STAGES + 2 * X_A_SLOTS + 2) * 8;
+
+static_assert(X_A_OFF % 1024 == 0 && A_STAGE16 % 1024 == 0 &&
+                  X_WG_OFF % 16 == 0 && X_BAR_OFF % 8 == 0,
+              "slots 1024-byte, staging 16-byte, mbarriers 8-byte aligned");
+static_assert(SMEMX <= 232448, "the bf16x1 core fits one block an SM");
+
+// The bf16x1 grid: resident or streamed rows, the column-tile runs, the
+// items (row-tile pairs x runs) and the clusters that take them
+struct ScheduleX {
+  int resident, groups, items, clusters, blocks;
+};
+
+// Of the runs that split the column tiles evenly, the one whose busiest
+// cluster takes the least time, in k chunks of products: a cluster's
+// items one after another, each a run of tiles (k chunks of products and
+// X_EPILOGUE_CHUNKS of epilogue) and its rows' gathers (k chunks an item
+// when resident, k a tile when streamed); ties: the longest run
+inline ScheduleX choose_x(int k_tiles, int n_col_tiles, long long n_row_tiles,
+                          int clusters) {
+  const long long pairs = (n_row_tiles + CLUSTER16 - 1) / CLUSTER16;
+  const bool resident = k_tiles <= X_A_SLOTS;
+  ScheduleX sc = {resident, 1, 0, clusters, 0};
+  long long best = -1;
+  for (int g = 1; g <= n_col_tiles; ++g) {
+    if (n_col_tiles % g != 0) continue;
+    const long long sweep = n_col_tiles / g;
+    const long long item = sweep * (k_tiles + X_EPILOGUE_CHUNKS) +
+                           (resident ? k_tiles : sweep * k_tiles);
+    const long long busiest = (pairs * g + clusters - 1) / clusters * item;
+    if (best < 0 || busiest < best) {
+      best = busiest;
+      sc.groups = g;
+    }
+  }
+  const long long items = pairs * sc.groups;
+  sc.items = (int)items;
+  sc.blocks = CLUSTER16 * (int)(items < clusters ? items : clusters);
+  return sc;
+}
+
+// `choose_x` for `kernel` on this card (one block an SM, SMEMX bytes)
+template <class Kernel>
+cudaError_t schedule_x(Kernel kernel, int din, int hdim, long long n_row_tiles,
+                       ScheduleX* sc) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEMX);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER16 * 132);
+  cfg.blockDim = dim3(THREADS16);
+  cfg.dynamicSmemBytes = SMEMX;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  *sc = choose_x((din + BK16 - 1) / BK16, (hdim + BN16 - 1) / BN16,
+                 n_row_tiles, clusters);
+  return cudaSuccess;
+}
+
+// The bf16x1 core on a block of a cluster of CLUSTER16: item i of the
+// grid (cluster c takes c, c + clusters, ..) is row tiles 2 (i / groups)
+// (rank 0) and that + 1 (rank 1) at column tiles (i % groups) * sweep ..
+// + sweep (sweep = n_col_tiles / groups); the block's u-th tile (its u /
+// sweep-th item, column u % sweep of the run) goes to consumer warpgroup
+// u % 2.  A block whose pair has no second row tile multiplies zero rows
+// and skips the epilogue.  Row ids, tiles (rt * n_col_tiles + ct), the Wq
+// tiles and the epilogue are as in `run_tiles16`; `h` holds f32 rows (Din
+// % 8 == 0, 16-byte aligned).  `resident` and `groups` come from
+// `schedule_x`.  Launched with THREADS16 threads; `smem` is SMEMX -
+// SMEM_ALIGN_SLACK bytes, 1024-byte aligned, and the epilogue's
+// warpgroup areas start at X_WG_OFF.
+template <class RowId, class Epilogue>
+__device__ __forceinline__ void run_rows_x(
+    unsigned char* smem, const float* __restrict__ h, int din,
+    const uint16_t* __restrict__ wq_t, int n_wq_tiles, int n_col_tiles,
+    int n_row_tiles, int groups, int resident, RowId row_id,
+    Epilogue epilogue) {
+  constexpr int WS = X_W_STAGES, AS = X_A_SLOTS;
+  const int tid = threadIdx.x;
+  const int k_tiles = (din + BK16 - 1) / BK16;
+  const int rank = cluster_special(0), cid = cluster_special(1),
+            n_clusters = cluster_special(2);
+  const int sweep = n_col_tiles / groups;
+  const int n_items = (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * groups;
+  const int n_mine = (n_items - 1 - cid) / n_clusters + 1;
+  const int n_u = n_mine * sweep;              // the block's tiles
+  const int n_fills = resident ? n_mine : n_u;  // times A is staged
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(smem + X_BAR_OFF);
+  uint64_t* w_empty = w_full + WS;
+  uint64_t* a_full = w_empty + WS;             // rounded, ready to multiply
+  uint64_t* a_empty = a_full + AS;
+  uint64_t* order = a_empty + AS;              // [wg]: its turn to multiply
+  auto row_tile = [&](int j) {                 // of the block's item j
+    return CLUSTER16 * ((cid + j * n_clusters) / groups) + rank;
+  };
+  auto col_tile = [&](int j, int v) {
+    return (cid + j * n_clusters) % groups * sweep + v;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < WS; ++s) {
+      mbar_init(w_full + s, 1);                // the issuer's expected bytes
+      mbar_init(w_empty + s, CLUSTER16 * 128 / 32);
+    }
+    for (int s = 0; s < AS; ++s) {
+      mbar_init(a_full + s, X_STAGERS);
+      // the warps of every tile that multiplies the fill
+      mbar_init(a_empty + s, 128 / 32 * (resident ? sweep : 1));
+    }
+    mbar_init(order, 1);
+    mbar_init(order + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == CONSUMERS16 / 128) {
+    const int warp = __shfl_sync(0xffffffffu, tid % 128 / 32, 0);
+    if (warp == 0) {
+      // ---- Wq: chunk kc of the block's tile u into stage q % WS (q =
+      // u * k_tiles + kc) once the consumers of both blocks freed it
+      if (tid % 32 == 0) {
+        for (int u = 0; u < n_u; ++u) {
+          const int ct = col_tile(u / sweep, u % sweep);
+          const int nb = min(2, n_wq_tiles - 2 * ct);
+          for (int kc = 0; kc < k_tiles; ++kc) {
+            const int q = u * k_tiles + kc, s = q % WS;
+            if (q >= WS) mbar_wait(w_empty + s, ((q / WS) + 1) & 1);
+            mbar_arrive_expect_tx(w_full + s, nb * WQ_TILE_BYTES16);
+            for (int b = rank; b < nb; b += CLUSTER16)  // Wq tile 2 ct + b
+              bulk_copy_multicast(
+                  smem + s * X_W_STAGE + b * WQ_TILE_BYTES16,
+                  wq_t + ((size_t)(2 * ct + b) * k_tiles + kc) *
+                             (WQ_TILE_BYTES16 / 2),
+                  WQ_TILE_BYTES16, w_full + s, (1 << CLUSTER16) - 1);
+          }
+        }
+      }
+      __syncwarp();
+    } else {
+      // ---- stagers (warps 1-3): chunk a = f * k_tiles + kc (k chunk kc of
+      // fill f: the rows of item f, or of the item of tile f when
+      // streamed) goes to slot a % AS.  Stager t loads pieces p = t + 96 m
+      // (< 512) of a chunk, 8 f32 elements c = p % 8 of row p / 8 (16-byte
+      // loads, a quarter warp one row's 256 bytes), a chunk ahead of the
+      // chunk it rounds and stores into its slot once the slot is free.
+      const int st = tid % 128 - 32;
+      const int c = st % 8;
+      const int n_chunks = n_fills * k_tiles;
+      constexpr int PIECES = (BM16 * 8 + X_STAGERS - 1) / X_STAGERS;
+      int ids[PIECES], next[PIECES];           // of an item, and the next's
+      auto load_ids = [&](int j, int* out) {
+        const int rt = row_tile(j);
+        const bool ok = j < n_mine && rt < n_row_tiles;
+#pragma unroll
+        for (int m = 0; m < PIECES; ++m) {
+          const int p = st + X_STAGERS * m;
+          out[m] = ok && p < BM16 * 8 ? row_id(rt * n_col_tiles, p / 8) : -1;
+        }
+      };
+      load_ids(0, ids);
+      load_ids(1, next);
+      int item = 0;                            // the item of `ids`
+      auto load = [&](int a, float4 (&v)[PIECES][2]) {
+        const int f = a / k_tiles, k = a % k_tiles * BK16 + 8 * c;
+        const int j = resident ? f : f / sweep;
+        if (j != item) {                       // items advance one by one
+          item = j;
+#pragma unroll
+          for (int m = 0; m < PIECES; ++m) ids[m] = next[m];
+          load_ids(j + 1, next);
+        }
+#pragma unroll
+        for (int m = 0; m < PIECES; ++m) {
+          v[m][0] = v[m][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (ids[m] >= 0 && k < din) {
+            const float4* src =
+                reinterpret_cast<const float4*>(h + (size_t)ids[m] * din + k);
+            v[m][0] = __ldg(src);
+            v[m][1] = __ldg(src + 1);
+          }
+        }
+      };
+      auto store = [&](int a, const float4 (&v)[PIECES][2]) {
+        const int s = a % AS;
+        if (a >= AS) mbar_wait(a_empty + s, ((a / AS) + 1) & 1);
+        unsigned char* slot = smem + X_A_OFF + s * A_STAGE16;
+#pragma unroll
+        for (int m = 0; m < PIECES; ++m) {
+          const int p = st + X_STAGERS * m, r = p / 8;
+          if (p < BM16 * 8) {
+            uint4 hi, lo;
+            bf16_chunk<false>(v[m][0], v[m][1], hi, lo);
+            *reinterpret_cast<uint4*>(slot + r * 128 +
+                                      ((c ^ (r & 7)) << 4)) = hi;
+          }
+        }
+        // generic-proxy stores that wgmma reads through the async proxy
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_arrive(a_full + s);
+      };
+      float4 v0[PIECES][2], v1[PIECES][2];
+      if (n_chunks > 0) load(0, v0);
+      for (int a = 0; a < n_chunks; a += 2) {
+        if (a + 1 < n_chunks) load(a + 1, v1);
+        store(a, v0);
+        if (a + 1 < n_chunks) {
+          if (a + 2 < n_chunks) load(a + 2, v0);
+          store(a + 1, v1);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg = role: the block's tiles u = wg, wg + 2..
+    const int wg = role;
+    const bool leader = tid % 32 == 0;         // arrives for its warp
+    auto release = [&](int q, int a) {
+      if (leader) {
+        for (int r = 0; r < CLUSTER16; ++r)    // Wq: in both blocks
+          mbar_arrive_cluster(w_empty + q % WS, r);
+        mbar_arrive(a_empty + a % AS);
+      }
+    };
+    auto tile_of = [&](int u) {                // -1: no row tile
+      const int j = u / sweep, rt = row_tile(j);
+      return rt < n_row_tiles ? rt * n_col_tiles + col_tile(j, u % sweep)
+                              : -1;
+    };
+    // a tile's epilogue operands are prefetched a whole tile ahead, as
+    // soon as the warpgroup's last epilogue is done with its buffers
+    auto prefetch = [&](int u) {
+      if (u < n_u && tile_of(u) >= 0) epilogue.prefetch(tile_of(u), wg);
+    };
+    prefetch(wg);
+    float acc[128];
+    for (int u = wg; u < n_u; u += 2) {
+      // the other warpgroup has issued every product of tile u - 1
+      if (u > 0) mbar_wait(order + wg, ((u - 1) / 2) & 1);
+      const int tile = tile_of(u), f = resident ? u / sweep : u;
+      for (int kc = 0; kc < k_tiles; ++kc) {
+        const int q = u * k_tiles + kc, a = f * k_tiles + kc;
+        mbar_wait(a_full + a % AS, (a / AS) & 1);
+        mbar_wait(w_full + q % WS, (q / WS) & 1);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        const uint64_t da = b_desc(reinterpret_cast<const float*>(
+                           smem + X_A_OFF + (a % AS) * A_STAGE16)),
+                       db = b_desc(reinterpret_cast<const float*>(
+                           smem + (q % WS) * X_W_STAGE));
+        fence_acc128(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK16 / 16; ++ks)   // +32 bytes a k-step
+          wgmma_n256<false>(acc, da + 2 * ks, db + 2 * ks, kc > 0 || ks > 0);
+        wgmma_commit();
+        if (kc == k_tiles - 1 && tid % 128 == 0)
+          mbar_arrive(order + (1 - wg));       // the other's turn
+        if (kc < k_tiles - 1) {
+          wgmma_wait_one();                    // chunk kc - 1 is done
+          fence_acc128(acc);
+          if (kc > 0) release(q - 1, a - 1);
+        } else {
+          wgmma_wait_all();
+          fence_acc128(acc);
+          if (kc > 0) release(q - 1, a - 1);
+          release(q, a);
+          if (AGG_TC_X_EPILOGUE && tile >= 0) epilogue(tile, acc, wg);
+          prefetch(u + 2);
+        }
+      }
+    }
+  }
+  // neither block leaves while the other may still copy into it or
+  // arrive on its barriers
+  cluster_sync();
 }
 
 }  // namespace agg_tc

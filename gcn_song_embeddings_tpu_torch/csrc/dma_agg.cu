@@ -54,12 +54,24 @@
 // The bf16x forms (`dma_agg_launch_bf16x`) are the precision policy's
 // (GCN_TPU_MATMUL_PRECISION default / high: the JAX package's train-step
 // products on the TPU, one bf16 pass or three).  They take the f32 table
-// as it is and the same core rounds each gathered row to bf16 as its
-// producer stages it (F32_X1), or splits it into hi and lo tiles
-// (F32_X3: hi*lo + lo*hi + hi*hi against Wq's hi and lo tiles), so no
-// bf16 copy of the table is made.  Bound at the step's layer 0: one pass
-// 22.7 GFLOP at 989 TFLOP/s = 0.023 ms against 87 MB of f32 rows (0.026
-// ms), bytes; three passes 68 GFLOP, 0.069 ms, the tensor cores.
+// as it is, with no bf16 copy.  One pass (`dma_agg_x_kernel`) runs the
+// bf16x1 core of agg_tc.cuh (`run_rows_x`): a block pair takes a pair of
+// row tiles and sweeps a run of Wq's column tiles over them; three
+// stager warps load each gathered row's k chunks into registers a chunk
+// ahead and round them to bf16 into shared memory, where they stay for
+// the whole run (Din <= 640; deeper rows are staged again for each
+// tile), so a row is read and rounded once a run instead of once a
+// 256-column tile with one chunk in flight.  Three passes run the 16-bit
+// core, whose producer splits each gathered row into hi and lo tiles as
+// it stages it (F32_X3: hi*lo + lo*hi + hi*hi against Wq's hi and lo
+// tiles).  Bound at co1_T10_wide's step (4,224 x 10 rows at Din 128,
+// 384 x 10 at Din 256, H 1024): one pass 13.1 GFLOP at 989 TFLOP/s =
+// 0.013 ms against 25.6 MB of f32 rows (0.008 ms), the tensor cores; at
+// the 100k step's layer 0 (4,224 x 10 at Din 512, H 512) one pass 22.7
+// GFLOP, 0.023 ms, against 87 MB of rows, 0.026 ms, bytes; three passes
+// 68 GFLOP, 0.069 ms, the tensor cores.  What bounds the one-pass form
+// at the wide step on the H100 is the epilogue beside the tensor cores
+// (PERF.md): its shared-memory traffic competes with their operand reads.
 
 #include "agg_tc.cuh"
 
@@ -155,18 +167,19 @@ struct NodeTileRows {
 };
 
 // K3's epilogue on one warpgroup's accumulator fragment, 64 columns a
-// pass through its shared memory: + bq, leaky_relu, x w, the sum over
-// each node's T rows, the guarded divide.  The tile's weights and bq are
-// prefetched while it multiplies.
+// pass through its shared memory (warpgroup wg's area at wg_smem + wg *
+// WG_BYTES16): + bq, leaky_relu, x w, the sum over each node's T rows,
+// the guarded divide.  The tile's weights and bq are prefetched while it
+// multiplies.
 struct NodeMeanEpilogue {
   const float* w;
   const float* bq;
   float* out;
-  unsigned char* smem;
+  unsigned char* wg_smem;
   int n_nodes, T, hdim, nodes_per_tile, n_col_tiles;
   __device__ __forceinline__ void prefetch(int tile, int wg) const {
     const int t = threadIdx.x % 128;
-    unsigned char* mine = smem + WG_OFF16 + wg * WG_BYTES16;
+    unsigned char* mine = wg_smem + wg * WG_BYTES16;
     const int b0 = (tile / n_col_tiles) * nodes_per_tile;
     const int tile_rows = min(nodes_per_tile, n_nodes - b0) * T;
     if (t < BM16) {
@@ -181,7 +194,7 @@ struct NodeMeanEpilogue {
   __device__ __forceinline__ void operator()(int tile, float* acc,
                                              int wg) const {
     const int t = threadIdx.x % 128;
-    unsigned char* mine = smem + WG_OFF16 + wg * WG_BYTES16;
+    unsigned char* mine = wg_smem + wg * WG_BYTES16;
     float* epi = reinterpret_cast<float*>(mine + EPI16);
     const float* bq_s = reinterpret_cast<const float*>(mine + BQ16);
     const float* w_s = reinterpret_cast<const float*>(mine + W16);
@@ -255,8 +268,8 @@ struct NodeMeanEpilogue {
   }
 };
 
-// SRC TABLE16: h bf16 / f16 (F16); F32_X1 / F32_X3: h f32, rounded to
-// bf16 as it is staged, in one or three passes (wq_lo_t: F32_X3's lo)
+// SRC TABLE16: h bf16 / f16 (F16); F32_X3: h f32, split into bf16 hi and
+// lo as it is staged, three passes (wq_lo_t: Wq's lo tiles)
 template <bool F16, int SRC>
 __global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
 dma_agg16_kernel(const void* __restrict__ h,       // [N, Din]
@@ -272,8 +285,8 @@ dma_agg16_kernel(const void* __restrict__ h,       // [N, Din]
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       aligned_ring(smem_raw));
   const NodeTileRows rows{nb, n_nodes, T, nodes_per_tile, n_col_tiles};
-  const NodeMeanEpilogue epilogue{w, bq, out, smem, n_nodes, T, hdim,
-                                  nodes_per_tile, n_col_tiles};
+  const NodeMeanEpilogue epilogue{w, bq, out, smem + WG_OFF16, n_nodes, T,
+                                  hdim, nodes_per_tile, n_col_tiles};
   run_tiles16<F16, SRC>(smem, h, din, wq_t, wq_lo_t, (hdim + BN - 1) / BN,
                         n_col_tiles, n_tiles, rows, epilogue);
 }
@@ -350,8 +363,53 @@ extern "C" int dma_agg_launch16(const void* h, const void* nb, const void* w,
                          hdim, (cudaStream_t)stream));
 }
 
-// h f32, rounded to bf16 as it is staged: passes 1 (hi tiles only) or 3
-// (hi and lo tiles of Wq, from agg_tile_bf16x_launch)
+// The one-pass form: h f32, each gathered row rounded to bf16 once a run
+// of the bf16x1 core's column tiles
+__global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
+dma_agg_x_kernel(const float* __restrict__ h,      // [N, Din]
+                 const int* __restrict__ nb,       // [B, T]
+                 const float* __restrict__ w,      // [B, T]
+                 const uint16_t* __restrict__ wq_t,  // Wq rounded, tiled
+                 const float* __restrict__ bq,     // [H]
+                 float* __restrict__ out,          // [B, H]
+                 int n_nodes, int T, int din, int hdim, int nodes_per_tile,
+                 int n_col_tiles, int n_row_tiles, int groups, int resident) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      aligned_ring(smem_raw));
+  const NodeTileRows rows{nb, n_nodes, T, nodes_per_tile, n_col_tiles};
+  const NodeMeanEpilogue epilogue{w, bq, out, smem + X_WG_OFF, n_nodes, T,
+                                  hdim, nodes_per_tile, n_col_tiles};
+  run_rows_x(smem, h, din, wq_t, (hdim + BN - 1) / BN, n_col_tiles,
+             n_row_tiles, groups, resident, rows, epilogue);
+}
+
+static long long node_row_tiles(int n_nodes, int T) {
+  const int nodes_per_tile = BM16 / T;
+  return (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
+}
+
+// The one-pass form on a checked problem: the persistent grid of block
+// pairs over `schedule_x`'s items
+static cudaError_t launch_x(const void* h, const void* nb, const void* w,
+                            const void* hi, const void* bq, void* out,
+                            int n_nodes, int T, int din, int hdim,
+                            cudaStream_t stream) {
+  ScheduleX sc;
+  const long long n_row_tiles = node_row_tiles(n_nodes, T);
+  const cudaError_t err =
+      schedule_x(dma_agg_x_kernel, din, hdim, n_row_tiles, &sc);
+  if (err != cudaSuccess) return err;
+  dma_agg_x_kernel<<<sc.blocks, THREADS16, SMEMX, stream>>>(
+      (const float*)h, (const int*)nb, (const float*)w, (const uint16_t*)hi,
+      (const float*)bq, (float*)out, n_nodes, T, din, hdim, BM16 / T,
+      (hdim + BN16 - 1) / BN16, (int)n_row_tiles, sc.groups, sc.resident);
+  return cudaGetLastError();
+}
+
+// h f32, rounded to bf16 as it is staged: passes 1 (hi tiles only, the
+// bf16x1 core) or 3 (hi and lo tiles of Wq, from agg_tile_bf16x_launch;
+// the 16-bit core)
 extern "C" int dma_agg_launch_bf16x(const void* h, const void* nb,
                                     const void* w, const void* hi,
                                     const void* lo, const void* bq, void* out,
@@ -364,12 +422,27 @@ extern "C" int dma_agg_launch_bf16x(const void* h, const void* nb,
       (uintptr_t)out % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (n_nodes < 1) return (int)cudaSuccess;
-  return (int)(passes == 1 ? launch_core16<false, F32_X1>(
-                                 h, nb, w, hi, nullptr, bq, out, n_nodes, T,
-                                 din, hdim, (cudaStream_t)stream)
+  return (int)(passes == 1 ? launch_x(h, nb, w, hi, bq, out, n_nodes, T, din,
+                                      hdim, (cudaStream_t)stream)
                            : launch_core16<false, F32_X3>(
                                  h, nb, w, hi, lo, bq, out, n_nodes, T, din,
                                  hdim, (cudaStream_t)stream));
+}
+
+// The grid the one-pass `dma_agg_launch_bf16x` takes for a problem
+// (n_nodes >= 1) on this card: sc = {resident, groups, items, clusters,
+// blocks}
+extern "C" int dma_agg_bf16x_schedule(int n_nodes, int T, int din, int hdim,
+                                      int* sc) {
+  if (n_nodes < 1 || T < 1 || T > MAX_T16 || din < 1 || hdim < 1)
+    return (int)cudaErrorInvalidValue;
+  ScheduleX x;
+  const cudaError_t err = schedule_x(dma_agg_x_kernel, din, hdim,
+                                     node_row_tiles(n_nodes, T), &x);
+  if (err != cudaSuccess) return (int)err;
+  const int v[5] = {x.resident, x.groups, x.items, x.clusters, x.blocks};
+  for (int i = 0; i < 5; ++i) sc[i] = v[i];
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* dma_agg_error_string(int err) {

@@ -12,11 +12,16 @@ of the train step runs on it.  ``launch16`` is its 16-bit form (a bf16
 or f16 table and Wq, Wq tiled by ``ops.agg.tile_wq16``) on the 16-bit
 core of ``csrc/agg_tc.cuh``: the deepest layer of the frontier forward under ``train.dtype="bfloat16"`` or
 ``"float16"``, counted in ``launches_bf16`` and ``launches_f16``.
-``launch_bf16x`` runs an f32 table in one or three bf16 passes on the
-same core (the precision policy, ``utils.precision``): the producer
-reads the f32 rows and rounds them (or splits them into bf16 hi and lo)
-as it stages them, Wq tiled by ``ops.agg.tile_wq_bf16x``; counted in
-``launches_bf16x1`` and ``launches_bf16x3``.
+``launch_bf16x`` runs an f32 table in one or three bf16 passes (the
+precision policy, ``utils.precision``), Wq tiled by
+``ops.agg.tile_wq_bf16x``, counted in ``launches_bf16x1`` and
+``launches_bf16x3``.  One pass runs the bf16x1 core of the same header:
+each block loads a row tile's f32 rows a k chunk ahead, rounds them once
+into shared memory and sweeps a run of Wq's column tiles over them
+(K2's one-pass projection runs the same core; ``card_schedule_bf16x``
+asks the card's launch for the grid it picks).  Three passes run the
+16-bit core, whose producer splits each row into bf16 hi and lo as it
+stages it.
 """
 
 from __future__ import annotations
@@ -41,6 +46,31 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGTYPES16 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGTYPES_BF16X = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
+
+
+def card_schedule_bf16x(kind: str, rows: int, din: int, hdim: int,
+                        t: int = 1) -> dict:
+    """The grid the card's one-pass launch takes (``choose_x`` in
+    csrc/agg_tc.cuh): ``kind`` "dma" (K3, ``rows`` nodes of ``t`` rows)
+    or "project" (K2's projection of ``rows`` table rows).  ``resident``:
+    a row tile's k chunks fit the A slots, so each row is read and
+    rounded once a run of column tiles (else once a tile); ``groups``:
+    the column tiles split into that many equal runs, each (row-tile
+    pair, run) one of ``items``; ``clusters``: the block pairs the card
+    runs at once; ``blocks``: the persistent grid."""
+    lib = cuda_build.library("dma_agg" if kind == "dma" else "agg")
+    fn, args = ((lib.dma_agg_bf16x_schedule, (rows, t, din, hdim))
+                if kind == "dma" else
+                (lib.agg_project_bf16x_schedule, (rows, din, hdim)))
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sc = (ctypes.c_int * 5)()
+    err = fn(*args, sc)
+    if err != 0:
+        raise RuntimeError(f"the bf16x schedule query failed: CUDA error "
+                           f"{err}")
+    return dict(zip(("resident", "groups", "items", "clusters", "blocks"),
+                    (bool(sc[0]), *sc[1:])))
 
 
 def launch(h: torch.Tensor, nb_nodes: torch.Tensor, nb_weights: torch.Tensor,
