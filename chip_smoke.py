@@ -217,8 +217,11 @@
    (``hold_precision_kernels``: within K2_ATOL, within 4x a pass the
    plain version's error against float64 of the same rounded function, the
    backward within GRAD_RTOL of float64 autograd of it, or within 1.25x
-   of the plain version's own distance where that is larger).  The same
-   phase holds the policy's reach outside PinSage (``run_precision_reach``):
+   of the plain version's own distance where that is larger), and, at
+   Din 1,024 (60 nodes x T=10 over a seeded 20,000-row table, H 1024:
+   ``hold_deep_din``), K3 and K2 in both passes and on a bf16 table
+   against float64 at the same bar, where the 16-bit core's promoted
+   sums are what holds it.  The same phase holds the policy's reach outside PinSage (``run_precision_reach``):
    3 ``GNNCore`` steps each for sage, gat and gcn at the roster's widths,
    one 20-step skip-gram chunk at the roster's shapes, MFCC of 8 clips and
    one VGGish forward, unset, ``default`` and ``high``, each held against
@@ -4573,14 +4576,64 @@ def l0_100k_shapes(torch, dev, T: int) -> list:
     return [(layer, table, ids, wts, False)]
 
 
+# a deep aggregation for the 16-bit core's promoted sums, where one
+# tensor-core accumulator a row missed the float64 bar before them: nodes
+# x T ids over a seeded table of that many rows x Din f32, H
+DEEP_DIN = {"nodes": 60, "T": 10, "rows": 20_000, "din": 1024, "hdim": 1024}
+
+
+def hold_deep_din(torch, agg, dev, form: str) -> dict:
+    """K3 and K2 in ``form`` (``bf16x1`` / ``bf16x3``: an f32 table in one
+    or three bf16 passes; ``bf16``: the table and Wq cast to bf16) at
+    DEEP_DIN, each against its plain version (within K2_ATOL) and against
+    float64 of the same rounded function (``float64_error``: within 4x a
+    pass the plain version's max error).  Returns both kernels' errors."""
+    from gcn_song_embeddings_tpu_torch.utils import precision
+
+    passes = {"bf16x1": 1, "bf16x3": 3}.get(form)
+    g = torch.Generator(device=dev).manual_seed(DEEP_DIN["din"])
+    n, m, t, din, h = (DEEP_DIN[k] for k in ("rows", "nodes", "T", "din",
+                                             "hdim"))
+    table = torch.randn((n, din), device=dev, generator=g)
+    ids = torch.randint(0, n, (m, t), device=dev, generator=g,
+                        dtype=torch.int32)
+    wts = torch.rand((m, t), device=dev, generator=g)
+    Wq = torch.randn((h, din), device=dev, generator=g) * 0.05
+    bq = torch.full((h,), 0.3, device=dev)
+    if passes is None:
+        table, Wq = table.bfloat16(), Wq.bfloat16()
+    out = {"nodes": m, "T": t, "din": din, "hdim": h, "table_rows": n}
+    value = {1: "default", 3: "high"}.get(passes)
+    for mode in ("dma", "stream"):
+        with torch.inference_mode():
+            with precision.override(value):
+                got = agg.conv_aggregate(table, ids, wts, Wq, bq, mode=mode)
+            plain = agg.conv_aggregate_plain(table, ids, wts, Wq, bq, passes)
+            err = float((got - plain).abs().max())
+            err64, plain_err64 = float64_error(torch, agg, table, ids, wts,
+                                               Wq, bq, got, plain, passes)
+        kernel = f"{agg.MODES[mode]} {form} at Din {din}, {m} nodes"
+        log(f"{kernel}: max |diff| {err:.3g}; against float64 kernel "
+            f"{err64:.3g}, plain {plain_err64:.3g}")
+        if not (err <= K2_ATOL and err64 <= 4 * (passes or 1) * plain_err64):
+            raise AssertionError(f"{kernel}: max |diff| {err} (bar "
+                                 f"{K2_ATOL}), against float64 {err64} "
+                                 f"(plain {plain_err64})")
+        out[agg.MODES[mode]] = {"max_abs_err": err, "err64": err64,
+                                "plain_err64": plain_err64}
+    return out
+
+
 def hold_precision_kernels(torch, pp) -> list:
     """K3's bf16x forms with their backward at both aggregations of
     PRECISION_ARM's frontier step and at the 100k main step's layer 0
     (``l0_100k_shapes``, Din 512), and K2's at both
     ``embed_all`` layers over the 20,000-track catalog, each against its
-    plain version (``measure_aggregation_bf16x``).  K3's one-pass rows
-    carry the grid each aggregation took (``dma_agg.card_schedule_bf16x``).
-    Returns the kernels line's rows."""
+    plain version (``measure_aggregation_bf16x``).  K3's rows carry the
+    grid each aggregation took (``dma_agg.card_schedule``).  Both forms of
+    K3 and K2, and the bf16 table form of both, are also held at Din 1,024
+    against float64 (``hold_deep_din``; the rows' ``deep_din``, the bf16
+    table's under the one-pass rows).  Returns the kernels line's rows."""
     from gcn_song_embeddings_tpu_torch.models.pinsage import conv_from_table
     from gcn_song_embeddings_tpu_torch.ops import agg, dma_agg
 
@@ -4613,10 +4666,9 @@ def hold_precision_kernels(torch, pp) -> list:
             f"{step[1][2].shape[0]} nodes x T={mcfg.T}, Din="
             f"{step[1][1].shape[1]}; H={mcfg.hidden_dim}", passes))
         rows[-1]["header"] = agg.HEADER
-        if passes == 1:
-            rows[-1]["schedule"] = [dma_agg.card_schedule_bf16x(
-                "dma", ids.shape[0], tab.shape[1], mcfg.hidden_dim,
-                ids.shape[1]) for _, tab, ids, _, _ in step]
+        rows[-1]["schedule"] = [dma_agg.card_schedule(
+            "dma", ids.shape[0], tab.shape[1], mcfg.hidden_dim,
+            ids.shape[1], passes) for _, tab, ids, _, _ in step]
         l0 = l0_100k_shapes(torch, step[0][1].device, mcfg.T)
         at = kernel_row_bf16x(
             "", "", "", {}, 0,
@@ -4627,14 +4679,17 @@ def hold_precision_kernels(torch, pp) -> list:
         for key in ("name", "route", "source", "replaces", "launches",
                     "launches_by_path", "bf16_passes"):
             at.pop(key)
-        if passes == 1:
-            _, tab, ids, _, _ = l0[0]
-            at["schedule"] = dma_agg.card_schedule_bf16x(
-                "dma", ids.shape[0], tab.shape[1], L0_100K["hdim"],
-                ids.shape[1])
-            del tab, ids
+        _, tab, ids, _, _ = l0[0]
+        at["schedule"] = dma_agg.card_schedule(
+            "dma", ids.shape[0], tab.shape[1], L0_100K["hdim"],
+            ids.shape[1], passes)
+        del tab, ids
         rows[-1]["at_100k_layer0"] = at
         del l0
+        deep = hold_deep_din(torch, agg, step[0][1].device, form)
+        rows[-1]["deep_din"] = deep["K3"]
+        if passes == 1:
+            deep16 = hold_deep_din(torch, agg, step[0][1].device, "bf16")
         k2 = measure_aggregation_bf16x(torch, agg, "stream", embed, passes)
         row = kernel_row_bf16x(
             f"K2 {form} Q-MLP of every row of an f32 table in {passes} bf16 "
@@ -4647,6 +4702,10 @@ def hold_precision_kernels(torch, pp) -> list:
         row["header"] = agg.HEADER
         for name in ("tile", "project"):
             row["parts"][name]["launches"] = counts[f"agg_{form}_{name}"]
+        row["deep_din"] = deep["K2"]
+        if passes == 1:
+            rows[-1]["deep_din_bf16_table"] = deep16["K3"]
+            row["deep_din_bf16_table"] = deep16["K2"]
         rows.append(row)
     del h1
     return rows

@@ -35,10 +35,11 @@
 // the table and Wq in bf16 or f16 (`wq_tile16_kernel` lays Wq out, no
 // split) and project with the 16-bit core of agg_tc.cuh
 // (`project16_kernel`: the warp-specialized core, a producer warpgroup
-// and two consumer warpgroups on alternate 64-row x 256-column tiles, a
-// persistent grid of block pairs), one pass per product, exact in f32; P
-// stays f32, as the JAX package's q is (a 16-bit P would move each
-// value by up to 2^-9 relative).  Their bound at the 100k catalog, both
+// staging each 64-row tile once for a run of 128-column tiles and two
+// consumer warpgroups on alternate tiles, each k chunk's partial sum
+// promoted to an f32 sum, a persistent grid of block pairs), one pass per
+// product, exact in f32; P stays f32, as the JAX package's q is (a 16-bit
+// P would move each value by up to 2^-9 relative).  Their bound at the 100k catalog, both
 // layers (Din 512 and 128, H 512): 65 GFLOP at 989 TFLOP/s = 0.066 ms of
 // products against the function's 554 MB (16-bit rows, ids and weights
 // read once, the f32 output written once) = 0.165 ms at 3.35 TB/s, so
@@ -54,11 +55,10 @@
 //
 // The bf16x forms are the precision policy's (GCN_TPU_MATMUL_PRECISION
 // default / high, the JAX package's products on the TPU): an f32 table
-// projected in one bf16 pass on the bf16x1 core of agg_tc.cuh
-// (`project_x_kernel` on `run_rows_x`: each row loaded and rounded once a
-// run of column tiles) or in three on the 16-bit core (each row split
-// into hi and lo as the producer stages it), Wq tiled once by
-// `wq_tile_bf16x_kernel` (agg_tc.cuh); then the f32 gather.
+// projected on the same core in one bf16 pass or three, each row rounded
+// to bf16 (or split into hi and lo) once a run of column tiles as it is
+// staged, Wq tiled once by `wq_tile_bf16x_kernel` (agg_tc.cuh); then the
+// f32 gather.
 
 #include <cuda_fp16.h>
 
@@ -180,8 +180,9 @@ struct SlabEpilogue {
   }
 };
 
-// SRC TABLE16: h bf16 / f16 (F16); F32_X3: h f32, split into bf16 hi and
-// lo as it is staged, three passes (wq_lo_t: Wq's lo tiles)
+// The 16-bit projections: SRC TABLE16 (h bf16 / f16, F16), F32_X1 /
+// F32_X3 (h f32, rounded to bf16 or split into hi and lo as it is staged;
+// wq_lo_t: Wq's lo tiles for three passes)
 template <bool F16, int SRC>
 __global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
 project16_kernel(const void* __restrict__ h,         // [N, Din]
@@ -190,72 +191,32 @@ project16_kernel(const void* __restrict__ h,         // [N, Din]
                  const float* __restrict__ bq,       // [H]
                  float* __restrict__ P,              // [S][N][64]
                  int n_rows, int din, int hdim, int n_slabs, int n_col_tiles,
-                 int n_tiles) {
+                 int n_row_tiles, int groups, int resident) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       aligned_ring(smem_raw));
-  run_tiles16<F16, SRC>(smem, h, din, wq_t, wq_lo_t, (hdim + BN - 1) / BN,
-                        n_col_tiles, n_tiles, TableRows{n_rows, n_col_tiles},
-                        SlabEpilogue{bq, P, smem + WG_OFF16, n_rows, hdim,
-                                     n_slabs, n_col_tiles});
+  run16<F16, SRC>(smem, h, din, wq_t, wq_lo_t, n_col_tiles, n_row_tiles,
+                  groups, resident, TableRows{n_rows, n_col_tiles},
+                  SlabEpilogue{bq, P, smem + WG_OFF16, n_rows, hdim, n_slabs,
+                               n_col_tiles});
 }
 
-// One 16-bit-core form of K2's projection on a checked problem
+// One 16-bit form of K2's projection on a checked problem
 template <bool F16, int SRC>
 static cudaError_t project_core16(const void* h, const void* tiles,
                                   const void* lo_tiles, const void* bq,
                                   void* P, int n_rows, int din, int hdim,
                                   cudaStream_t stream) {
-  const void* kernel = (const void*)project16_kernel<F16, SRC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
-  if (err != cudaSuccess) return err;
-  const int n_col_tiles = (hdim + BN16 - 1) / BN16;
-  const int n_slabs = (hdim + SLAB - 1) / SLAB;
   const long long n_row_tiles = (n_rows + BM16 - 1) / BM16;
-  const long long n_tiles = n_row_tiles * n_col_tiles;
-  unsigned blocks = 0;
-  err = grid16(kernel,
-               (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * n_col_tiles,
-               &blocks);
-  if (err != cudaSuccess) return err;
-  project16_kernel<F16, SRC><<<blocks, THREADS16, SMEM16, stream>>>(
-      h, (const uint16_t*)tiles, (const uint16_t*)lo_tiles, (const float*)bq,
-      (float*)P, n_rows, din, hdim, n_slabs, n_col_tiles, (int)n_tiles);
-  return cudaGetLastError();
-}
-
-// The one-pass bf16x projection: h f32, each row rounded to bf16 once a
-// run of the bf16x1 core's column tiles
-__global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
-project_x_kernel(const float* __restrict__ h,          // [N, Din]
-                 const uint16_t* __restrict__ wq_t,    // Wq rounded, tiled
-                 const float* __restrict__ bq,         // [H]
-                 float* __restrict__ P,                // [S][N][64]
-                 int n_rows, int din, int hdim, int n_slabs, int n_col_tiles,
-                 int n_row_tiles, int groups, int resident) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      aligned_ring(smem_raw));
-  run_rows_x(smem, h, din, wq_t, (hdim + BN - 1) / BN, n_col_tiles,
-             n_row_tiles, groups, resident, TableRows{n_rows, n_col_tiles},
-             SlabEpilogue{bq, P, smem + X_WG_OFF, n_rows, hdim, n_slabs,
-                          n_col_tiles});
-}
-
-// The one-pass projection on a checked problem
-static cudaError_t project_x(const void* h, const void* hi, const void* bq,
-                             void* P, int n_rows, int din, int hdim,
-                             cudaStream_t stream) {
-  ScheduleX sc;
-  const int n_row_tiles = (n_rows + BM16 - 1) / BM16;
+  Schedule16 sc;
   const cudaError_t err =
-      schedule_x(project_x_kernel, din, hdim, n_row_tiles, &sc);
+      schedule16(project16_kernel<F16, SRC>, din, hdim, SRC == F32_X3 ? 2 : 1,
+                 n_row_tiles, &sc);
   if (err != cudaSuccess) return err;
-  project_x_kernel<<<sc.blocks, THREADS16, SMEMX, stream>>>(
-      (const float*)h, (const uint16_t*)hi, (const float*)bq, (float*)P,
-      n_rows, din, hdim, (hdim + SLAB - 1) / SLAB, (hdim + BN16 - 1) / BN16,
-      n_row_tiles, sc.groups, sc.resident);
+  project16_kernel<F16, SRC><<<sc.blocks, THREADS16, SMEM16, stream>>>(
+      h, (const uint16_t*)tiles, (const uint16_t*)lo_tiles, (const float*)bq,
+      (float*)P, n_rows, din, hdim, (hdim + SLAB - 1) / SLAB,
+      (hdim + BN16 - 1) / BN16, (int)n_row_tiles, sc.groups, sc.resident);
   return cudaGetLastError();
 }
 
@@ -459,21 +420,31 @@ extern "C" int agg_project_bf16x_launch(const void* h, const void* hi,
       (uintptr_t)lo % 16 != 0 || (uintptr_t)P % 16 != 0)
     return (int)cudaErrorInvalidValue;
   return (int)(passes == 1
-                   ? project_x(h, hi, bq, P, n_rows, din, hdim,
-                               (cudaStream_t)stream)
+                   ? project_core16<false, F32_X1>(h, hi, nullptr, bq, P,
+                                                   n_rows, din, hdim,
+                                                   (cudaStream_t)stream)
                    : project_core16<false, F32_X3>(h, hi, lo, bq, P, n_rows,
                                                    din, hdim,
                                                    (cudaStream_t)stream));
 }
 
-// The grid the one-pass `agg_project_bf16x_launch` takes for a problem on
-// this card: sc = {resident, groups, items, clusters, blocks}
-extern "C" int agg_project_bf16x_schedule(int n_rows, int din, int hdim,
-                                          int* sc) {
-  if (n_rows < 1 || din < 1 || hdim < 1) return (int)cudaErrorInvalidValue;
-  ScheduleX x;
-  const cudaError_t err = schedule_x(project_x_kernel, din, hdim,
-                                     (n_rows + BM16 - 1) / BM16, &x);
+// The grid the 16-bit core takes for a projection of `passes` (0: a
+// 16-bit table, 1 or 3 bf16 passes) on this card: sc = {resident, groups,
+// items, clusters, blocks}
+extern "C" int agg_project_schedule(int n_rows, int din, int hdim,
+                                    int passes, int* sc) {
+  if (n_rows < 1 || din < 1 || hdim < 1 ||
+      (passes != 0 && passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  Schedule16 x;
+  const long long rows = (n_rows + BM16 - 1) / BM16;
+  const cudaError_t err =
+      passes == 0   ? schedule16(project16_kernel<false, TABLE16>, din,
+                                 hdim, 1, rows, &x)
+      : passes == 1 ? schedule16(project16_kernel<false, F32_X1>, din,
+                                 hdim, 1, rows, &x)
+                    : schedule16(project16_kernel<false, F32_X3>, din,
+                                 hdim, 2, rows, &x);
   if (err != cudaSuccess) return (int)err;
   const int v[5] = {x.resident, x.groups, x.items, x.clusters, x.blocks};
   for (int i = 0; i < 5; ++i) sc[i] = v[i];

@@ -301,114 +301,112 @@ __device__ __forceinline__ float* aligned_ring(unsigned char* smem) {
 constexpr int SMEM_ALIGN_SLACK = 1024;
 
 
-// ---- The 16-bit core (train.dtype "bfloat16" or "float16") ----------------
-// One tile core for the bf16 and the f16 forms of K2's projection and K3,
-// templated on the element type (F16 false: bf16).  A 16-bit x 16-bit
-// product is exact in f32, so one wgmma pass per product replaces the
-// three TF32 passes.  The block is warp-specialized, 384 threads:
-//   - a producer warpgroup keeps the k chunks of the block's tiles in
-//     flight in a STAGES16-deep ring on full/empty mbarriers.  It copies A
-//     (a tile's BM16 = 64 gathered rows) into wgmma's 128-byte-swizzled
-//     K-major layout by 16-byte cp.async, the chunk index XOR'd with
-//     row % 8, each thread's copies arriving on the stage's full barrier
-//     as they land (cp.async.mbarrier.arrive.noinc), and B (Wq, already in
-//     `wq_tile16_kernel`'s tiles) by cp.async.bulk, completing as
-//     transaction bytes on the same barrier;
-//   - two consumer warpgroups take alternate tiles (ping-pong): each
-//     multiplies a whole 64-row x BN16 = 256-column tile
-//     (wgmma.m64n256k16, 128 f32 accumulators a thread) with both
-//     operands read from shared memory (the SS form), keeping one chunk's
-//     wgmma batch outstanding (wait_group 1), and then runs the tile's
-//     epilogue while the other warpgroup's products of the next tile keep
-//     the tensor cores busy.  An order barrier lets a warpgroup start its
-//     products only once the other has issued all of its tile's, so the
-//     two take turns on the tensor cores and never wait on a stage more
-//     than one phase ahead;
-//   - the block is one of a cluster of CLUSTER16 = 2 that multiply the
-//     same Wq chunks at the same time, each copying half of a chunk into
-//     both (cp.async.bulk .multicast::cluster), so Wq is read from L2 once
-//     per 128 rows;
-//   - each row's whole Din is summed in the tensor cores' f32
-//     accumulator: no per-chunk promotion (a k chunk of 64 is 4 wgmma
-//     steps; at Din 512 a row's sum takes 32 steps, against the 192 the
-//     3xTF32 core had to break up; tests/test_torch_f16_gpu.py holds the
-//     error against float64 to 4x the plain version's).
-// Why this shape: ptxas gives every thread of a block the same register
-// count, at most 65536 / threads (setmaxnreg does not raise it), and
-// m64n256's 128 accumulators need ~154, so a block has at most three
-// warpgroups (168 registers).  With two consumer warpgroups on one
-// 128-row tile the tensor cores idled through every epilogue (on the
-// H100, K3-bf16 stayed slower than its gather + einsum yardstick);
-// ping-pong hides the epilogue under the other warpgroup's products.
-// f32 tables in three bf16 passes under the precision policy
-// (GCN_TPU_MATMUL_PRECISION=high, the JAX package's TPU numerics) run on
-// the same core as its SRC form F32_X3.  The producer reads the f32 rows
-// with 16-byte loads (two a chunk of 8 elements), issued before it waits
-// for the stage, splits each into bf16 hi and lo = bf16(x - hi), rounded
-// to nearest even (XLA's convert), in registers and stores the swizzled
-// hi and lo tiles itself; Wq comes as hi and lo tiles
-// (`wq_tile_bf16x_kernel`), and each k-step runs hi*lo + lo*hi + hi*hi
-// into the same f32 accumulator.  No table copy and no cast launch: the
-// rounding is the staging.  A three-pass stage holds two A and two Wq
-// copies (80 KB), so its ring has STAGES16 / 2 stages: the same 160 KB as
-// the 16-bit forms' four of 40 KB.  One pass (=default) runs on the bf16x1
-// core at the end of this file (`run_rows_x`), which reads each row once
-// a run of column tiles.
-// The kernels give `run_tiles16` the id of each row of a tile (< 0: a
-// zero row) and an epilogue over the accumulator fragment of one
-// warpgroup: its thread t (t = threadIdx.x % 128) holds tile rows
-// `frag_row(t, half)` and, for i < 32, columns `frag_col(t, i)` (+1) in
-// acc[4 i + 2 half] (and + 1).
 
-constexpr int BN16 = 256;                      // output columns a tile
+// ---- The 16-bit core (bf16 and f16 tables; f32 tables in bf16 passes) ---
+// One tile core for K2's projection and K3 on bf16 and f16 tables
+// (train.dtype "bfloat16" / "float16"; F16 false: bf16), and on f32 tables
+// under the precision policy (GCN_TPU_MATMUL_PRECISION, the JAX package's
+// TPU numerics), rounded to bf16 (one pass) or split into bf16 hi and lo
+// = bf16(x - hi) (three: hi*lo + lo*hi + hi*hi a k-step), to nearest even
+// (XLA's convert), as they are staged.  A 16-bit x 16-bit product is exact
+// in f32, so one wgmma pass per product replaces the three TF32 passes.
+// A block (384 threads, one an SM) is one of a cluster of CLUSTER16 = 2:
+//   - the pair takes a pair of 64-row tiles (BM16 rows of h picked by an
+//     id list) and sweeps a run of Wq's 128-column tiles over them, so
+//     each row is read (and rounded) once a run, not once a column tile.
+//     Where a row tile's k chunks fit the A slots (A_SLOTS16 of 64 rows x
+//     64 16-bit values in wgmma's 128-byte-swizzled K-major layout, two a
+//     chunk for three passes: Din <= 896, three passes 448) they stay
+//     resident through the run; deeper rows are staged again for every
+//     tile ("streamed");
+//   - three stager warps fill the next free A slot: 16-bit rows by
+//     16-byte cp.async, arriving on the slot's full barrier as they land;
+//     f32 rows by 16-byte loads into registers, one chunk's loads in
+//     flight while the chunk before is rounded and stored;
+//   - one lane of the producer warpgroup's first warp streams Wq's chunks
+//     (`wq_tile16_kernel`'s or `wq_tile_bf16x_kernel`'s tiles) in
+//     R_W_TILES stages of 16 KB (hi and lo: half as many of 32 KB), each
+//     block copying half of a chunk into both
+//     (cp.async.bulk .multicast::cluster), so Wq is read from L2 once per
+//     128 rows;
+//   - two consumer warpgroups take alternate tiles, each multiplying a
+//     whole 64-row x 128-column tile (wgmma.m64n128k16, both operands from
+//     shared memory) and then running the tile's epilogue, whose operands
+//     were prefetched a tile ahead, while the other warpgroup multiplies.
+// The sum of each output's Din products is promoted: the tensor cores'
+// f32 accumulator truncates as it adds (against float64, one accumulator
+// over a whole row erred 5.3x the plain f32 version at Din 1,024, with a
+// negative bias), so a tile's products run into a partial sum `part` for
+// an interval of PROMOTE_STEPS16 k-steps of 16 products (three passes:
+// PROMOTE_STEPS16_X3 k-steps of three products each), and the CUDA cores
+// add each partial to the f32 sum `acc`, rounded to nearest, interval
+// after interval in k order, as the 3xTF32 core above and DeepGEMM do.
+// Why m64n128: a 384-thread block has 168 registers a thread, which hold
+// m64n128's 64 accumulators and 64 partials (the 3xTF32 core's budget),
+// while m64n256's 128 and 128 would not fit even the 232 that setmaxnreg
+// could give a consumer.  A
+// promotion waits for its interval's products, so a warpgroup hands the
+// tensor cores to the other (the order barrier) as early as the stages'
+// phases allow, not once all of its tile's products are issued: the other
+// warpgroup's products fill those waits.
+// The kernels give the core the id of each row of a tile (< 0: a zero
+// row) and an epilogue over the accumulator fragment of one warpgroup:
+// its thread t (t = threadIdx.x % 128) holds tile rows `frag_row(t,
+// half)` and, for i < 16, columns `frag_col(t, i)` (+1) in acc[4 i + 2
+// half] (and + 1).
+
+constexpr int BN16 = BN;                       // output columns a tile
 constexpr int BK16 = 64;                       // 16-bit elements a k chunk
 constexpr int BM16 = 64;                       // rows a tile
 constexpr int CONSUMERS16 = 256;               // two warpgroups
-constexpr int PRODUCER_THREADS16 = 128;        // one warpgroup
-constexpr int THREADS16 = CONSUMERS16 + PRODUCER_THREADS16;
+constexpr int THREADS16 = CONSUMERS16 + 128;   // + the producer warpgroup
 constexpr int CLUSTER16 = 2;                   // blocks that share Wq
-constexpr int WQ_TILE_BYTES16 = BN * 128;      // one 128-row tile of Wq
+constexpr int WQ_TILE_BYTES16 = BN16 * 128;    // a k chunk of a Wq tile
 constexpr int A_STAGE16 = BM16 * 128;          // a k chunk of 64 rows
-constexpr int STAGE16 = A_STAGE16 + BN16 * 128;  // + 256 Wq rows
-constexpr int STAGES16 = 4;
 // what A's rows are in device memory: the table's own 16-bit rows, or f32
-// rows split into bf16 hi and lo as they are staged for three bf16 passes
-constexpr int TABLE16 = 0, F32_X3 = 3;
+// rows rounded to bf16 (one pass) or split into bf16 hi and lo (three
+// passes) as they are staged
+constexpr int TABLE16 = 0, F32_X1 = 1, F32_X3 = 3;
+// k-steps of 16 products that a tile's partial sum runs in the tensor
+// cores before the CUDA cores add it to the f32 sum (a k chunk is
+// CHUNK_STEPS16): one pass and the 16-bit tables PROMOTE_STEPS16, three
+// passes PROMOTE_STEPS16_X3 (k-steps of three products; their bias asks
+// for the shorter interval), the longest intervals that hold the float64
+// bars (PERF.md, scripts/bf16x_error_probe.py: intervals of two and four
+// k chunks, one chunk's products kept in flight, missed the bias bar and
+// gained under 3 %).
+constexpr int CHUNK_STEPS16 = BK16 / 16;
+constexpr int PROMOTE_STEPS16 = 4;
+constexpr int PROMOTE_STEPS16_X3 = 2;
+// 0 builds the core without its epilogue, so its kernels write nothing:
+// what its tiles cost alone (scripts/bf16x_ab.py --no-epilogue)
+#ifndef AGG_TC_EPILOGUE
+#define AGG_TC_EPILOGUE 1
+#endif
 constexpr int EPI_COLS16 = 64;                 // columns an epilogue pass
 // floats between staged rows: a half-warp's fragment stores (rows
 // lane / 4, 8 bytes apart along a row) hit 32 distinct banks
 constexpr int EPI_LD16 = EPI_COLS16 + 8;
-// shared memory: ring | per consumer warpgroup: epilogue staging
-// [BM16][EPI_LD16] f32 (K3: 64 columns of w q; K2: a 64-column slab of
-// P), bq of the tile's columns [BN16], K3's weights [BM16] and
-// denominators [BM16] | the producer's row ids [BM16] | full barriers
-// [STAGES16] | empty barriers [STAGES16] | order barriers [2]
+// a consumer warpgroup's shared memory: epilogue staging [BM16][EPI_LD16]
+// f32 (K3: 64 columns of w q; K2: a 64-column slab of P), bq of the
+// tile's columns [BN16], K3's weights [BM16] and denominators [BM16]
 constexpr int EPI16 = 0;                       // offsets in a warpgroup's
 constexpr int BQ16 = EPI16 + BM16 * EPI_LD16 * 4;  // part
 constexpr int W16 = BQ16 + BN16 * 4;
 constexpr int DEN16 = W16 + BM16 * 4;
 constexpr int WG_BYTES16 = DEN16 + BM16 * 4;
-constexpr int WG_OFF16 = STAGES16 * STAGE16;   // + wg * WG_BYTES16
-constexpr int ROWS_OFF16 = WG_OFF16 + 2 * WG_BYTES16;
-constexpr int BAR_OFF16 = ROWS_OFF16 + BM16 * 4;
-constexpr int SMEM16 = SMEM_ALIGN_SLACK + BAR_OFF16 + (2 * STAGES16 + 2) * 8;
 
-static_assert(A_STAGE16 % 1024 == 0 && STAGE16 % 1024 == 0,
+static_assert(CHUNK_STEPS16 % PROMOTE_STEPS16 == 0 &&
+                  CHUNK_STEPS16 % PROMOTE_STEPS16_X3 == 0,
+              "a promotion interval divides a k chunk");
+static_assert(A_STAGE16 % 1024 == 0 && WQ_TILE_BYTES16 % 1024 == 0,
               "16-bit stages stay 1024-byte aligned (the swizzle atom)");
-static_assert(BAR_OFF16 % 8 == 0 && WG_BYTES16 % 16 == 0,
-              "mbarriers 8-byte, staging 16-byte aligned");
-static_assert(SMEM16 <= 232448, "the 16-bit core fits one block an SM");
-static_assert(BM16 * 8 % PRODUCER_THREADS16 == 0,
-              "each producer thread copies whole A chunks");
+static_assert(WG_BYTES16 % 16 == 0, "epilogue staging 16-byte aligned");
 
-// A consumer warpgroup's own barrier (named barriers 1 and 2), and the
-// producer's (3); after setup the roles meet only on mbarriers
+// A consumer warpgroup's own barrier (named barriers 1 and 2); after
+// setup the roles meet only on mbarriers
 __device__ __forceinline__ void consumer_sync(int wg) {
   asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
-}
-
-__device__ __forceinline__ void producer_sync() {
-  asm volatile("bar.sync 3, %0;" ::"n"(PRODUCER_THREADS16) : "memory");
 }
 
 // 4-byte global -> shared copy; src_bytes 0 writes 0
@@ -458,17 +456,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
-}
-
-// `bytes` (a multiple of 16) global -> shared by the copy engine,
-// completing as transaction bytes on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // `bytes` global -> shared at the same offset in every block of the
@@ -528,85 +515,12 @@ __device__ __forceinline__ void prefetch_bq16(float* bq_s,
   }
 }
 
-// d[128] = A (smem, 64 x 16, K-major) x B (smem, 256 x 16, K-major)
-// + (accumulate ? d : 0); both operands 128-byte swizzled
-#define AGG_TC_WGMMA_N256(TYPE)                                              \
-  asm volatile(                                                              \
-      "{\n\t.reg .pred p;\n\t"                                               \
-      "setp.ne.b32 p, %130, 0;\n\t"                                          \
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TYPE "." TYPE " "       \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "        \
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "    \
-      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "    \
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "    \
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "    \
-      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "    \
-      "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "    \
-      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "     \
-      "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, "   \
-      "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "   \
-      "%126, %127}, "                                                        \
-      "%128, %129, p, 1, 1, 0, 0;\n\t}"                                      \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),     \
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),     \
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),     \
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),     \
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),     \
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),     \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),     \
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),     \
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),     \
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),     \
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),     \
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),     \
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),     \
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),     \
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),              \
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),              \
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),              \
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),              \
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),              \
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),              \
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])               \
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate)                            \
-      : "memory")
-
-template <bool F16>
-__device__ __forceinline__ void wgmma_n256(float* d, uint64_t desc_a,
-                                           uint64_t desc_b, int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_n256<false>(float* d, uint64_t desc_a,
-                                                  uint64_t desc_b,
-                                                  int accumulate) {
-  AGG_TC_WGMMA_N256("bf16");
-}
-
-template <>
-__device__ __forceinline__ void wgmma_n256<true>(float* d, uint64_t desc_a,
-                                                 uint64_t desc_b,
-                                                 int accumulate) {
-  AGG_TC_WGMMA_N256("f16");
-}
-
-#undef AGG_TC_WGMMA_N256
-
-__device__ __forceinline__ void fence_acc128(float* d) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // Wq [H, Din] 16-bit -> [ceil(H/BN)][ceil(Din/BK16)] tiles of BN rows x
 // 128 bytes: the 16-byte chunk c (8 values) of row n sits at chunk
 // c ^ (n % 8), zero where n >= H or the columns pass Din.  One thread per
-// chunk.  A tile is one contiguous 16 KB block; the core's 256-wide
-// column tile takes two of them.
+// chunk.  A tile is one contiguous 16 KB block: a k chunk of the core's
+// column tile.
 __global__ void __launch_bounds__(256)
 wq_tile16_kernel(const uint16_t* __restrict__ wq,
                  uint16_t* __restrict__ tiles, int hdim, int din,
@@ -682,344 +596,225 @@ wq_tile_bf16x_kernel(const float* __restrict__ wq, uint16_t* __restrict__ hi,
   reinterpret_cast<uint4*>(hi)[q] = h;
 }
 
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+// d[64] = A (smem, 64 x 16, K-major) x B (smem, 128 x 16, K-major)
+// + (accumulate ? d : 0); both operands 128-byte swizzled
+#define AGG_TC_WGMMA_N128(TYPE)                                              \
+  asm volatile(                                                              \
+      "{\n\t.reg .pred p;\n\t"                                               \
+      "setp.ne.b32 p, %66, 0;\n\t"                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " "       \
+      "{"                                                                    \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"                     \
+      "}, %64, %65, p, 1, 1, 0, 0;\n\t}"                                     \
+      :                                                                      \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),     \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),     \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),     \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),     \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),     \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),     \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                   \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate)                            \
+      : "memory")
+
+
+template <bool F16>
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_n128<false>(float* d, uint64_t desc_a,
+                                                  uint64_t desc_b,
+                                                  int accumulate) {
+  AGG_TC_WGMMA_N128("bf16");
 }
 
-// The 16-bit kernels run in clusters of CLUSTER16 = 2 blocks.  Cluster c
-// walks the pair tiles c + j * (clusters) for j = 0, 1, ...: pair tile pt
-// is row tiles 2 (pt / n_col_tiles) (block rank 0) and that + 1 (rank 1)
-// at column tile pt % n_col_tiles, so the two blocks multiply the same
-// Wq chunks at the same time.  A block's j-th tile goes to its consumer
-// warpgroup j % 2.  Row tile rt, column tile ct is tile
-// rt * n_col_tiles + ct: its rows are `row_id(tile, r)` of h (r < BM16,
-// < 0: a zero row) and it reads Wq tiles 2 ct and 2 ct + 1 of `wq_t`, of
-// which there are n_wq_tiles (a last column tile of at most 128 columns
-// reads one, and the other 128 accumulator columns are not read).  A
-// block whose pair has no second row tile runs its chunks on zero rows
-// and skips the epilogue.  SRC is TABLE16 (`h` 16-bit rows) or F32_X3
-// (`h` f32 rows, split as they are staged; `wq_lo_t` the lo tiles of Wq,
-// else unused).  On a tile's first k chunk its
-// warpgroup calls `epilogue.prefetch(tile, wg)` (cp.async of the
-// epilogue's operands; one commit group), and after its last
-// `epilogue(tile, acc, wg)` with
-// every product of the tile done; the epilogue's threads are the
-// warpgroup's 128, which meet by `consumer_sync(wg)`.  The kernel is
-// launched with THREADS16 threads; `smem` is SMEM16 - SMEM_ALIGN_SLACK
-// bytes, 1024-byte aligned; n_tiles = row tiles x n_col_tiles.
-template <bool F16, int SRC, class RowId, class Epilogue>
-__device__ __forceinline__ void run_tiles16(
-    unsigned char* smem, const void* __restrict__ h, int din,
-    const uint16_t* __restrict__ wq_t, const uint16_t* __restrict__ wq_lo_t,
-    int n_wq_tiles, int n_col_tiles, int n_tiles, RowId row_id,
-    Epilogue epilogue) {
-  static_assert(SRC == TABLE16 || (SRC == F32_X3 && !F16),
-                "f32 rows split into bf16 hi and lo");
-  // copies of A and of Wq a stage holds (hi, lo), the ring's stages, and
-  // where a stage's Wq tiles start
-  constexpr int PARTS = SRC == F32_X3 ? 2 : 1;
-  constexpr int STAGES = STAGES16 / PARTS;
-  constexpr int STAGE = PARTS * STAGE16;
-  constexpr int B_OFF = PARTS * A_STAGE16;
-  static_assert(STAGES * STAGE == STAGES16 * STAGE16,
-                "every form's ring is the same size");
-  const int tid = threadIdx.x;
-  const int k_tiles = (din + BK16 - 1) / BK16;
-  const int rank = cluster_special(0), cid = cluster_special(1),
-            n_clusters = cluster_special(2);
-  const int n_row_tiles = n_tiles / n_col_tiles;
-  const int n_pairs =
-      (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * n_col_tiles;
-  const int n_mine = (n_pairs - 1 - cid) / n_clusters + 1;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF16);
-  uint64_t* empty = full + STAGES16;
-  uint64_t* order = empty + STAGES16;          // [wg]: its turn to multiply
-  auto pair_of = [&](int j) { return cid + j * n_clusters; };
-  auto tile_of = [&](int j) {                  // -1: no row tile
-    const int pt = pair_of(j);
-    const int rt = CLUSTER16 * (pt / n_col_tiles) + rank;
-    return rt < n_row_tiles ? rt * n_col_tiles + pt % n_col_tiles : -1;
-  };
+template <>
+__device__ __forceinline__ void wgmma_n128<true>(float* d, uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 int accumulate) {
+  AGG_TC_WGMMA_N128("f16");
+}
 
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      // every producer thread's copies, and thread 0's expected Wq bytes
-      mbar_init(full + s, PRODUCER_THREADS16 + 1);
-      // the warps of the consuming warpgroup in both blocks: a stage is
-      // refilled in both
-      mbar_init(empty + s, CLUSTER16 * 128 / 32);
+#undef AGG_TC_WGMMA_N128
+
+// The descriptor of a 128-byte-swizzled K-major operand in shared memory
+__device__ __forceinline__ uint64_t desc16(const unsigned char* p) {
+  return b_desc(reinterpret_cast<const float*>(p));
+}
+
+// One k chunk of a warpgroup's tile: A's chunk at `a` and Wq's at `w`
+// (three passes: their lo parts A_STAGE16 and WQ_TILE_BYTES16 further on;
+// hi*lo, lo*hi, hi*hi a k-step).  Each interval of a form's k-steps runs
+// into `part` on the tensor cores; once its products are done the CUDA
+// cores add `part` to `acc` in f32, interval after interval in k order.
+// Ends with every product of the chunk done, so its stage may be freed.
+template <bool F16, int PARTS>
+__device__ __forceinline__ void chunk_products16(float* acc, float* part,
+                                                 const unsigned char* a,
+                                                 const unsigned char* w) {
+  constexpr int STEPS = PARTS == 2 ? PROMOTE_STEPS16_X3 : PROMOTE_STEPS16;
+  const uint64_t da = desc16(a), db = desc16(w);
+  const uint64_t da_lo = desc16(a + A_STAGE16),
+                 db_lo = desc16(w + WQ_TILE_BYTES16);
+#pragma unroll
+  for (int k0 = 0; k0 < CHUNK_STEPS16; k0 += STEPS) {
+    fence_acc(part);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = k0; ks < k0 + STEPS; ++ks) {  // +32 bytes a k-step
+      if constexpr (PARTS == 2) {
+        wgmma_n128<F16>(part, da + 2 * ks, db_lo + 2 * ks, ks > k0);
+        wgmma_n128<F16>(part, da_lo + 2 * ks, db + 2 * ks, 1);
+        wgmma_n128<F16>(part, da + 2 * ks, db + 2 * ks, 1);
+      } else {
+        wgmma_n128<F16>(part, da + 2 * ks, db + 2 * ks, ks > k0);
+      }
     }
-    mbar_init(order, 1);
-    mbar_init(order + 1, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
   }
-  cluster_sync();
+}
 
-  // the warpgroup's role, warp-uniform by construction (a branch on tid
-  // alone leaves ptxas unsure and it then serializes every wgmma)
-  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
-  if (role == CONSUMERS16 / 128) {
-    // ---- producer: k chunk q of the block (its q / k_tiles-th tile,
-    // chunk q % k_tiles) into stage q % STAGES once the consumers of
-    // both blocks have freed it
-    const int p = tid - CONSUMERS16;
-    const int c = p % 8;                       // this thread's A chunk
-    int* rows = reinterpret_cast<int*>(smem + ROWS_OFF16);
-    // this thread's ids of the next tile, rows p + PRODUCER_THREADS16 i,
-    // loaded a tile ahead
-    constexpr int IDS = (BM16 + PRODUCER_THREADS16 - 1) / PRODUCER_THREADS16;
-    int ids[IDS];
-    auto load_ids = [&](int tile) {
+// A producer thread's share of a k chunk of A: pieces p = first + stride
+// m (m < PIECES, p < BM16 * 8), each 8 elements (16-byte chunk p % 8) of
+// tile row p / 8, whose id is ids[m] (< 0: a zero row).  f32 rows are
+// loaded into v (16-byte loads) by `load_f32` ahead of the stage, and
+// rounded (and split for three passes) into the swizzled slot `dst` by
+// `store_f32`; 16-bit rows are copied by cp.async (`copy16`).
+template <int PIECES>
+__device__ __forceinline__ void load_f32(float4 (&v)[PIECES][2],
+                                         const float* __restrict__ h,
+                                         const int* ids, int din, int k,
+                                         int first, int stride) {
 #pragma unroll
-      for (int i = 0; i < IDS; ++i) {
-        const int r = p + i * PRODUCER_THREADS16;
-        ids[i] = r < BM16 && tile >= 0 ? row_id(tile, r) : -1;
-      }
-    };
-    load_ids(tile_of(0));
-    for (int j = 0; j < n_mine; ++j) {
-      producer_sync();                         // tile j - 1's ids are read
-#pragma unroll
-      for (int i = 0; i < IDS; ++i) {
-        const int r = p + i * PRODUCER_THREADS16;
-        if (r < BM16) rows[r] = ids[i];
-      }
-      producer_sync();
-      if (j + 1 < n_mine) load_ids(tile_of(j + 1));
-      const int ct = pair_of(j) % n_col_tiles;
-      const int nb = min(2, n_wq_tiles - 2 * ct);
-      for (int kc = 0; kc < k_tiles; ++kc) {
-        const int q = j * k_tiles + kc, s = q % STAGES;
-        const int k = kc * BK16 + 8 * c;
-        constexpr int CHUNKS = BM16 * 8 / PRODUCER_THREADS16;
-        // f32 rows: this thread's chunks loaded before the stage is free
-        float4 v[SRC == TABLE16 ? 1 : CHUNKS][2];
-        if (SRC != TABLE16) {
-          const float* hf = static_cast<const float*>(h);
-#pragma unroll
-          for (int i = 0; i < CHUNKS; ++i) {
-            const int id = rows[p / 8 + i * (PRODUCER_THREADS16 / 8)];
-            v[i][0] = v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (id >= 0 && k < din) {
-              const float4* src = reinterpret_cast<const float4*>(
-                  hf + (size_t)id * din + k);
-              v[i][0] = __ldg(src);
-              v[i][1] = __ldg(src + 1);
-            }
-          }
-        }
-        if (q >= STAGES) mbar_wait(empty + s, ((q / STAGES) + 1) & 1);
-        unsigned char* st = smem + s * STAGE;
-        if (p == 0) {
-          mbar_arrive_expect_tx(full + s, PARTS * nb * WQ_TILE_BYTES16);
-          for (int b = rank; b < nb; b += CLUSTER16) {  // Wq tile 2 ct + b
-            const size_t off = ((size_t)(2 * ct + b) * k_tiles + kc) *
-                               (WQ_TILE_BYTES16 / 2);
-            bulk_copy_multicast(st + B_OFF + b * WQ_TILE_BYTES16,
-                                wq_t + off, WQ_TILE_BYTES16, full + s,
-                                (1 << CLUSTER16) - 1);
-            if (SRC == F32_X3)
-              bulk_copy_multicast(
-                  st + B_OFF + BN16 * 128 + b * WQ_TILE_BYTES16,
-                  wq_lo_t + off, WQ_TILE_BYTES16, full + s,
-                  (1 << CLUSTER16) - 1);
-          }
-        }
-        if (SRC == TABLE16) {
-          const uint16_t* h16 = static_cast<const uint16_t*>(h);
-#pragma unroll
-          for (int i = 0; i < CHUNKS; ++i) {
-            const int r = p / 8 + i * (PRODUCER_THREADS16 / 8);
-            const int id = rows[r];
-            const bool ok = id >= 0 && k < din;
-            cp_async16(st + r * 128 + ((c ^ (r & 7)) << 4),
-                       ok ? h16 + (size_t)id * din + k : h16, ok ? 16 : 0);
-          }
-          cp_async_arrive(full + s);
-        } else {
-#pragma unroll
-          for (int i = 0; i < CHUNKS; ++i) {
-            const int r = p / 8 + i * (PRODUCER_THREADS16 / 8);
-            const int at = r * 128 + ((c ^ (r & 7)) << 4);
-            uint4 hi, lo;
-            bf16_chunk<SRC == F32_X3>(v[i][0], v[i][1], hi, lo);
-            *reinterpret_cast<uint4*>(st + at) = hi;
-            if (SRC == F32_X3)
-              *reinterpret_cast<uint4*>(st + A_STAGE16 + at) = lo;
-          }
-          // the stores are generic-proxy writes that wgmma reads through
-          // the async proxy; the arrival releases them to the consumers
-          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          mbar_arrive(full + s);
-        }
-      }
-    }
-    cp_async_wait<0>();
-  } else {
-    // ---- consumer warpgroup wg = role: the block's tiles j = wg, wg + 2..
-    const int wg = role;
-    const bool leader = tid % 32 == 0;         // arrives for its warp
-    auto release = [&](int s) {                // in both blocks
-      if (leader)
-        for (int r = 0; r < CLUSTER16; ++r) mbar_arrive_cluster(empty + s, r);
-    };
-    float acc[128];
-    for (int j = wg; j < n_mine; j += 2) {
-      // the other warpgroup has issued every product of tile j - 1
-      if (j > 0) mbar_wait(order + wg, ((j - 1) / 2) & 1);
-      const int tile = tile_of(j);
-      for (int kc = 0; kc < k_tiles; ++kc) {
-        const int q = j * k_tiles + kc, s = q % STAGES;
-        mbar_wait(full + s, (q / STAGES) & 1);
-        // the A copies landed through the generic proxy; wgmma reads
-        // them through the async proxy
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        const unsigned char* st = smem + s * STAGE;
-        const uint64_t da = b_desc(reinterpret_cast<const float*>(st)),
-                       db = b_desc(reinterpret_cast<const float*>(
-                           st + B_OFF));
-        fence_acc128(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < BK16 / 16; ++ks) {  // +32 bytes a k-step
-          if (SRC == F32_X3) {
-            // hi*lo and lo*hi first, then hi*hi
-            const uint64_t da_lo = b_desc(reinterpret_cast<const float*>(
-                               st + A_STAGE16)),
-                           db_lo = b_desc(reinterpret_cast<const float*>(
-                               st + B_OFF + BN16 * 128));
-            wgmma_n256<F16>(acc, da + 2 * ks, db_lo + 2 * ks,
-                            kc > 0 || ks > 0);
-            wgmma_n256<F16>(acc, da_lo + 2 * ks, db + 2 * ks, 1);
-            wgmma_n256<F16>(acc, da + 2 * ks, db + 2 * ks, 1);
-          } else {
-            wgmma_n256<F16>(acc, da + 2 * ks, db + 2 * ks, kc > 0 || ks > 0);
-          }
-        }
-        wgmma_commit();
-        if (kc == k_tiles - 1 && tid % 128 == 0)
-          mbar_arrive(order + (1 - wg));       // the other's turn
-        if (kc == 0 && tile >= 0) epilogue.prefetch(tile, wg);
-        if (kc < k_tiles - 1) {
-          wgmma_wait_one();                    // chunk q - 1 is done
-          fence_acc128(acc);
-          if (kc > 0) release((q - 1) % STAGES);
-        } else {
-          wgmma_wait_all();
-          fence_acc128(acc);
-          if (kc > 0) release((q - 1) % STAGES);
-          release(s);
-          if (tile >= 0) epilogue(tile, acc, wg);
-        }
-      }
+  for (int m = 0; m < PIECES; ++m) {
+    v[m][0] = v[m][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (first + stride * m < BM16 * 8 && ids[m] >= 0 && k < din) {
+      const float4* src =
+          reinterpret_cast<const float4*>(h + (size_t)ids[m] * din + k);
+      v[m][0] = __ldg(src);
+      v[m][1] = __ldg(src + 1);
     }
   }
-  // neither block leaves while the other may still copy into it or
-  // arrive on its barriers
-  cluster_sync();
 }
 
-// Persistent grid of the 16-bit core: as many clusters as fit the card at
-// once (one block an SM), at most n_pairs; in *blocks
-template <class Kernel>
-cudaError_t grid16(Kernel kernel, long long n_pairs, unsigned* blocks) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER16 * 132);
-  cfg.blockDim = dim3(THREADS16);
-  cfg.dynamicSmemBytes = SMEM16;
-  int clusters = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(
-      &clusters, (const void*)kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  *blocks = (unsigned)(CLUSTER16 * (n_pairs < clusters ? n_pairs : clusters));
-  return cudaSuccess;
+template <int SRC, int PIECES>
+__device__ __forceinline__ void store_f32(unsigned char* dst,
+                                          const float4 (&v)[PIECES][2],
+                                          int first, int stride) {
+#pragma unroll
+  for (int m = 0; m < PIECES; ++m) {
+    const int p = first + stride * m, r = p / 8;
+    if (p < BM16 * 8) {
+      const int at = r * 128 + (((p % 8) ^ (r & 7)) << 4);
+      uint4 hi, lo;
+      bf16_chunk<SRC == F32_X3>(v[m][0], v[m][1], hi, lo);
+      *reinterpret_cast<uint4*>(dst + at) = hi;
+      if constexpr (SRC == F32_X3)
+        *reinterpret_cast<uint4*>(dst + A_STAGE16 + at) = lo;
+    }
+  }
+  // generic-proxy stores that wgmma reads through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+template <int PIECES>
+__device__ __forceinline__ void copy16(unsigned char* dst,
+                                       const uint16_t* __restrict__ h,
+                                       const int* ids, int din, int k,
+                                       int first, int stride) {
+#pragma unroll
+  for (int m = 0; m < PIECES; ++m) {
+    const int p = first + stride * m, r = p / 8;
+    if (p < BM16 * 8) {
+      const bool ok = ids[m] >= 0 && k < din;
+      cp_async16(dst + r * 128 + (((p % 8) ^ (r & 7)) << 4),
+                 ok ? h + (size_t)ids[m] * din + k : h, ok ? 16 : 0);
+    }
+  }
+}
 
-// ---- The bf16x1 core (f32 tables in one bf16 pass) -----------------------
-// The one-pass form of the precision policy (K3's and K2's projection's
-// bf16x1 forms) multiplies as the 16-bit core does (two
-// consumer warpgroups taking turns on 64 x 256 tiles, m64n256k16 from
-// shared memory, block pairs sharing Wq's chunks by multicast, the same
-// epilogues and the same wgmma order, so the same bits), but stages its
-// f32 rows another way:
-//   - a block takes a row tile and sweeps a run of column tiles over it:
-//     every gathered row is read from memory and rounded once a run, not
-//     once a 256-column tile.  Where a row tile's k chunks fit the ring's
-//     A slots (X_A_SLOTS of 64 rows x 64 bf16: Din <= 640) they stay
-//     resident through the run; deeper rows are staged again for every
-//     tile ("streamed");
-//   - three stager warps load the f32 rows into registers by 16-byte
-//     loads, one chunk's loads in flight while the chunk before is
-//     rounded, round them to bf16 to nearest even (XLA's convert) and
-//     store the swizzled chunk into the next free A slot, which the
-//     consumers free once every tile of the run has multiplied it; the
-//     next row tile's chunks fill the free slots meanwhile.  (Loading
-//     into shared memory first -- per-row cp.async.bulk, or 16-byte
-//     cp.async rounded in place -- was slower on the H100: the bulk
-//     copies issued too slowly, and the f32 round trip through shared
-//     memory competed with the tensor cores' operand reads.)  Rounding
-//     here rather than in the consumers' registers (wgmma's RS form):
-//     a consumer holds 128 accumulators in ~154 of its 168 registers,
-//     and would round every row again for every tile;
-//   - one lane of the producer warpgroup's first warp streams Wq's
-//     chunks (three stages of 32 KB), as the 16-bit core's producer
-//     does;
-//   - a tile's epilogue operands are prefetched a whole tile ahead.
-// The ring is 176 KB: the Wq stages, then ten A slots of 8 KB.
-// `choose_x` picks how many equal runs the column tiles are split into:
-// each (row-tile pair, run) is one item of the persistent grid.  Three
-// passes (F32_X3) stay on `run_tiles16`: on the H100 this staging did
-// not make them faster at co1_T10_wide's step (PERF.md's kernel table).
+// Wq's k chunk kc of column tile ct (and, for three passes, of its lo
+// tiles) into the stage at `dst` of both blocks of the cluster, this
+// block copying its half (64 rows); its `bar` expects the whole stage
+template <int PARTS>
+__device__ __forceinline__ void copy_wq16(unsigned char* dst,
+                                          const uint16_t* __restrict__ wq_t,
+                                          const uint16_t* __restrict__ wq_lo_t,
+                                          int ct, int kc, int k_tiles,
+                                          int rank, uint64_t* bar) {
+  constexpr int HALF = WQ_TILE_BYTES16 / 2;
+  mbar_arrive_expect_tx(bar, PARTS * WQ_TILE_BYTES16);
+  const size_t off =
+      ((size_t)ct * k_tiles + kc) * (WQ_TILE_BYTES16 / 2) + rank * (HALF / 2);
+  bulk_copy_multicast(dst + rank * HALF, wq_t + off, HALF, bar,
+                      (1 << CLUSTER16) - 1);
+  if constexpr (PARTS == 2)
+    bulk_copy_multicast(dst + WQ_TILE_BYTES16 + rank * HALF, wq_lo_t + off,
+                        HALF, bar, (1 << CLUSTER16) - 1);
+}
 
-constexpr int X_W_STAGES = 3;
-constexpr int X_W_STAGE = BN16 * 128;          // 256 Wq rows of a k chunk
-constexpr int X_A_OFF = X_W_STAGES * X_W_STAGE;
-constexpr int X_A_SLOTS = 10;                  // rounded k chunks of A
-constexpr int X_RING = X_A_OFF + X_A_SLOTS * A_STAGE16;
-constexpr int X_STAGERS = 96;                  // producer warps 1 to 3
+// ---- the core's schedule and loop -----------------------------------------
+
+constexpr int W_STAGES16 = 4;                  // Wq chunks of 16 KB in flight
+constexpr int A_OFF16 = W_STAGES16 * WQ_TILE_BYTES16;
+constexpr int A_SLOTS16 = 14;                  // k chunks of A of 8 KB
+constexpr int STAGERS16 = 96;                  // producer warps 1 to 3
 // a tile's epilogue costs about this many k chunks of its products
-// (`choose_x`; fitted to H100 timings of the bf16x1 core at T = 10)
-constexpr int X_EPILOGUE_CHUNKS = 4;
-// 0 builds the core without its epilogue, so its kernels write nothing:
-// what its tiles cost alone (scripts/bf16x_ab.py --no-epilogue)
-#ifndef AGG_TC_X_EPILOGUE
-#define AGG_TC_X_EPILOGUE 1
-#endif
-// shared memory: ring | per consumer warpgroup: as the 16-bit core's |
-// Wq full and empty barriers, A full and empty barriers, order barriers
-constexpr int X_WG_OFF = X_RING;
-constexpr int X_BAR_OFF = X_WG_OFF + 2 * WG_BYTES16;
-constexpr int SMEMX = SMEM_ALIGN_SLACK + X_BAR_OFF +
-                      (2 * X_W_STAGES + 2 * X_A_SLOTS + 2) * 8;
+// (`choose16`): H100 timings with and without it (scripts/bf16x_ab.py
+// --no-epilogue) put it at 4-8 at T = 10, and at the kernels' shapes
+// `choose16` picks the same runs for any value from 2 to 10 (PERF.md)
+constexpr int EPILOGUE_CHUNKS16 = 4;
+// shared memory: Wq stages | A slots | per consumer warpgroup: the
+// epilogue's | Wq full and empty barriers, A full and empty barriers (two
+// rounds of the stages' and slots' each), order barriers
+constexpr int WG_OFF16 = A_OFF16 + A_SLOTS16 * A_STAGE16;
+constexpr int BAR_OFF16 = WG_OFF16 + 2 * WG_BYTES16;
+constexpr int SMEM16 = SMEM_ALIGN_SLACK + BAR_OFF16 +
+                       (4 * W_STAGES16 + 4 * A_SLOTS16 + 2) * 8;
 
-static_assert(X_A_OFF % 1024 == 0 && A_STAGE16 % 1024 == 0 &&
-                  X_WG_OFF % 16 == 0 && X_BAR_OFF % 8 == 0,
+static_assert(A_OFF16 % 1024 == 0 && W_STAGES16 % 2 == 0 &&
+                  A_SLOTS16 % 2 == 0 && WG_OFF16 % 16 == 0 &&
+                  BAR_OFF16 % 8 == 0,
               "slots 1024-byte, staging 16-byte, mbarriers 8-byte aligned");
-static_assert(SMEMX <= 232448, "the bf16x1 core fits one block an SM");
+static_assert(SMEM16 <= 232448, "the 16-bit core fits one block an SM");
 
-// The bf16x1 grid: resident or streamed rows, the column-tile runs, the
-// items (row-tile pairs x runs) and the clusters that take them
-struct ScheduleX {
+// The 16-bit core's grid: resident or streamed rows, the column-tile
+// runs, the items (row-tile pairs x runs) and the clusters that take them
+struct Schedule16 {
   int resident, groups, items, clusters, blocks;
 };
 
 // Of the runs that split the column tiles evenly, the one whose busiest
 // cluster takes the least time, in k chunks of products: a cluster's
 // items one after another, each a run of tiles (k chunks of products and
-// X_EPILOGUE_CHUNKS of epilogue) and its rows' gathers (k chunks an item
-// when resident, k a tile when streamed); ties: the longest run
-inline ScheduleX choose_x(int k_tiles, int n_col_tiles, long long n_row_tiles,
-                          int clusters) {
+// EPILOGUE_CHUNKS16 of epilogue) and its rows' staging (k chunks an item
+// when resident, k a tile when streamed); ties: the longest run.  `parts`
+// A slots a k chunk (2: three passes' hi and lo).
+inline Schedule16 choose16(int k_tiles, int parts, int n_col_tiles,
+                           long long n_row_tiles, int clusters) {
   const long long pairs = (n_row_tiles + CLUSTER16 - 1) / CLUSTER16;
-  const bool resident = k_tiles <= X_A_SLOTS;
-  ScheduleX sc = {resident, 1, 0, clusters, 0};
+  const bool resident = k_tiles <= A_SLOTS16 / parts;
+  Schedule16 sc = {resident, 1, 0, clusters, 0};
   long long best = -1;
   for (int g = 1; g <= n_col_tiles; ++g) {
     if (n_col_tiles % g != 0) continue;
     const long long sweep = n_col_tiles / g;
-    const long long item = sweep * (k_tiles + X_EPILOGUE_CHUNKS) +
+    const long long item = sweep * (k_tiles + EPILOGUE_CHUNKS16) +
                            (resident ? k_tiles : sweep * k_tiles);
     const long long busiest = (pairs * g + clusters - 1) / clusters * item;
     if (best < 0 || busiest < best) {
@@ -1033,46 +828,67 @@ inline ScheduleX choose_x(int k_tiles, int n_col_tiles, long long n_row_tiles,
   return sc;
 }
 
-// `choose_x` for `kernel` on this card (one block an SM, SMEMX bytes)
+// `choose16` for `kernel` on this card (one block an SM, SMEM16 bytes)
 template <class Kernel>
-cudaError_t schedule_x(Kernel kernel, int din, int hdim, long long n_row_tiles,
-                       ScheduleX* sc) {
+cudaError_t schedule16(Kernel kernel, int din, int hdim, int parts,
+                       long long n_row_tiles, Schedule16* sc) {
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEMX);
+      SMEM16);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CLUSTER16 * 132);
   cfg.blockDim = dim3(THREADS16);
-  cfg.dynamicSmemBytes = SMEMX;
+  cfg.dynamicSmemBytes = SMEM16;
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
   if (err != cudaSuccess) return err;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
-  *sc = choose_x((din + BK16 - 1) / BK16, (hdim + BN16 - 1) / BN16,
+  *sc = choose16((din + BK16 - 1) / BK16, parts, (hdim + BN16 - 1) / BN16,
                  n_row_tiles, clusters);
   return cudaSuccess;
 }
 
-// The bf16x1 core on a block of a cluster of CLUSTER16: item i of the
+// The 16-bit core on a block of a cluster of CLUSTER16: item i of the
 // grid (cluster c takes c, c + clusters, ..) is row tiles 2 (i / groups)
 // (rank 0) and that + 1 (rank 1) at column tiles (i % groups) * sweep ..
 // + sweep (sweep = n_col_tiles / groups); the block's u-th tile (its u /
 // sweep-th item, column u % sweep of the run) goes to consumer warpgroup
-// u % 2.  A block whose pair has no second row tile multiplies zero rows
-// and skips the epilogue.  Row ids, tiles (rt * n_col_tiles + ct), the Wq
-// tiles and the epilogue are as in `run_tiles16`; `h` holds f32 rows (Din
-// % 8 == 0, 16-byte aligned).  `resident` and `groups` come from
-// `schedule_x`.  Launched with THREADS16 threads; `smem` is SMEMX -
-// SMEM_ALIGN_SLACK bytes, 1024-byte aligned, and the epilogue's
-// warpgroup areas start at X_WG_OFF.
-template <class RowId, class Epilogue>
-__device__ __forceinline__ void run_rows_x(
-    unsigned char* smem, const float* __restrict__ h, int din,
-    const uint16_t* __restrict__ wq_t, int n_wq_tiles, int n_col_tiles,
-    int n_row_tiles, int groups, int resident, RowId row_id,
-    Epilogue epilogue) {
-  constexpr int WS = X_W_STAGES, AS = X_A_SLOTS;
+// u % 2.  Row tile rt, column tile ct is tile rt * n_col_tiles + ct: its
+// rows are `row_id(tile, r)` of h (r < BM16, < 0: a zero row) and it
+// reads Wq tile ct of `wq_t` (and of `wq_lo_t` for three passes).  A
+// block whose pair has no second row tile multiplies zero rows and skips
+// the epilogue.  SRC is TABLE16 (`h` 16-bit rows) or F32_X1 / F32_X3 (`h`
+// f32 rows); Din % 8 == 0, `h` 16-byte aligned.  `resident` and `groups`
+// come from `schedule16`.  A tile's warpgroup calls
+// `epilogue.prefetch(tile, wg)` a tile ahead (cp.async of the epilogue's
+// operands; one commit group) and `epilogue(tile, acc, wg)` with every
+// product of the tile done; the epilogue's threads are the warpgroup's
+// 128, which meet by `consumer_sync(wg)`.  Launched with THREADS16
+// threads; `smem` is SMEM16 - SMEM_ALIGN_SLACK bytes, 1024-byte aligned,
+// the epilogue's warpgroup areas at WG_OFF16.
+// Stage q (Wq) and fill a (A) wait and arrive on barrier q % 2 WS and a %
+// 2 AS: two rounds of barriers a stage, so that a warpgroup may wait on a
+// chunk while the one WS (or AS) before it is still landing without
+// mistaking an earlier phase for its own.  A warpgroup hands the turn
+// over once it has waited on its chunk k_tiles - 2 WS (the first, where
+// a tile has at most 2 WS chunks): every chunk up to that one has landed,
+// so the other's first chunk, 2 WS further on at most, is in the
+// barriers' next round (and A's, resident or 2 AS >= 2 WS further on,
+// too); each later wait follows its own previous one, whose stage refill
+// needed the chunk 2 WS before it consumed.
+template <bool F16, int SRC, class RowId, class Epilogue>
+__device__ __forceinline__ void run16(
+    unsigned char* smem, const void* __restrict__ h, int din,
+    const uint16_t* __restrict__ wq_t, const uint16_t* __restrict__ wq_lo_t,
+    int n_col_tiles, int n_row_tiles, int groups, int resident,
+    RowId row_id, Epilogue epilogue) {
+  static_assert(SRC == TABLE16 || !F16, "f32 rows are rounded to bf16");
+  // copies of A and of Wq a k chunk takes (hi, lo), the Wq stages and the
+  // A slots of whole chunks
+  constexpr int PARTS = SRC == F32_X3 ? 2 : 1;
+  constexpr int WS = W_STAGES16 / PARTS, AS = A_SLOTS16 / PARTS;
+  constexpr int W_STAGE = PARTS * WQ_TILE_BYTES16, A_SLOT = PARTS * A_STAGE16;
   const int tid = threadIdx.x;
   const int k_tiles = (din + BK16 - 1) / BK16;
   const int rank = cluster_special(0), cid = cluster_special(1),
@@ -1082,11 +898,11 @@ __device__ __forceinline__ void run_rows_x(
   const int n_mine = (n_items - 1 - cid) / n_clusters + 1;
   const int n_u = n_mine * sweep;              // the block's tiles
   const int n_fills = resident ? n_mine : n_u;  // times A is staged
-  uint64_t* w_full = reinterpret_cast<uint64_t*>(smem + X_BAR_OFF);
-  uint64_t* w_empty = w_full + WS;
-  uint64_t* a_full = w_empty + WS;             // rounded, ready to multiply
-  uint64_t* a_empty = a_full + AS;
-  uint64_t* order = a_empty + AS;              // [wg]: its turn to multiply
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(smem + BAR_OFF16);
+  uint64_t* w_empty = w_full + 2 * W_STAGES16;
+  uint64_t* a_full = w_empty + 2 * W_STAGES16;  // staged, ready to multiply
+  uint64_t* a_empty = a_full + 2 * A_SLOTS16;
+  uint64_t* order = a_empty + 2 * A_SLOTS16;   // [wg]: its turn to multiply
   auto row_tile = [&](int j) {                 // of the block's item j
     return CLUSTER16 * ((cid + j * n_clusters) / groups) + rank;
   };
@@ -1095,14 +911,16 @@ __device__ __forceinline__ void run_rows_x(
   };
 
   if (tid == 0) {
-    for (int s = 0; s < WS; ++s) {
-      mbar_init(w_full + s, 1);                // the issuer's expected bytes
-      mbar_init(w_empty + s, CLUSTER16 * 128 / 32);
+    for (int b = 0; b < 2 * WS; ++b) {
+      mbar_init(w_full + b, 1);                // the issuer's expected bytes
+      // the warps of the consuming warpgroup in both blocks: a stage is
+      // refilled in both
+      mbar_init(w_empty + b, CLUSTER16 * 128 / 32);
     }
-    for (int s = 0; s < AS; ++s) {
-      mbar_init(a_full + s, X_STAGERS);
+    for (int b = 0; b < 2 * AS; ++b) {
+      mbar_init(a_full + b, STAGERS16);
       // the warps of every tile that multiplies the fill
-      mbar_init(a_empty + s, 128 / 32 * (resident ? sweep : 1));
+      mbar_init(a_empty + b, 128 / 32 * (resident ? sweep : 1));
     }
     mbar_init(order, 1);
     mbar_init(order + 1, 1);
@@ -1110,6 +928,8 @@ __device__ __forceinline__ void run_rows_x(
   }
   cluster_sync();
 
+  // the warpgroup's role, warp-uniform by construction (a branch on tid
+  // alone leaves ptxas unsure and it then serializes every wgmma)
   const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
   if (role == CONSUMERS16 / 128) {
     const int warp = __shfl_sync(0xffffffffu, tid % 128 / 32, 0);
@@ -1119,17 +939,13 @@ __device__ __forceinline__ void run_rows_x(
       if (tid % 32 == 0) {
         for (int u = 0; u < n_u; ++u) {
           const int ct = col_tile(u / sweep, u % sweep);
-          const int nb = min(2, n_wq_tiles - 2 * ct);
           for (int kc = 0; kc < k_tiles; ++kc) {
-            const int q = u * k_tiles + kc, s = q % WS;
-            if (q >= WS) mbar_wait(w_empty + s, ((q / WS) + 1) & 1);
-            mbar_arrive_expect_tx(w_full + s, nb * WQ_TILE_BYTES16);
-            for (int b = rank; b < nb; b += CLUSTER16)  // Wq tile 2 ct + b
-              bulk_copy_multicast(
-                  smem + s * X_W_STAGE + b * WQ_TILE_BYTES16,
-                  wq_t + ((size_t)(2 * ct + b) * k_tiles + kc) *
-                             (WQ_TILE_BYTES16 / 2),
-                  WQ_TILE_BYTES16, w_full + s, (1 << CLUSTER16) - 1);
+            const int q = u * k_tiles + kc;
+            if (q >= WS)
+              mbar_wait(w_empty + (q - WS) % (2 * WS),
+                        ((q - WS) / (2 * WS)) & 1);
+            copy_wq16<PARTS>(smem + q % WS * W_STAGE, wq_t, wq_lo_t, ct, kc,
+                             k_tiles, rank, w_full + q % (2 * WS));
           }
         }
       }
@@ -1137,29 +953,28 @@ __device__ __forceinline__ void run_rows_x(
     } else {
       // ---- stagers (warps 1-3): chunk a = f * k_tiles + kc (k chunk kc of
       // fill f: the rows of item f, or of the item of tile f when
-      // streamed) goes to slot a % AS.  Stager t loads pieces p = t + 96 m
-      // (< 512) of a chunk, 8 f32 elements c = p % 8 of row p / 8 (16-byte
-      // loads, a quarter warp one row's 256 bytes), a chunk ahead of the
-      // chunk it rounds and stores into its slot once the slot is free.
+      // streamed) goes to slot a % AS.  Stager t takes pieces t + 96 m
+      // (< 512) of a chunk: 8 elements p % 8 of row p / 8 (a quarter warp
+      // one row's 128 bytes of 16-bit values, 256 of f32).
       const int st = tid % 128 - 32;
-      const int c = st % 8;
       const int n_chunks = n_fills * k_tiles;
-      constexpr int PIECES = (BM16 * 8 + X_STAGERS - 1) / X_STAGERS;
+      constexpr int PIECES = (BM16 * 8 + STAGERS16 - 1) / STAGERS16;
       int ids[PIECES], next[PIECES];           // of an item, and the next's
       auto load_ids = [&](int j, int* out) {
         const int rt = row_tile(j);
         const bool ok = j < n_mine && rt < n_row_tiles;
 #pragma unroll
         for (int m = 0; m < PIECES; ++m) {
-          const int p = st + X_STAGERS * m;
+          const int p = st + STAGERS16 * m;
           out[m] = ok && p < BM16 * 8 ? row_id(rt * n_col_tiles, p / 8) : -1;
         }
       };
       load_ids(0, ids);
       load_ids(1, next);
       int item = 0;                            // the item of `ids`
-      auto load = [&](int a, float4 (&v)[PIECES][2]) {
-        const int f = a / k_tiles, k = a % k_tiles * BK16 + 8 * c;
+      // the ids of chunk a's rows in `ids`; its first column
+      auto advance = [&](int a) {
+        const int f = a / k_tiles;
         const int j = resident ? f : f / sweep;
         if (j != item) {                       // items advance one by one
           item = j;
@@ -1167,43 +982,39 @@ __device__ __forceinline__ void run_rows_x(
           for (int m = 0; m < PIECES; ++m) ids[m] = next[m];
           load_ids(j + 1, next);
         }
-#pragma unroll
-        for (int m = 0; m < PIECES; ++m) {
-          v[m][0] = v[m][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (ids[m] >= 0 && k < din) {
-            const float4* src =
-                reinterpret_cast<const float4*>(h + (size_t)ids[m] * din + k);
-            v[m][0] = __ldg(src);
-            v[m][1] = __ldg(src + 1);
-          }
-        }
+        return a % k_tiles * BK16 + 8 * (st % 8);
       };
-      auto store = [&](int a, const float4 (&v)[PIECES][2]) {
-        const int s = a % AS;
-        if (a >= AS) mbar_wait(a_empty + s, ((a / AS) + 1) & 1);
-        unsigned char* slot = smem + X_A_OFF + s * A_STAGE16;
-#pragma unroll
-        for (int m = 0; m < PIECES; ++m) {
-          const int p = st + X_STAGERS * m, r = p / 8;
-          if (p < BM16 * 8) {
-            uint4 hi, lo;
-            bf16_chunk<false>(v[m][0], v[m][1], hi, lo);
-            *reinterpret_cast<uint4*>(slot + r * 128 +
-                                      ((c ^ (r & 7)) << 4)) = hi;
-          }
-        }
-        // generic-proxy stores that wgmma reads through the async proxy
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        mbar_arrive(a_full + s);
+      auto slot = [&](int a) {                 // once it is free
+        if (a >= AS)
+          mbar_wait(a_empty + (a - AS) % (2 * AS), ((a - AS) / (2 * AS)) & 1);
+        return smem + A_OFF16 + a % AS * A_SLOT;
       };
-      float4 v0[PIECES][2], v1[PIECES][2];
-      if (n_chunks > 0) load(0, v0);
-      for (int a = 0; a < n_chunks; a += 2) {
-        if (a + 1 < n_chunks) load(a + 1, v1);
-        store(a, v0);
-        if (a + 1 < n_chunks) {
-          if (a + 2 < n_chunks) load(a + 2, v0);
-          store(a + 1, v1);
+      if constexpr (SRC == TABLE16) {
+        for (int a = 0; a < n_chunks; ++a) {
+          const int k = advance(a);
+          copy16<PIECES>(slot(a), static_cast<const uint16_t*>(h), ids, din,
+                         k, st, STAGERS16);
+          cp_async_arrive(a_full + a % (2 * AS));
+        }
+        cp_async_wait<0>();
+      } else {
+        const float* hf = static_cast<const float*>(h);
+        auto load = [&](int a, float4 (&v)[PIECES][2]) {
+          load_f32(v, hf, ids, din, advance(a), st, STAGERS16);
+        };
+        auto store = [&](int a, const float4 (&v)[PIECES][2]) {
+          store_f32<SRC>(slot(a), v, st, STAGERS16);
+          mbar_arrive(a_full + a % (2 * AS));
+        };
+        float4 v0[PIECES][2], v1[PIECES][2];
+        if (n_chunks > 0) load(0, v0);
+        for (int a = 0; a < n_chunks; a += 2) {
+          if (a + 1 < n_chunks) load(a + 1, v1);
+          store(a, v0);
+          if (a + 1 < n_chunks) {
+            if (a + 2 < n_chunks) load(a + 2, v0);
+            store(a + 1, v1);
+          }
         }
       }
     }
@@ -1211,13 +1022,8 @@ __device__ __forceinline__ void run_rows_x(
     // ---- consumer warpgroup wg = role: the block's tiles u = wg, wg + 2..
     const int wg = role;
     const bool leader = tid % 32 == 0;         // arrives for its warp
-    auto release = [&](int q, int a) {
-      if (leader) {
-        for (int r = 0; r < CLUSTER16; ++r)    // Wq: in both blocks
-          mbar_arrive_cluster(w_empty + q % WS, r);
-        mbar_arrive(a_empty + a % AS);
-      }
-    };
+    // the chunk after whose wait the other warpgroup may start
+    const int turn = max(0, k_tiles - 2 * WS);
     auto tile_of = [&](int u) {                // -1: no row tile
       const int j = u / sweep, rt = row_tile(j);
       return rt < n_row_tiles ? rt * n_col_tiles + col_tile(j, u % sweep)
@@ -1229,41 +1035,33 @@ __device__ __forceinline__ void run_rows_x(
       if (u < n_u && tile_of(u) >= 0) epilogue.prefetch(tile_of(u), wg);
     };
     prefetch(wg);
-    float acc[128];
+    float acc[64], part[64];
     for (int u = wg; u < n_u; u += 2) {
-      // the other warpgroup has issued every product of tile u - 1
+      // the other warpgroup has waited on tile u - 1's chunk `turn`
       if (u > 0) mbar_wait(order + wg, ((u - 1) / 2) & 1);
       const int tile = tile_of(u), f = resident ? u / sweep : u;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
       for (int kc = 0; kc < k_tiles; ++kc) {
         const int q = u * k_tiles + kc, a = f * k_tiles + kc;
-        mbar_wait(a_full + a % AS, (a / AS) & 1);
-        mbar_wait(w_full + q % WS, (q / WS) & 1);
+        mbar_wait(a_full + a % (2 * AS), (a / (2 * AS)) & 1);
+        mbar_wait(w_full + q % (2 * WS), (q / (2 * WS)) & 1);
+        // the A copies and stores landed through the generic proxy; wgmma
+        // reads them through the async proxy
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        const uint64_t da = b_desc(reinterpret_cast<const float*>(
-                           smem + X_A_OFF + (a % AS) * A_STAGE16)),
-                       db = b_desc(reinterpret_cast<const float*>(
-                           smem + (q % WS) * X_W_STAGE));
-        fence_acc128(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < BK16 / 16; ++ks)   // +32 bytes a k-step
-          wgmma_n256<false>(acc, da + 2 * ks, db + 2 * ks, kc > 0 || ks > 0);
-        wgmma_commit();
-        if (kc == k_tiles - 1 && tid % 128 == 0)
+        if (kc == turn && tid % 128 == 0)
           mbar_arrive(order + (1 - wg));       // the other's turn
-        if (kc < k_tiles - 1) {
-          wgmma_wait_one();                    // chunk kc - 1 is done
-          fence_acc128(acc);
-          if (kc > 0) release(q - 1, a - 1);
-        } else {
-          wgmma_wait_all();
-          fence_acc128(acc);
-          if (kc > 0) release(q - 1, a - 1);
-          release(q, a);
-          if (AGG_TC_X_EPILOGUE && tile >= 0) epilogue(tile, acc, wg);
-          prefetch(u + 2);
+        chunk_products16<F16, PARTS>(acc, part,
+                                     smem + A_OFF16 + a % AS * A_SLOT,
+                                     smem + q % WS * W_STAGE);
+        if (leader) {
+          for (int r = 0; r < CLUSTER16; ++r)  // Wq: in both blocks
+            mbar_arrive_cluster(w_empty + q % (2 * WS), r);
+          mbar_arrive(a_empty + a % (2 * AS));
         }
       }
+      if (AGG_TC_EPILOGUE && tile >= 0) epilogue(tile, acc, wg);
+      prefetch(u + 2);
     }
   }
   // neither block leaves while the other may still copy into it or

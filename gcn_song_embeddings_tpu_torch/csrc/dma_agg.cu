@@ -35,43 +35,42 @@
 // at the step's layer 0 (4,224 nodes x T = 10, Din = H = 512): 22.7
 // GFLOP at 989 TFLOP/s = 0.023 ms against 43 MB of 16-bit rows (0.013
 // ms), so the tensor cores bound it.  `dma_agg16_kernel` runs the 16-bit
-// core of agg_tc.cuh (`run_tiles16`): a producer warpgroup gathers each
-// 64-row tile's rows into a 4-stage ring while two consumer warpgroups
-// take alternate tiles (64 rows x 256 columns, m64n256k16 from shared
-// memory), so one tile's epilogue runs under the other warpgroup's
-// products; block pairs share Wq's chunks by multicast.  A tile holds
-// whole nodes, floor(64 / T) of them (60 rows at T = 10).  Its epilogue
-// keeps K3's order: + bq, leaky_relu 0.01, x w, the sum over the node's
-// T rows (through the warpgroup's shared memory, 64 columns a pass),
-// then the guarded divide; the tile's weights and bq are prefetched
-// while it multiplies.  It takes any ids in [0, N), T <= 64 and any B:
-// no branch for the frontier's contiguous ids.  What the H100 shows of
-// the steps: with two consumer warpgroups on one 128-row tile the
-// tensor cores idled through every epilogue and K3-bf16 stayed slower
-// than its gather + einsum yardstick; with the tiles alternating it is
-// below it, at about three times its bound (PERF.md, the kernel table).
+// core of agg_tc.cuh (`run16`): a block pair takes a pair of 64-row tiles
+// and sweeps a run of Wq's 128-column tiles over them, the tiles' rows
+// gathered once into shared memory and kept there for the run (Din <=
+// 896), while two consumer warpgroups take alternate tiles (m64n128k16
+// from shared memory, each k chunk's partial sum promoted to an f32 sum
+// on the CUDA cores), so one tile's epilogue runs under the other
+// warpgroup's products; block pairs share Wq's chunks by multicast.  A
+// tile holds whole nodes, floor(64 / T) of them (60 rows at T = 10).
+// Its epilogue keeps K3's order: + bq, leaky_relu 0.01, x w, the sum
+// over the node's T rows (through the warpgroup's shared memory, 64
+// columns a pass), then the guarded divide; the tile's weights and bq
+// are prefetched a tile ahead.  It takes any ids in [0, N), T <= 64 and
+// any B: no branch for the frontier's contiguous ids.  What the H100
+// shows of the steps: with two consumer warpgroups on one 128-row tile
+// the tensor cores idled through every epilogue and K3-bf16 stayed
+// slower than its gather + einsum yardstick; with the tiles alternating
+// it went below it; the promoted sums cost time back (PERF.md, the
+// kernel table).
 //
 // The bf16x forms (`dma_agg_launch_bf16x`) are the precision policy's
 // (GCN_TPU_MATMUL_PRECISION default / high: the JAX package's train-step
 // products on the TPU, one bf16 pass or three).  They take the f32 table
-// as it is, with no bf16 copy.  One pass (`dma_agg_x_kernel`) runs the
-// bf16x1 core of agg_tc.cuh (`run_rows_x`): a block pair takes a pair of
-// row tiles and sweeps a run of Wq's column tiles over them; three
-// stager warps load each gathered row's k chunks into registers a chunk
-// ahead and round them to bf16 into shared memory, where they stay for
-// the whole run (Din <= 640; deeper rows are staged again for each
-// tile), so a row is read and rounded once a run instead of once a
-// 256-column tile with one chunk in flight.  Three passes run the 16-bit
-// core, whose producer splits each gathered row into hi and lo tiles as
-// it stages it (F32_X3: hi*lo + lo*hi + hi*hi against Wq's hi and lo
-// tiles).  Bound at co1_T10_wide's step (4,224 x 10 rows at Din 128,
-// 384 x 10 at Din 256, H 1024): one pass 13.1 GFLOP at 989 TFLOP/s =
-// 0.013 ms against 25.6 MB of f32 rows (0.008 ms), the tensor cores; at
-// the 100k step's layer 0 (4,224 x 10 at Din 512, H 512) one pass 22.7
-// GFLOP, 0.023 ms, against 87 MB of rows, 0.026 ms, bytes; three passes
-// 68 GFLOP, 0.069 ms, the tensor cores.  What bounds the one-pass form
-// at the wide step on the H100 is the epilogue beside the tensor cores
-// (PERF.md): its shared-memory traffic competes with their operand reads.
+// as it is, with no bf16 copy, on the same core: its stager warps load
+// each gathered row's k chunks into registers a chunk ahead and round
+// them to bf16 (F32_X1), or split them into bf16 hi and lo (F32_X3: hi*lo
+// + lo*hi + hi*hi against Wq's hi and lo tiles, two slots a chunk, rows
+// resident to Din 448), into shared memory, so a row is read and rounded
+// once a run of column tiles.  Bound at co1_T10_wide's step (4,224 x 10
+// rows at Din 128, 384 x 10 at Din 256, H 1024): one pass 13.1 GFLOP at
+// 989 TFLOP/s = 0.013 ms against 25.6 MB of f32 rows (0.008 ms), the
+// tensor cores; at the 100k step's layer 0 (4,224 x 10 at Din 512, H 512)
+// one pass 22.7 GFLOP, 0.023 ms, against 87 MB of rows, 0.026 ms, bytes;
+// three passes 68 GFLOP, 0.069 ms, the tensor cores.  What bounds the
+// one-pass form at the wide step on the H100 is the epilogue beside the
+// tensor cores (PERF.md): its shared-memory traffic competes with their
+// operand reads.
 
 #include "agg_tc.cuh"
 
@@ -268,8 +267,9 @@ struct NodeMeanEpilogue {
   }
 };
 
-// SRC TABLE16: h bf16 / f16 (F16); F32_X3: h f32, split into bf16 hi and
-// lo as it is staged, three passes (wq_lo_t: Wq's lo tiles)
+// The 16-bit forms: SRC TABLE16 (h bf16 / f16, F16), F32_X1 / F32_X3 (h
+// f32, rounded to bf16 or split into hi and lo as it is staged; wq_lo_t:
+// Wq's lo tiles for three passes)
 template <bool F16, int SRC>
 __global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
 dma_agg16_kernel(const void* __restrict__ h,       // [N, Din]
@@ -280,43 +280,42 @@ dma_agg16_kernel(const void* __restrict__ h,       // [N, Din]
                  const float* __restrict__ bq,     // [H]
                  float* __restrict__ out,          // [B, H]
                  int n_nodes, int T, int din, int hdim, int nodes_per_tile,
-                 int n_col_tiles, int n_tiles) {
+                 int n_col_tiles, int n_row_tiles, int groups,
+                 int resident) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       aligned_ring(smem_raw));
   const NodeTileRows rows{nb, n_nodes, T, nodes_per_tile, n_col_tiles};
   const NodeMeanEpilogue epilogue{w, bq, out, smem + WG_OFF16, n_nodes, T,
                                   hdim, nodes_per_tile, n_col_tiles};
-  run_tiles16<F16, SRC>(smem, h, din, wq_t, wq_lo_t, (hdim + BN - 1) / BN,
-                        n_col_tiles, n_tiles, rows, epilogue);
+  run16<F16, SRC>(smem, h, din, wq_t, wq_lo_t, n_col_tiles, n_row_tiles,
+                  groups, resident, rows, epilogue);
 }
 
-// One 16-bit-core form of K3 on a checked problem: the persistent grid of
-// block pairs over the node tiles
+static long long node_row_tiles(int n_nodes, int T) {
+  const int nodes_per_tile = BM16 / T;
+  return (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
+}
+
+// One 16-bit form of K3 on a checked problem: the persistent grid of
+// block pairs over `schedule16`'s items
 template <bool F16, int SRC>
 static cudaError_t launch_core16(const void* h, const void* nb,
                                  const void* w, const void* tiles,
                                  const void* lo_tiles, const void* bq,
                                  void* out, int n_nodes, int T, int din,
                                  int hdim, cudaStream_t stream) {
-  const void* kernel = (const void*)dma_agg16_kernel<F16, SRC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
+  const long long n_row_tiles = node_row_tiles(n_nodes, T);
+  Schedule16 sc;
+  const cudaError_t err =
+      schedule16(dma_agg16_kernel<F16, SRC>, din, hdim, SRC == F32_X3 ? 2 : 1,
+                 n_row_tiles, &sc);
   if (err != cudaSuccess) return err;
-  const int nodes_per_tile = BM16 / T;
-  const int n_col_tiles = (hdim + BN16 - 1) / BN16;
-  const long long n_row_tiles =
-      (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
-  const long long n_tiles = n_row_tiles * n_col_tiles;
-  unsigned blocks = 0;
-  err = grid16(kernel,
-               (n_row_tiles + CLUSTER16 - 1) / CLUSTER16 * n_col_tiles,
-               &blocks);
-  if (err != cudaSuccess) return err;
-  dma_agg16_kernel<F16, SRC><<<blocks, THREADS16, SMEM16, stream>>>(
+  dma_agg16_kernel<F16, SRC><<<sc.blocks, THREADS16, SMEM16, stream>>>(
       h, (const int*)nb, (const float*)w, (const uint16_t*)tiles,
       (const uint16_t*)lo_tiles, (const float*)bq, (float*)out, n_nodes, T,
-      din, hdim, nodes_per_tile, n_col_tiles, (int)n_tiles);
+      din, hdim, BM16 / T, (hdim + BN16 - 1) / BN16, (int)n_row_tiles,
+      sc.groups, sc.resident);
   return cudaGetLastError();
 }
 
@@ -363,53 +362,8 @@ extern "C" int dma_agg_launch16(const void* h, const void* nb, const void* w,
                          hdim, (cudaStream_t)stream));
 }
 
-// The one-pass form: h f32, each gathered row rounded to bf16 once a run
-// of the bf16x1 core's column tiles
-__global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
-dma_agg_x_kernel(const float* __restrict__ h,      // [N, Din]
-                 const int* __restrict__ nb,       // [B, T]
-                 const float* __restrict__ w,      // [B, T]
-                 const uint16_t* __restrict__ wq_t,  // Wq rounded, tiled
-                 const float* __restrict__ bq,     // [H]
-                 float* __restrict__ out,          // [B, H]
-                 int n_nodes, int T, int din, int hdim, int nodes_per_tile,
-                 int n_col_tiles, int n_row_tiles, int groups, int resident) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      aligned_ring(smem_raw));
-  const NodeTileRows rows{nb, n_nodes, T, nodes_per_tile, n_col_tiles};
-  const NodeMeanEpilogue epilogue{w, bq, out, smem + X_WG_OFF, n_nodes, T,
-                                  hdim, nodes_per_tile, n_col_tiles};
-  run_rows_x(smem, h, din, wq_t, (hdim + BN - 1) / BN, n_col_tiles,
-             n_row_tiles, groups, resident, rows, epilogue);
-}
-
-static long long node_row_tiles(int n_nodes, int T) {
-  const int nodes_per_tile = BM16 / T;
-  return (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
-}
-
-// The one-pass form on a checked problem: the persistent grid of block
-// pairs over `schedule_x`'s items
-static cudaError_t launch_x(const void* h, const void* nb, const void* w,
-                            const void* hi, const void* bq, void* out,
-                            int n_nodes, int T, int din, int hdim,
-                            cudaStream_t stream) {
-  ScheduleX sc;
-  const long long n_row_tiles = node_row_tiles(n_nodes, T);
-  const cudaError_t err =
-      schedule_x(dma_agg_x_kernel, din, hdim, n_row_tiles, &sc);
-  if (err != cudaSuccess) return err;
-  dma_agg_x_kernel<<<sc.blocks, THREADS16, SMEMX, stream>>>(
-      (const float*)h, (const int*)nb, (const float*)w, (const uint16_t*)hi,
-      (const float*)bq, (float*)out, n_nodes, T, din, hdim, BM16 / T,
-      (hdim + BN16 - 1) / BN16, (int)n_row_tiles, sc.groups, sc.resident);
-  return cudaGetLastError();
-}
-
-// h f32, rounded to bf16 as it is staged: passes 1 (hi tiles only, the
-// bf16x1 core) or 3 (hi and lo tiles of Wq, from agg_tile_bf16x_launch;
-// the 16-bit core)
+// h f32, rounded to bf16 as it is staged: passes 1 (hi tiles only) or 3
+// (hi and lo tiles of Wq, from agg_tile_bf16x_launch)
 extern "C" int dma_agg_launch_bf16x(const void* h, const void* nb,
                                     const void* w, const void* hi,
                                     const void* lo, const void* bq, void* out,
@@ -422,23 +376,31 @@ extern "C" int dma_agg_launch_bf16x(const void* h, const void* nb,
       (uintptr_t)out % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (n_nodes < 1) return (int)cudaSuccess;
-  return (int)(passes == 1 ? launch_x(h, nb, w, hi, bq, out, n_nodes, T, din,
-                                      hdim, (cudaStream_t)stream)
+  return (int)(passes == 1 ? launch_core16<false, F32_X1>(
+                                 h, nb, w, hi, nullptr, bq, out, n_nodes, T,
+                                 din, hdim, (cudaStream_t)stream)
                            : launch_core16<false, F32_X3>(
                                  h, nb, w, hi, lo, bq, out, n_nodes, T, din,
                                  hdim, (cudaStream_t)stream));
 }
 
-// The grid the one-pass `dma_agg_launch_bf16x` takes for a problem
-// (n_nodes >= 1) on this card: sc = {resident, groups, items, clusters,
-// blocks}
-extern "C" int dma_agg_bf16x_schedule(int n_nodes, int T, int din, int hdim,
-                                      int* sc) {
-  if (n_nodes < 1 || T < 1 || T > MAX_T16 || din < 1 || hdim < 1)
+// The grid the 16-bit core takes for a problem (n_nodes >= 1) of
+// `passes` (0: a 16-bit table, 1 or 3 bf16 passes) on this card: sc =
+// {resident, groups, items, clusters, blocks}
+extern "C" int dma_agg_schedule(int n_nodes, int T, int din, int hdim,
+                                int passes, int* sc) {
+  if (n_nodes < 1 || T < 1 || T > MAX_T16 || din < 1 || hdim < 1 ||
+      (passes != 0 && passes != 1 && passes != 3))
     return (int)cudaErrorInvalidValue;
-  ScheduleX x;
-  const cudaError_t err = schedule_x(dma_agg_x_kernel, din, hdim,
-                                     node_row_tiles(n_nodes, T), &x);
+  Schedule16 x;
+  const long long rows = node_row_tiles(n_nodes, T);
+  const cudaError_t err =
+      passes == 0   ? schedule16(dma_agg16_kernel<false, TABLE16>, din,
+                                 hdim, 1, rows, &x)
+      : passes == 1 ? schedule16(dma_agg16_kernel<false, F32_X1>, din,
+                                 hdim, 1, rows, &x)
+                    : schedule16(dma_agg16_kernel<false, F32_X3>, din,
+                                 hdim, 2, rows, &x);
   if (err != cudaSuccess) return (int)err;
   const int v[5] = {x.resident, x.groups, x.items, x.clusters, x.blocks};
   for (int i = 0; i < 5; ++i) sc[i] = v[i];

@@ -15,13 +15,12 @@ core of ``csrc/agg_tc.cuh``: the deepest layer of the frontier forward under ``t
 ``launch_bf16x`` runs an f32 table in one or three bf16 passes (the
 precision policy, ``utils.precision``), Wq tiled by
 ``ops.agg.tile_wq_bf16x``, counted in ``launches_bf16x1`` and
-``launches_bf16x3``.  One pass runs the bf16x1 core of the same header:
-each block loads a row tile's f32 rows a k chunk ahead, rounds them once
-into shared memory and sweeps a run of Wq's column tiles over them
-(K2's one-pass projection runs the same core; ``card_schedule_bf16x``
-asks the card's launch for the grid it picks).  Three passes run the
-16-bit core, whose producer splits each row into bf16 hi and lo as it
-stages it.
+``launches_bf16x3``.  Every 16-bit form runs the 16-bit core of the same
+header: a block pair gathers a pair of row tiles once into shared memory
+(an f32 row rounded to bf16, or split into hi and lo, as it is staged)
+and sweeps a run of Wq's column tiles over them, each k chunk's partial
+sum promoted to an f32 sum; K2's projections run the same core, and
+``card_schedule`` asks the card's launch for the grid it picks.
 """
 
 from __future__ import annotations
@@ -48,27 +47,27 @@ _ARGTYPES_BF16X = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
 
 
-def card_schedule_bf16x(kind: str, rows: int, din: int, hdim: int,
-                        t: int = 1) -> dict:
-    """The grid the card's one-pass launch takes (``choose_x`` in
-    csrc/agg_tc.cuh): ``kind`` "dma" (K3, ``rows`` nodes of ``t`` rows)
-    or "project" (K2's projection of ``rows`` table rows).  ``resident``:
-    a row tile's k chunks fit the A slots, so each row is read and
-    rounded once a run of column tiles (else once a tile); ``groups``:
-    the column tiles split into that many equal runs, each (row-tile
-    pair, run) one of ``items``; ``clusters``: the block pairs the card
-    runs at once; ``blocks``: the persistent grid."""
+def card_schedule(kind: str, rows: int, din: int, hdim: int, t: int = 1,
+                  passes: int = 1) -> dict:
+    """The grid the card's launch takes on the 16-bit core (``choose16``
+    in csrc/agg_tc.cuh): ``kind`` "dma" (K3, ``rows`` nodes
+    of ``t`` rows) or "project" (K2's projection of ``rows`` table rows),
+    ``passes`` 0 (a 16-bit table), 1 or 3 (an f32 table in bf16 passes).
+    ``resident``: a row tile's k chunks fit the A slots, so each row is
+    read (and rounded) once a run of column tiles, else once a tile;
+    ``groups``: the column tiles split into that many equal runs, each
+    (row-tile pair, run) one of ``items``; ``clusters``: the block pairs
+    the card runs at once; ``blocks``: the persistent grid."""
     lib = cuda_build.library("dma_agg" if kind == "dma" else "agg")
-    fn, args = ((lib.dma_agg_bf16x_schedule, (rows, t, din, hdim))
+    fn, args = ((lib.dma_agg_schedule, (rows, t, din, hdim, passes))
                 if kind == "dma" else
-                (lib.agg_project_bf16x_schedule, (rows, din, hdim)))
+                (lib.agg_project_schedule, (rows, din, hdim, passes)))
     fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     sc = (ctypes.c_int * 5)()
     err = fn(*args, sc)
     if err != 0:
-        raise RuntimeError(f"the bf16x schedule query failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"the schedule query failed: CUDA error {err}")
     return dict(zip(("resident", "groups", "items", "clusters", "blocks"),
                     (bool(sc[0]), *sc[1:])))
 

@@ -315,9 +315,11 @@ def serve_main(args, graph) -> None:
             index, track_ids=graph.track_ids if graph else None,
             tracks_meta=graph.tracks if graph else None)
         front.knn_rows(np.arange(min(2, index.n)), 10)
-        print(f"serving {index.n} tracks on :{args.port} (sharded over "
-              f"{index.mesh.n_graph} ranks, {dev})")
         server = serve(front, port=args.port)
+        # the port bound (``--port 0``: one the system picked)
+        print(f"serving {index.n} tracks on :{server.server_address[1]} "
+              f"(sharded over {index.mesh.n_graph} ranks, {dev})",
+              flush=True)
         try:
             server.serve_forever()
         finally:

@@ -1,6 +1,5 @@
-"""Time the aggregation's bf16x forms (an f32 table in one or three bf16
-passes, ``GCN_TPU_MATMUL_PRECISION`` default / high) of one or more
-checkouts of the port on one card, to compare kernel versions in one run:
+"""Time the aggregation's 16-bit-core forms of one or more checkouts of the
+port on one card, to compare kernel versions in one run:
 
     python scripts/bf16x_ab.py [--no-epilogue] TREE [TREE ...]
 
@@ -8,19 +7,23 @@ Each TREE is the root of a checkout.  Its package is imported in a process
 of its own, which builds that checkout's kernels into its own
 ``build/torch_kernels/``, and prints one JSON line: the card, ``ms`` a call
 (20 calls after 3, queued behind a sleep kernel so the CUDA events time
-them back to back on the device) for K3 at co1_T10_wide's two
-aggregations (4,224 nodes x T=10 over a 20,000 x 128 table and 384 x 10
-over 42,240 x 256, H 1024), K3 at the 100k step's layer 0 (4,224 x 10 of
-100,000 x 512, H 512), K2's projection of 20,000 rows at Din 128 and 256
-(H 1024) and, as a control, K3's bf16 form at the two K3 shapes of Din
-128 and 512, and ``digests``: sha1 prefixes of the outputs, equal across
-trees whose kernels compute the same bits.  Ids are drawn at random over
-each table from fixed seeds.  ``--no-epilogue`` times each TREE's copy
-built with ``AGG_TC_X_EPILOGUE`` 0 (under ``TREE/build/``): the one-pass
-core without its epilogue, which then writes nothing, so its digests
-differ; what the tiles cost without it.  Run trees in turns (parent,
-change, change, parent) and compare only within one run: cards and hosts
-differ.
+them back to back on the device) of the bf16x forms (an f32 table in one or
+three bf16 passes, ``GCN_TPU_MATMUL_PRECISION`` default / high) of K3 at
+co1_T10_wide's two aggregations (4,224 nodes x T=10 over a 20,000 x 128
+table and 384 x 10 over 42,240 x 256, H 1024) and at the 100k step's
+layer 0 (4,224 x 10 of 100,000 x 512, H 512), of K2's projection of 20,000
+rows at Din 128 and 256 (H 1024), and of the 16-bit table forms (bf16 and
+f16): K3 at the Din 128 and 512 shapes, K2's projection of 20,000 rows at
+Din 512 and 256 (H 1024, the FLOP-bound step's layers); and ``digests``:
+sha1 prefixes of the outputs, equal across trees whose kernels compute
+the same bits.  Ids are drawn at random over each table from fixed seeds.
+``--no-epilogue`` times each TREE's copy built with ``AGG_TC_EPILOGUE`` 0
+(under ``TREE/build/``): the 16-bit core without its epilogue, which then
+writes nothing, so its digests differ; what the tiles cost without it.
+Run trees in turns (parent, change, change, parent) and compare only
+within one run: cards and hosts differ.  A change to the core's order of
+sums (as the promotion of its partial sums) changes the digests by
+design.
 """
 
 from __future__ import annotations
@@ -34,19 +37,20 @@ import subprocess
 import sys
 
 PACKAGE = "gcn_song_embeddings_tpu_torch"
-# csrc/agg_tc.cuh's switch of the one-pass core's epilogue
-EPILOGUE_SWITCH = "AGG_TC_X_EPILOGUE"
+# csrc/agg_tc.cuh's switch of the 16-bit core's epilogue
+EPILOGUE_SWITCH = "AGG_TC_EPILOGUE"
 K3_SHAPES = {  # name: (table rows, nodes, T, Din, H)
     "wide_deep": (20000, 4224, 10, 128, 1024),
     "wide_top": (42240, 384, 10, 256, 1024),
     "l0_100k": (100000, 4224, 10, 512, 512)}
-K2_DINS = (128, 256)        # K2's projection of 20,000 rows, H 1024
+K2_DINS = (128, 256)        # K2's bf16x projection of 20,000 rows, H 1024
+K2_16_DINS = (512, 256)     # K2's 16-bit projection of 20,000 rows, H 1024
 REPS, WARMUP = 20, 3
 
 
 def without_epilogue(tree: str) -> str:
     """A copy of ``tree``'s package under ``tree/build/`` whose header
-    sets ``AGG_TC_X_EPILOGUE`` to 0 before anything else; returns the
+    sets ``AGG_TC_EPILOGUE`` to 0 before anything else; returns the
     copy's root."""
     root = os.path.join(tree, "build", "bf16x_ab_no_epilogue")
     shutil.rmtree(root, ignore_errors=True)
@@ -117,9 +121,16 @@ def measure(tree: str) -> dict:
                     digests[f"k3_bf16x{passes}_{name}"] = digest(run())
             if din != 256:
                 tab, ids, w, wq, bq = args
-                tab16, wq16 = tab.bfloat16(), wq.bfloat16()
-                times[f"k3_bf16_{name}"] = ms(lambda: agg.conv_aggregate(
-                    tab16, ids, w, wq16, bq, mode="dma"))
+                for dtype, form in ((torch.bfloat16, "bf16"),
+                                    (torch.float16, "f16")):
+                    tab16, wq16 = tab.to(dtype), wq.to(dtype)
+
+                    def run16():
+                        return agg.conv_aggregate(tab16, ids, w, wq16, bq,
+                                                  mode="dma")
+                    times[f"k3_{form}_{name}"] = ms(run16)
+                    digests[f"k3_{form}_{name}"] = digest(run16())
+                    del tab16
             del args
         for din in K2_DINS:
             tab, _, _, wq, bq = problem(20000, 1, 1, din, 1024, seed=2)
@@ -130,6 +141,16 @@ def measure(tree: str) -> dict:
                     return agg.project_table_bf16x(tab, hi, lo, bq, passes)
                 times[f"k2_bf16x{passes}_project_{din}"] = ms(project)
                 digests[f"k2_bf16x{passes}_project_{din}"] = digest(project())
+        for din in K2_16_DINS:
+            tab, _, _, wq, bq = problem(20000, 1, 1, din, 1024, seed=3)
+            for dtype, form in ((torch.bfloat16, "bf16"),
+                                (torch.float16, "f16")):
+                tab16, tiles = tab.to(dtype), agg.tile_wq16(wq.to(dtype))
+
+                def project16():
+                    return agg.project_table16(tab16, tiles, bq)
+                times[f"k2_{form}_project_{din}"] = ms(project16)
+                digests[f"k2_{form}_project_{din}"] = digest(project16())
     return {"card": torch.cuda.get_device_name(0), "ms": times,
             "digests": digests}
 
@@ -146,8 +167,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", help="checkout roots, in turn")
     ap.add_argument("--no-epilogue", action="store_true",
-                    help="time each tree's copy without the one-pass "
-                         "core's epilogue")
+                    help="time each tree's copy without the 16-bit core's "
+                         "epilogue")
     args = ap.parse_args(argv)
     for tree in args.trees:
         tree = os.path.abspath(tree)

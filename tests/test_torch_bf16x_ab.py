@@ -1,4 +1,4 @@
-"""``scripts/bf16x_ab.py`` (the bf16x forms' timing harness, loaded from
+"""``scripts/bf16x_ab.py`` (the 16-bit core's timing harness, loaded from
 its path) on the CPU: the ``--no-epilogue`` copy differs from the tree
 only by the switch set before the header's first line, a tree without
 the switch is refused, and measuring refuses a machine without a card.
@@ -64,3 +64,4 @@ def test_measure_needs_a_card():
         pytest.skip("a card is present: the harness runs there")
     with pytest.raises(RuntimeError, match="CUDA card"):
         bf16x_ab.measure(os.fspath(ROOT))
+

@@ -1,6 +1,6 @@
 """K3's bf16x forms (an f32 table in one or three bf16 passes under
-``GCN_TPU_MATMUL_PRECISION`` default / high) at the edges of the bf16x
-core's schedule (csrc/agg_tc.cuh ``run_rows_x``), against their plain
+``GCN_TPU_MATMUL_PRECISION`` default / high) at the edges of the 16-bit
+core's schedule (csrc/agg_tc.cuh ``run16``), against their plain
 version on the card at the bars of tests/test_torch_tools_gpu.py's
 ``_bf16x_holds`` (within 1e-4 of ``conv_aggregate_plain(..., passes)``,
 within 4x its error a pass against float64 of the same rounded function,
@@ -8,20 +8,20 @@ node 3's all-zero weights giving a zero row, the backward in the same
 passes within 1e-3 of float64 autograd):
 
 * T = 1 (64 nodes a row tile) and T = 64 (one);
-* Din 8 and 72 (one k chunk, a part chunk), 192 / 256 (the one-pass
-  rows resident, the three passes' staged as in the 16-bit core), 512,
-  and 640 / 704 and 1024 (the last resident width of one pass and the
-  first and a deep streamed one);
+* Din 8 and 72 (one k chunk, a part chunk), 192 / 256, 512, 640 / 704
+  and 1024 (deep rows: the core's partial sums promoted 16 times);
 * H 4 and 260 (a last column tile of 4 columns, one Wq tile);
 * a batch whose last block pair has no second row tile, and one row tile
   alone;
 * ids drawn over the whole table, as the gathers of a sweep read them.
 
-Two calls are bit-equal, and the grid the card's one-pass launch takes
-(``ops.dma_agg.card_schedule_bf16x``) keeps rows resident exactly where
-Din <= 640 and covers every tile.  K3's bf16 table form (the 16-bit
-core's TABLE16 staging, the same accumulator) is held at the float64 bar
-at the deep edges' shapes, Din 704 and 1024.
+Two calls are bit-equal, and the grid the card's launch takes
+(``ops.dma_agg.card_schedule``) keeps rows resident exactly where a row
+tile's k chunks fit the A slots (Din <= 896; three passes, two slots a
+chunk, Din <= 448) and covers every tile.  The 16-bit table forms are held
+at the float64 bar at the deep edges' shapes, Din 704 and 1024: K3's bf16
+form, and K2's projections in every form (bf16, f16, one and three bf16
+passes).
 
 Marked ``gpu``: they skip (with a reason) where no CUDA device is
 present, deciding inside a fixture.  They import nothing of JAX:
@@ -100,15 +100,17 @@ def test_k3_bf16x_two_calls_are_bit_equal(cuda, passes, b, t, din, h):
                                        (60, 10, 704, 1024),
                                        (6, 64, 1024, 260)])
 def test_the_card_schedule_covers_every_tile(cuda, b, t, din, h):
-    n_col = -(-h // 256)
-    for kind, rows, row_tiles in (("dma", b, -(-b // (64 // t))),
-                                  ("project", 20000, -(-20000 // 64))):
-        sc = dma_agg.card_schedule_bf16x(kind, rows, din, h, t)
-        assert sc["resident"] == (din <= 640), (kind, sc)
-        assert n_col % sc["groups"] == 0, (kind, sc)
-        assert sc["items"] == -(-row_tiles // 2) * sc["groups"], (kind, sc)
-        assert sc["blocks"] == 2 * min(sc["items"], sc["clusters"]), (kind,
+    n_col = -(-h // 128)
+    for passes, deepest in ((0, 896), (1, 896), (3, 448)):
+        for kind, rows, row_tiles in (("dma", b, -(-b // (64 // t))),
+                                      ("project", 20000, -(-20000 // 64))):
+            sc = dma_agg.card_schedule(kind, rows, din, h, t, passes)
+            assert sc["resident"] == (din <= deepest), (kind, passes, sc)
+            assert n_col % sc["groups"] == 0, (kind, sc)
+            assert sc["items"] == -(-row_tiles // 2) * sc["groups"], (kind,
                                                                       sc)
+            assert sc["blocks"] == 2 * min(sc["items"], sc["clusters"]), (
+                kind, sc)
 
 
 @pytest.mark.parametrize("b,t,din,h", [(60, 10, 704, 1024),
@@ -134,3 +136,39 @@ def test_k3_bf16_table_error_vs_float64_at_the_deep_edges(cuda, b, t, din,
     err = float((got.double() - ref).abs().max())
     plain_err = float((plain.double() - ref).abs().max())
     assert err <= 4 * plain_err, (err, plain_err)
+
+
+@pytest.mark.parametrize("form", ["bf16", "f16", "bf16x1", "bf16x3"])
+@pytest.mark.parametrize("b,t,din,h", [(60, 10, 704, 1024),
+                                       (20, 10, 1024, 260)],
+                         ids=["din704", "din1024"])
+def test_k2_16bit_projection_error_vs_float64_at_the_deep_edges(
+        cuda, form, b, t, din, h):
+    """K2 (its projection of every table row, then the f32 gather) in each
+    16-bit-core form on the deep edges' shapes: within 4x a pass the plain
+    f32 version's max error against float64 of the same rounded
+    function."""
+    from gcn_song_embeddings_tpu_torch.ops import agg
+    from gcn_song_embeddings_tpu_torch.utils import precision
+
+    tab, ids, w, wq, bq = _args(cuda, b, t, din, h, seed=b * t + din + h + 2)
+    passes = {"bf16x1": 1, "bf16x3": 3}.get(form)
+    if passes is None:
+        dtype = torch.bfloat16 if form == "bf16" else torch.float16
+        tab, wq = tab.to(dtype), wq.to(dtype)
+    counts = agg.kernel_launches_bf16x1 if form == "bf16x1" else (
+        agg.kernel_launches_bf16x3 if form == "bf16x3" else
+        agg.kernel_launches_bf16 if form == "bf16" else
+        agg.kernel_launches_f16)
+    before = counts["project"]
+    with torch.inference_mode(), precision.override(PASSES.get(passes)):
+        got = agg.conv_aggregate(tab, ids, w, wq, bq, mode="stream")
+    with torch.inference_mode():
+        plain = agg.conv_aggregate_plain(tab, ids, w, wq, bq, passes)
+        ref = agg.conv_aggregate_plain(tab.double(), ids, w.double(),
+                                       wq.double(), bq.double(), passes)
+    torch.cuda.synchronize()
+    assert counts["project"] == before + 1
+    err = float((got.double() - ref).abs().max())
+    plain_err = float((plain.double() - ref).abs().max())
+    assert err <= 4 * (passes or 1) * plain_err, (err, plain_err)

@@ -22,9 +22,9 @@ verb.
 
 import json
 import os
+import re
 import shutil
 import signal
-import socket
 import time
 import urllib.error
 import urllib.request
@@ -109,10 +109,12 @@ def test_train_mesh_graph_resumes_under_torchrun(runs, tmp_path):
         atol=1e-5)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _bound_port(log: str) -> int | None:
+    """The port a server started with ``--port 0`` reports once it has
+    bound it, else None."""
+    with open(log) as f:
+        m = re.search(r"serving \d+ tracks on :(\d+)", f.read())
+    return int(m.group(1)) if m else None
 
 
 def _get(port, path):
@@ -123,27 +125,34 @@ def _get(port, path):
 
 @pytest.fixture(scope="module")
 def served(runs, tmp_path_factory):
-    """The three ``serve --sharded`` forms started together, each asked
-    one batched request once it answers /healthz, then stopped."""
+    """The three ``serve --sharded`` forms started together, each on a
+    port it binds itself (``--port 0``, read back from its log: a port
+    picked here and released would be free for any other process to take
+    until the server bound it), asked one batched request once it answers
+    /healthz, then stopped."""
     d = tmp_path_factory.mktemp("serve_sharded")
     emb = os.path.join(runs["run"], "emb.npy")
     procs, out = {}, {}
     try:
         for kind, flags in SERVES.items():
-            port = _free_port()
-            procs[kind] = (port, torchrun(
+            procs[kind] = torchrun(
                 2, "gcn_song_embeddings_tpu_torch.serve",
                 ["--sharded", "--emb", emb, "--dataset", runs["ds"],
-                 "--port", str(port), "--device", "cpu", *flags],
-                str(d / f"{kind}.log")))
+                 "--port", "0", "--device", "cpu", *flags],
+                str(d / f"{kind}.log"))
         deadline = time.monotonic() + 240
-        for kind, (port, proc) in procs.items():
+        for kind, proc in procs.items():
+            log = str(d / f"{kind}.log")
             while kind not in out:
                 if proc.poll() is not None or time.monotonic() > deadline:
-                    with open(d / f"{kind}.log") as f:
+                    with open(log) as f:
                         raise AssertionError(f"serve --sharded {kind} ended "
                                              f"{proc.poll()}:\n"
                                              f"{f.read()[-6000:]}")
+                port = _bound_port(log)
+                if port is None:
+                    time.sleep(0.2)
+                    continue
                 try:
                     health = _get(port, "/healthz")
                 except (urllib.error.URLError, ConnectionError):
@@ -152,7 +161,7 @@ def served(runs, tmp_path_factory):
                 rows = ",".join(map(str, QUERY))
                 out[kind] = (health, _get(port, f"/knn?indices={rows}&k={K}"))
     finally:
-        for _, proc in procs.values():
+        for proc in procs.values():
             stop(proc)
     return out
 
