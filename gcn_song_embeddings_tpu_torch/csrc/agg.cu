@@ -25,8 +25,11 @@
 //      column-slab-major, P [ceil(H/64)][N][64] f32, so one slab of the
 //      100k catalog is 25.6 MB.
 //   3. `gather_mean_kernel`: out[b] = sum_t w[b,t] * P[nb[b,t]] / denom[b]
-//      with float4 loads, 16 lanes per node; the grid runs slab by slab,
-//      so the blocks in flight read one slab, which the 50 MB L2 holds.
+//      with float4 loads, 16 lanes per node, each lane a float4 of 4, 2
+//      or 1 slabs (as many as fit 24 MiB: 4 at N = 20,000, 1 at 100k),
+//      the node's ids and weights read once for them; the grid runs slab
+//      group by slab group, so the blocks in flight read slabs that the
+//      50 MB L2 holds.
 // K2 projects all N table rows whatever B is (where B*T < N some of that
 // work is not needed).  No fallback: each launch is checked.
 //
@@ -226,33 +229,51 @@ __device__ __forceinline__ uint32_t bf16_round_bits(float x) {
   return (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
 }
 
-// block = GATHER_NODES nodes x 16 lanes, each lane one float4 of a slab;
-// den_round: the weight sum as it is (0), rounded to bf16 (1) or f16 (2)
+// block = GATHER_NODES nodes x 16 lanes, each lane one float4 of each of
+// G slabs (slab group blockIdx.x / n_groups: slabs G sg .. G sg + G - 1);
+// den_round: the weight sum as it is (0), rounded to bf16 (1) or f16 (2).
+// A node's ids and weights are read once for its G slabs, and each lane
+// has G loads of P in flight a neighbour; the grid still runs slab group
+// by slab group, so the blocks in flight read G slabs, which L2 holds
+// (`gather_slabs`); the outputs are stored evict-first (`__stcs`), so
+// that they leave L2 to P.  Each output is fmaf(w_t, P, .) over t in
+// order and the same denominator, whatever G.
+template <int G>
 __global__ void __launch_bounds__(GATHER_NODES * 16)
 gather_mean_kernel(const float* __restrict__ P,   // [S][N][64]
                    const int* __restrict__ nb,    // [B, T]
                    const float* __restrict__ w,   // [B, T]
                    float* __restrict__ out,       // [B, H]
-                   int n_nodes, int T, int n_rows, int hdim, int n_groups,
-                   int den_round) {
-  const int slab = blockIdx.x / n_groups;
+                   int n_nodes, int T, int n_rows, int hdim, int n_slabs,
+                   int n_groups, int den_round) {
+  const int s0 = G * (blockIdx.x / n_groups);
   const int node = (blockIdx.x % n_groups) * GATHER_NODES + threadIdx.x / 16;
   const int lane = threadIdx.x % 16;
   if (node >= n_nodes) return;
-  const int c = slab * SLAB + 4 * lane;
-  const float* ps = P + (size_t)slab * n_rows * SLAB + 4 * lane;
+  const int ns = min(G, n_slabs - s0);
+  const size_t slab_floats = (size_t)n_rows * SLAB;
+  const float* ps = P + s0 * slab_floats + 4 * lane;
   const int* ids = nb + (size_t)node * T;
   const float* ws = w + (size_t)node * T;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
   float den = 0.f;
+#pragma unroll 4
   for (int t = 0; t < T; ++t) {
-    const float wt = ws[t];
-    const float4 v =
-        *reinterpret_cast<const float4*>(ps + (size_t)ids[t] * SLAB);
-    acc.x = fmaf(wt, v.x, acc.x);
-    acc.y = fmaf(wt, v.y, acc.y);
-    acc.z = fmaf(wt, v.z, acc.z);
-    acc.w = fmaf(wt, v.w, acc.w);
+    const float wt = __ldg(ws + t);
+    const float* row = ps + (size_t)__ldg(ids + t) * SLAB;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < ns) {
+        const float4 v =
+            __ldg(reinterpret_cast<const float4*>(row + g * slab_floats));
+        acc[g].x = fmaf(wt, v.x, acc[g].x);
+        acc[g].y = fmaf(wt, v.y, acc[g].y);
+        acc[g].z = fmaf(wt, v.z, acc[g].z);
+        acc[g].w = fmaf(wt, v.w, acc[g].w);
+      }
+    }
     den += wt;
   }
   if (den_round == 1)
@@ -260,9 +281,24 @@ gather_mean_kernel(const float* __restrict__ P,   // [S][N][64]
   else if (den_round == 2)
     den = __half2float(__float2half_rn(den));
   if (den == 0.f) den = 1.f;
-  if (c < hdim)
-    *reinterpret_cast<float4*>(out + (size_t)node * hdim + c) =
-        make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int c = (s0 + g) * SLAB + 4 * lane;
+    if (g < ns && c < hdim)
+      __stcs(reinterpret_cast<float4*>(out + (size_t)node * hdim + c),
+             make_float4(acc[g].x / den, acc[g].y / den, acc[g].z / den,
+                         acc[g].w / den));
+  }
+}
+
+// The slabs a gather thread takes: as many (4, 2 or 1) as L2 holds with
+// room to spare, since the blocks in flight read that many slabs of P
+constexpr long long GATHER_L2_BYTES = 24ll << 20;
+static int gather_slabs(int n_rows, int n_slabs) {
+  const long long slab = (long long)n_rows * SLAB * 4;
+  for (int g = 4; g > 1; g /= 2)
+    if (n_slabs >= g && g * slab <= GATHER_L2_BYTES) return g;
+  return 1;
 }
 
 // Not part of K2: a yardstick for the gather's reads.  `passes` streaming
@@ -460,10 +496,15 @@ extern "C" int agg_gather_launch(const void* P, const void* nb, const void* w,
   if (n_nodes < 1) return (int)cudaSuccess;
   const int n_slabs = (hdim + SLAB - 1) / SLAB;
   const int n_groups = (n_nodes + GATHER_NODES - 1) / GATHER_NODES;
-  const unsigned blocks = (unsigned)((long long)n_slabs * n_groups);
-  gather_mean_kernel<<<blocks, GATHER_NODES * 16, 0, (cudaStream_t)stream>>>(
+  const int g = gather_slabs(n_rows, n_slabs);
+  const unsigned blocks =
+      (unsigned)((long long)((n_slabs + g - 1) / g) * n_groups);
+  decltype(&gather_mean_kernel<1>) kernel =
+      g == 4 ? &gather_mean_kernel<4>
+             : (g == 2 ? &gather_mean_kernel<2> : &gather_mean_kernel<1>);
+  kernel<<<blocks, GATHER_NODES * 16, 0, (cudaStream_t)stream>>>(
       (const float*)P, (const int*)nb, (const float*)w, (float*)out, n_nodes,
-      T, n_rows, hdim, n_groups, den_round);
+      T, n_rows, hdim, n_slabs, n_groups, den_round);
   return (int)cudaGetLastError();
 }
 

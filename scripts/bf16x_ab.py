@@ -14,9 +14,14 @@ table and 384 x 10 over 42,240 x 256, H 1024) and at the 100k step's
 layer 0 (4,224 x 10 of 100,000 x 512, H 512), of K2's projection of 20,000
 rows at Din 128 and 256 (H 1024), and of the 16-bit table forms (bf16 and
 f16): K3 at the Din 128 and 512 shapes, K2's projection of 20,000 rows at
-Din 512 and 256 (H 1024, the FLOP-bound step's layers); and ``digests``:
-sha1 prefixes of the outputs, equal across trees whose kernels compute
-the same bits.  Ids are drawn at random over each table from fixed seeds.
+Din 512 and 256 (H 1024, the FLOP-bound step's layers), and K2's whole
+16-bit call (projection + gather-mean) at the FLOP-bound step's shapes
+(20,000 nodes x T = 3 over the 20,000-row table at Din 512 and 256, H
+1024, weights of the table's type) with its gather-mean alone and its
+library call (one ``torch.einsum`` of the gathered 16-bit rows with the
+16-bit Wq, as ``chip_smoke.py`` times it; ``_library`` keys); and
+``digests``: sha1 prefixes of the outputs, equal across trees whose
+kernels compute the same bits.  Ids are drawn at random over each table from fixed seeds.
 ``--no-epilogue`` times each TREE's copy built with ``AGG_TC_EPILOGUE`` 0
 (under ``TREE/build/``): the 16-bit core without its epilogue, which then
 writes nothing, so its digests differ; what the tiles cost without it.
@@ -45,6 +50,7 @@ K3_SHAPES = {  # name: (table rows, nodes, T, Din, H)
     "l0_100k": (100000, 4224, 10, 512, 512)}
 K2_DINS = (128, 256)        # K2's bf16x projection of 20,000 rows, H 1024
 K2_16_DINS = (512, 256)     # K2's 16-bit projection of 20,000 rows, H 1024
+K2_FB = (20000, 3)          # the FLOP-bound step: nodes (= table rows), T
 REPS, WARMUP = 20, 3
 
 
@@ -151,6 +157,29 @@ def measure(tree: str) -> dict:
                     return agg.project_table16(tab16, tiles, bq)
                 times[f"k2_{form}_project_{din}"] = ms(project16)
                 digests[f"k2_{form}_project_{din}"] = digest(project16())
+        n, t = K2_FB
+        for din in K2_16_DINS:
+            tab, ids, w, wq, bq = problem(n, n, t, din, 1024, seed=4)
+            for dtype, form in ((torch.bfloat16, "bf16"),
+                                (torch.float16, "f16")):
+                tab16, wq16, w16 = tab.to(dtype), wq.to(dtype), w.to(dtype)
+                key = f"k2_{form}_fb_{din}"
+
+                def whole():
+                    return agg.conv_aggregate(tab16, ids, w16, wq16, bq,
+                                              mode="stream")
+                times[key] = ms(whole)
+                digests[key] = digest(whole())
+                times[f"{key}_library"] = ms(lambda: torch.einsum(
+                    "btd,hd->bth", tab16[ids.long()], wq16))
+                proj = agg.project_table16(tab16, agg.tile_wq16(wq16), bq)
+                out = torch.empty((n, 1024), device=dev)
+
+                def gather():
+                    return agg.gather_mean(proj, ids, w16, out)
+                times[f"{key}_gather_mean"] = ms(gather)
+                digests[f"{key}_gather_mean"] = digest(gather())
+                del tab16, proj
     return {"card": torch.cuda.get_device_name(0), "ms": times,
             "digests": digests}
 

@@ -68,7 +68,12 @@ def test_tile_wq_bf16_kernel_bit_identical(cuda, hdim, din):
     (4224, 10, 4608, 512, 512, 7),     # the step's layer 0 (full width)
     (384, 10, 4224, 128, 512, None),   # layer 1's widths, bf16
     (65, 3, 300, 24, 16, 0), (7, 64, 100, 40, 20, None),
-    (1, 1, 1, 8, 4, None)])
+    (1, 1, 1, 8, 4, None),
+    # T = 3 and 1 at H 200 with Din at the resident limit (896) and the
+    # first streamed width (960), odd row-tile counts; many tiles a block
+    # (the A slots and Wq stages wrap many times)
+    (2001, 3, 4000, 896, 200, 2000), (97, 1, 3000, 960, 200, 3),
+    (4224, 10, 20000, 128, 1024, 4223)])
 def test_bf16_agg_kernels_match_plain(cuda, mode, b, t, n, din, hdim,
                                       zero_row):
     h, ids, w, Wq, bq = _problem(cuda, b, t, n, din, hdim, zero_row=zero_row)

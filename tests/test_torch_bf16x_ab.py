@@ -65,3 +65,12 @@ def test_measure_needs_a_card():
     with pytest.raises(RuntimeError, match="CUDA card"):
         bf16x_ab.measure(os.fspath(ROOT))
 
+
+
+def test_k2_whole_call_runs_at_the_flopbound_steps_shapes():
+    """K2's whole 16-bit call is timed over the FLOP-bound step's table
+    and neighbourhoods (``bench``: 20,000 tracks, T = 3, hidden 1024)."""
+    from gcn_song_embeddings_tpu_torch import bench
+
+    assert bf16x_ab.K2_FB == (bench.N_TRACKS, bench.T)
+    assert bench.FB_HIDDEN == 1024

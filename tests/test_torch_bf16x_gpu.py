@@ -7,12 +7,15 @@ within 4x its error a pass against float64 of the same rounded function,
 node 3's all-zero weights giving a zero row, the backward in the same
 passes within 1e-3 of float64 autograd):
 
-* T = 1 (64 nodes a row tile) and T = 64 (one);
-* Din 8 and 72 (one k chunk, a part chunk), 192 / 256, 512, 640 / 704
-  and 1024 (deep rows: the core's partial sums promoted 16 times);
-* H 4 and 260 (a last column tile of 4 columns, one Wq tile);
-* a batch whose last block pair has no second row tile, and one row tile
-  alone;
+* T = 1 (64 nodes a row tile), 3, 10 and 64 (one);
+* Din 8 and 72 (one k chunk, a part chunk), 192 / 256, 448 / 512 (the
+  three-pass rows' resident limit and the first streamed width), 640 /
+  704, 896 / 960 (the same for one pass) and 1024 (deep rows: the core's
+  partial sums promoted 16 times);
+* H 4, 200 and 260 (a last column tile of 4, 72 or 4 columns);
+* a batch whose last block pair has no second row tile, one row tile
+  alone, and a batch of many tiles a block, so that the A slots, the Wq
+  stages and their barriers wrap around many times;
 * ids drawn over the whole table, as the gathers of a sweep read them.
 
 Two calls are bit-equal, and the grid the card's launch takes
@@ -57,6 +60,11 @@ EDGES = [  # (B, T, Din, H, need_dh)
     pytest.param(300, 1, 128, 1024, True, id="T1"),
     pytest.param(6, 64, 256, 512, True, id="T64"),
     pytest.param(100, 10, 8, 260, True, id="din8_h260"),
+    pytest.param(301, 3, 128, 200, True, id="T3_h200"),
+    pytest.param(61, 10, 448, 200, False, id="din448"),
+    pytest.param(61, 10, 896, 200, False, id="din896"),
+    pytest.param(61, 10, 960, 512, False, id="din960"),
+    pytest.param(4224, 10, 64, 1024, False, id="many_tiles"),
     pytest.param(100, 10, 72, 1024, False, id="din72"),
     pytest.param(60, 10, 192, 512, False, id="din192"),
     pytest.param(60, 10, 256, 512, True, id="din256"),
@@ -96,6 +104,10 @@ def test_k3_bf16x_two_calls_are_bit_equal(cuda, passes, b, t, din, h):
 @pytest.mark.parametrize("b,t,din,h", [(4224, 10, 128, 1024),
                                        (384, 10, 256, 1024),
                                        (4224, 10, 512, 512), (18, 10, 8, 4),
+                                       (60, 10, 448, 200),
+                                       (60, 10, 512, 260),
+                                       (60, 10, 896, 260),
+                                       (60, 10, 960, 512),
                                        (60, 10, 640, 260),
                                        (60, 10, 704, 1024),
                                        (6, 64, 1024, 260)])

@@ -84,8 +84,14 @@ def test_tile_wq_f16_kernel_bit_identical(cuda, hdim, din):
 # partial k chunk), permuted ids, all-zero weight rows; an odd number of
 # row tiles (a block pair whose second block has no rows) and one k chunk
 # a tile over many tiles a block (the ring's stages and the two consumer
-# warpgroups taking turns across tiles)
+# warpgroups taking turns across tiles); T = 3 at H 200 with Din at the
+# resident limit (896) and the first streamed width (960), both with an
+# odd row-tile count; and many tiles a block at Din 128, H 1024, so that
+# the A slots, the Wq stages and their barriers wrap many times
 RAGGED = [(1, 1, 1, 8, 4, (), False),
+          (2001, 3, 7000, 896, 200, (5, 2000), True),
+          (61, 10, 3000, 960, 200, (0,), False),
+          (4224, 10, 45000, 128, 1024, (9,), True),
           (193, 1, 300, 24, 100, (0, 192), False),
           (50, 64, 4000, 8, 100, (49,), True),
           (400, 10, 4000, 40, 4, (3,), True),
@@ -156,6 +162,47 @@ def test_f16_k2_takes_f16_weights_with_the_f16_denominator(cuda):
                                rtol=0, atol=AGG_ATOL)
     torch.testing.assert_close(mean, agg.gather_mean_plain(rows, ids, w),
                                rtol=1e-6, atol=1e-7)
+
+
+# (table rows, T, H, nodes): the gather takes 4, 2 and 1 slabs a thread
+# as P's slabs of 3,000, 30,000 and 60,000 rows fit L2 four, two and one
+# at a time; H 328 leaves 6 slabs (a last slab group of 2 of 4), H 200 a
+# last slab of 8 columns; node counts that leave the last block's 16
+# nodes ragged
+GATHERS = [(3000, 1, 328, 1001), (3000, 3, 200, 2999),
+           (30000, 3, 328, 30000), (30000, 1, 1024, 77),
+           (60000, 3, 328, 4097), (60000, 1, 200, 60000)]
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,t,hdim,b", GATHERS)
+def test_gather_mean_kernel_matches_plain(cuda, w_dtype, n, t, hdim, b):
+    """K2's gather-mean alone, with each weight type's denominator (f32
+    as it is, bf16 / f16 rounded), against its plain version on the same
+    projected slabs; node 0's weights all zero give a zero row.  The
+    kernel sums fmaf(w, p, s) where the plain version rounds w p first:
+    on unit-normal slabs (|p| up to ~5, an ulp 4.8e-7) the two part by
+    a few ulp, 1.9e-7 seen on the card, so atol 1e-6 (the kernels' bar
+    against the plain version in this file is AGG_ATOL, 1e-4)."""
+    g = torch.Generator(device="cpu").manual_seed(n + t + hdim + b)
+    slabs = -(-hdim // agg.SLAB)
+    proj = torch.randn((slabs, n, agg.SLAB), generator=g).to(cuda)
+    ids = torch.randint(0, n, (b, t), generator=g,
+                        dtype=torch.int32).to(cuda)
+    w = torch.rand((b, t), generator=g)
+    w[0] = 0.0
+    w = w.to(w_dtype).to(cuda)
+    before = agg.kernel_launches["gather_mean"]
+    with torch.inference_mode():
+        got = agg.gather_mean(proj, ids, w, torch.empty((b, hdim),
+                                                        device=cuda))
+        want = agg.gather_mean_plain(agg.slabs_to_rows(proj, hdim), ids, w)
+    torch.cuda.synchronize()
+    assert agg.kernel_launches["gather_mean"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
 
 
 def test_l2_read_probe_reads_every_float(cuda):

@@ -133,19 +133,44 @@ def _rel(got, want) -> float:
 # ---- the policy --------------------------------------------------------
 
 
+def _jax_takes(value):
+    """JAX accepts ``value`` as its default matmul precision, both ways
+    the JAX package and the tests set it."""
+    with jax.default_matmul_precision(value):
+        pass
+    before = jax.config.jax_default_matmul_precision
+    jax.config.update("jax_default_matmul_precision", value)
+    jax.config.update("jax_default_matmul_precision", before)
+
+
+# JAX's levels, their aliases (bfloat16 and float32 were once refused:
+# JAX ran with them while the port failed at import) and the presets that
+# name the port's own forms
 @pytest.mark.parametrize("value,passes", [
-    ("default", 1), ("high", 3), ("highest", None), ("", None), (None, None)])
+    ("default", 1), ("high", 3), ("highest", None), ("", None), (None, None),
+    ("bfloat16", 1), ("tensorfloat32", 3), ("float32", None),
+    ("BF16_BF16_F32", 1), ("BF16_BF16_F32_X3", 3), ("F32_F32_F32", None)])
 def test_policy_parses_the_jax_values(value, passes):
     assert precision.parse(value) == passes
     if value:   # one variable drives both packages: JAX takes it too
-        with jax.default_matmul_precision(value):
-            pass
+        _jax_takes(value)
 
 
-@pytest.mark.parametrize("value", ["bfloat16", "HIGH", "float32", "fast"])
+@pytest.mark.parametrize("value", [
+    "HIGH", "fast", "BF16_BF16_F32_X6", "TF32_TF32_F32", "F16_F16_F32"])
 def test_policy_refuses_any_other_value(value):
     with pytest.raises(ValueError, match="GCN_TPU_MATMUL_PRECISION"):
         precision.parse(value)
+
+
+@pytest.mark.parametrize("value", precision.UNFORMED)
+def test_unformed_presets_are_a_named_divergence(value):
+    """JAX takes each preset the port has no form for; the port refuses
+    it with a message that names the divergence."""
+    _jax_takes(value)
+    with pytest.raises(ValueError, match="deliberate divergence") as err:
+        precision.parse(value)
+    assert value in str(err.value)
 
 
 def _import_passes(value):
@@ -157,7 +182,8 @@ def _import_passes(value):
 
 
 @pytest.mark.parametrize("value,passes", [
-    ("default", "1"), ("high", "3"), ("highest", "None"), ("", "None")])
+    ("default", "1"), ("high", "3"), ("highest", "None"), ("", "None"),
+    ("bfloat16", "1")])
 def test_variable_is_read_at_import(value, passes):
     out = _import_passes(value)
     assert out.returncode == 0, out.stderr
