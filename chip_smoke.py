@@ -1090,16 +1090,28 @@ def three_step_checks(torch, trainer) -> dict:
     """3 steps from the trainer's seeded init on the same batches.
 
     Full-graph forward (K2 + backward) against the frontier forward (K3)
-    on the card: every parameter at rtol 1e-4 / atol 1e-5.  The card
-    against the CPU's plain versions: the per-step losses at rtol 1e-4,
-    G1_w at rtol 1e-4 / atol 1e-5 and the embeddings of 64 nodes at rtol
-    1e-3 / atol 1e-4 (tests/test_trainer.py's comparison); every leaf's
-    difference is logged.  The two devices round the recomputed
-    ``pre = h[nb] Wq^T + bq`` differently, so entries of ``pre`` within an
-    ulp of 0 take the other leaky_relu slope, and Adam's normalisation
-    turns those gradient differences into visible ones in the deepest
-    layer's Wq and bq; the count of such entries at step 1 is logged.
-    Returns the largest differences."""
+    on the card, two ways.  Step by step: before each frontier step, one
+    full-graph step from the same parameters and Adam state, its loss at
+    rtol 1e-4 and every parameter after it at rtol 1e-4 / atol 1e-5 of
+    the frontier step's.  And as two 3-step runs, each on its own, held
+    as the card is held against the CPU: the per-step losses at rtol
+    1e-4, G1_w at rtol 1e-4 / atol 1e-5 and the embeddings of 64 nodes
+    at rtol 1e-3 / atol 1e-4 (tests/test_trainer.py's comparison), every
+    leaf's difference logged.  Not every leaf of the two runs at 1e-5:
+    their gradients differ in the order of their sums, and where an
+    element's gradient is ~1e-11 in one and 0 in the other, Adam's eps
+    turns that into a 1e-6 update difference, which at a later step can
+    move an entry of pre within 2e-7 of 0 to the other leaky_relu slope
+    in one run and a row of the deepest Wq by ~1.6e-4 (at the 100k step
+    two entries do; ``scripts/three_step_flip_probe.py`` shows the
+    step-1 slopes equal and the gradients within ~2e-11).  The card
+    against the CPU's plain versions the same way: the two devices round
+    ``pre = h[nb] Wq^T + bq`` differently (the card's slopes are its
+    kernels' 3xTF32 sums), so entries of ``pre`` within an ulp of 0 take
+    the other slope, and Adam's normalisation turns those gradient
+    differences into visible ones in the deepest layer's Wq and bq; the
+    count of such entries at step 1 is logged.  Returns the largest
+    differences."""
     import copy
 
     import numpy as np
@@ -1127,10 +1139,35 @@ def three_step_checks(torch, trainer) -> dict:
                         mcfg.out_dim, mcfg.bias_init)
     probe = torch.arange(0, trainer.n, trainer.n // 64)[:64]
 
-    def run(params, tables, batches, fullgraph):
+    def run(params, tables, batches, fullgraph, stepwise=None):
+        """The run's losses, leaves and probe embeddings; with
+        ``stepwise`` a dict, a full-graph step from each step's starting
+        state held to this run's step, its largest leaf differences
+        recorded there."""
         opt = make_optimizer(params, tcfg)
-        losses = [float(train_step(params, opt, b, tables, tcfg, mcfg,
-                                   fullgraph)[0]) for b in batches]
+        losses = []
+        for i, b in enumerate(batches):
+            if stepwise is not None:
+                fg_params, fg_opt = copy.deepcopy((params, opt))
+                fg_loss = float(train_step(fg_params, fg_opt, b, tables, tcfg,
+                                           mcfg, True)[0])
+            losses.append(float(train_step(params, opt, b, tables, tcfg,
+                                           mcfg, fullgraph)[0]))
+            if stepwise is None:
+                continue
+            fg = dict(fg_params.leaves())
+            np.testing.assert_allclose(
+                fg_loss, losses[-1], rtol=TRAJ["rtol"],
+                err_msg=f"fullgraph_on_vs_off step {i + 1}: loss")
+            for name, p in params.leaves():
+                a = fg[name].detach().cpu().numpy()
+                want = p.detach().cpu().numpy()
+                np.testing.assert_allclose(
+                    a, want, **TRAJ,
+                    err_msg=f"fullgraph_on_vs_off step {i + 1}: {name}")
+                stepwise[name] = max(stepwise.get(name, 0.0),
+                                     float(np.abs(a - want).max()))
+            del fg_params, fg_opt, fg
         with torch.inference_mode():
             emb = pinsage_forward(params, tables.features, tables.nbhd_w,
                                   tables.nbhd_n,
@@ -1141,26 +1178,30 @@ def three_step_checks(torch, trainer) -> dict:
         return losses, leaves, emb
 
     before = agg.backward_launches["stream"]
+    stepwise = {}
+    off = run(copy.deepcopy(init), trainer.tables, batches, False, stepwise)
     on = run(copy.deepcopy(init), trainer.tables, batches, True)
     sync(torch, trainer.device)
-    out = {"k2_backward_launches": agg.backward_launches["stream"] - before}
+    out = {"k2_backward_launches": agg.backward_launches["stream"] - before,
+           "fullgraph_on_vs_off_stepwise": stepwise}
     if out["k2_backward_launches"] == 0:
         raise AssertionError("the full-graph steps never ran K2's backward")
-    off = run(copy.deepcopy(init), trainer.tables, batches, False)
+    log(f"three steps, fullgraph_on_vs_off step by step: held, max |diff| "
+        f"per leaf {stepwise}")
     cpu_tables = TrainTables(*(t.cpu() for t in trainer.tables))
     cpu = run(copy.deepcopy(init).cpu(), cpu_tables,
               [b.cpu() for b in batches], False)
-    for name, a, b, held in (("fullgraph_on_vs_off", on, off, None),
-                             ("gpu_vs_cpu", off, cpu, ("G1_w",))):
+    for name, a, b in (("fullgraph_on_vs_off", on, off),
+                       ("gpu_vs_cpu", off, cpu)):
         worst = {leaf: float(np.abs(a[1][leaf] - b[1][leaf]).max())
                  for leaf in a[1]}
         log(f"three steps, {name}: losses {a[0]} vs {b[0]}; max |diff| per "
-            f"leaf {worst}")
+            f"leaf {worst}; embeddings max |diff| "
+            f"{float(np.abs(a[2] - b[2]).max()):.3g}")
         np.testing.assert_allclose(a[0], b[0], rtol=TRAJ["rtol"],
                                    err_msg=f"{name}: losses")
-        for leaf in held or a[1]:
-            np.testing.assert_allclose(a[1][leaf], b[1][leaf], **TRAJ,
-                                       err_msg=f"{name}: {leaf}")
+        np.testing.assert_allclose(a[1]["G1_w"], b[1]["G1_w"], **TRAJ,
+                                   err_msg=f"{name}: G1_w")
         np.testing.assert_allclose(a[2], b[2], rtol=1e-3, atol=1e-4,
                                    err_msg=f"{name}: embeddings")
         out[name] = worst
@@ -1187,7 +1228,9 @@ def step_conv_inputs(torch, trainer, batch):
     """The aggregations of one frontier train step on ``batch``, with the
     step's own tables, deepest first: (layer, table, ids, weights,
     need_dh) for the deepest conv (over the gathered feature rows, no
-    dh), then each conv above it over the output of the one below."""
+    dh), then each conv above it over the output of the one below; the
+    table is the frontier's neighbor rows (those past its m self rows),
+    node i's at rows i T .., as ``forward_with_gather`` aggregates it."""
     from gcn_song_embeddings_tpu_torch.models.pinsage import conv_from_table
 
     mcfg, tables = trainer.cfg.model, trainer.tables
@@ -1200,32 +1243,39 @@ def step_conv_inputs(torch, trainer, batch):
                                     .long()]))
 
     def ids(m):
-        return (m + torch.arange(m * T, dtype=torch.int32,
-                                 device=nodes.device)).reshape(m, T)
+        return torch.arange(m * T, dtype=torch.int32,
+                            device=nodes.device).reshape(m, T)
 
     table = tables.features[frontiers[L]]
     shapes = []
     for level in reversed(range(L)):
         f = frontiers[level]
+        m = len(f)
         layer = trainer.params.layers[L - 1 - level]
         w = tables.nbhd_w[f, :T].contiguous()
-        shapes.append((layer, table, ids(len(f)), w, level < L - 1))
+        shapes.append((layer, table[m:], ids(m), w, level < L - 1))
         if level:
             with torch.no_grad():
-                table = conv_from_table(layer, table[:len(f)], table,
-                                        ids(len(f)), w, mode="dma")
+                table = conv_from_table(layer, table[:m], table[m:], ids(m),
+                                        w, mode="dma")
     return shapes
 
 
 def agg_work(torch, nb_idx, nb_wt, din: int, hdim: int, n_rows: int,
-             backward: bool = False, need_dh: bool = False, elem: int = 4):
+             backward: bool = False, need_dh: bool = False, elem: int = 4,
+             mode: str = "stream"):
     """(operations, bytes) the aggregation needs on this data: each
     distinct weighted id projected once (+bq, leaky_relu), each weighted
     entry's multiply-add, one divide per output; inputs read once, output
-    written once (table rows and Wq of ``elem`` bytes, the rest f32).
-    The backward recomputes the projection of the distinct rows, forms
-    dWq (and dh) from them, and reads the forward's inputs plus the
-    incoming gradient."""
+    written once (table rows and Wq, and their gradients, of ``elem``
+    bytes, the rest f32).
+    The backward takes its slopes from the forward's residual (mode
+    "stream": the distinct rows of K2's projected table; "dma": K3's bit
+    an entry and column), so it recomputes no projection: each weighted
+    entry's term (x c, the slope, + onto its row's sum S), dbq over S's
+    distinct rows, and dWq (and dh) as products over them; it reads the
+    incoming gradient, the distinct rows of h, the residual, ids and
+    weights (and Wq for dh) once, writes S once and the gradients once."""
     b, t = nb_idx.shape
     live = nb_wt != 0
     distinct = int(nb_idx[live].unique().numel())
@@ -1236,13 +1286,30 @@ def agg_work(torch, nb_idx, nb_wt, din: int, hdim: int, n_rows: int,
         nbytes = (elem * (distinct * din + hdim * din)
                   + 4.0 * (2 * b * t + hdim + b * hdim))
         return flops, nbytes, distinct, entries
-    products = 3 if need_dh else 2
+    products = 2 if need_dh else 1
     flops = (products * 2.0 * distinct * din * hdim
-             + 4.0 * entries * hdim)
-    nbytes = 4.0 * (distinct * din + 2 * b * t + hdim * din + hdim
-                    + b * hdim + hdim * din + hdim
-                    + (n_rows * din if need_dh else 0))
+             + 3.0 * entries * hdim + distinct * hdim)
+    residual = 4.0 * distinct * hdim if mode == "stream" else b * t * hdim / 8
+    nbytes = (4.0 * (b * hdim + 2 * b * t + distinct * hdim + hdim)
+              + elem * (distinct * din + hdim * din
+                        + (hdim * din + n_rows * din if need_dh else 0))
+              + residual)
     return flops, nbytes, distinct, entries
+
+
+def bwd_rows_work(torch, nb_idx, nb_wt, hdim: int, n_rows: int,
+                  mode: str, passes=None):
+    """(operations, bytes) of the backward's row sums alone (``agg.
+    agg_bwd_rows``): each weighted entry's multiply, slope and add; the
+    incoming gradient, ids, weights, the CSR's offsets and the residual
+    read once, S (two part sums in three passes) written once."""
+    b, t = nb_idx.shape
+    entries = int((nb_wt != 0).sum())
+    residual = (4.0 * n_rows * hdim if mode == "stream"
+                else b * t * hdim / 8)
+    return (3.0 * entries * hdim,
+            4.0 * (b * hdim + 3 * b * t + n_rows + 1
+                   + (2 if passes == 3 else 1) * n_rows * hdim) + residual)
 
 
 def bound(flops: float, nbytes: float, products: float = 0.0,
@@ -1327,16 +1394,19 @@ def k2_parts(torch, agg, h, ids, wts, Wq, bq, got) -> dict:
 
 
 def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh,
-                    passes=None):
-    """(relative Frobenius errors, the plain version's own errors, ms,
-    plain ms, entries at another slope in float64) of the aggregation's
-    backward at one shape, the errors per gradient against autograd
-    through the plain version in float64 (at the backward's f32
-    leaky_relu slopes where some entry's differs: ``branch_slopes``),
-    with the inputs that need a gradient in the train step (Wq and bq; h
-    too where it is an activation).  With ``passes`` the forward is the
-    precision policy's bf16x form and the reference the same function
-    (bf16-rounded operands and cotangents) in float64."""
+                    passes=None) -> dict:
+    """The aggregation's backward at one shape: ``err`` and ``plain_err``
+    (each gradient's relative Frobenius error, of ConvAggregate's and of
+    autograd through the plain version, against autograd through the
+    plain version in float64, at the forward's residual slopes where some
+    entry's differs from float64's: ``branch_slopes``), ``flips`` (such
+    entries), ``ms`` (back to back on the device), ``host_ms`` (per call
+    as issued), ``plain_ms`` (autograd through the plain version), and
+    ``hold_backward_twin``'s keys, with the inputs that need a gradient
+    in the train step (Wq and bq; h too where it is an activation).  With
+    ``passes`` the forward is the precision policy's bf16x form and the
+    reference the same function (bf16-rounded operands and cotangents) in
+    float64."""
     from gcn_song_embeddings_tpu_torch.utils import precision
 
     def leaves(dtype):
@@ -1351,8 +1421,9 @@ def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh,
     cot = torch.randn((ids.shape[0], layer.Wq.shape[0]),
                       device=table.device, generator=gen)
     h, Wq, bq, inputs = leaves(torch.float64)
-    slope, flips = branch_slopes(torch, table, ids, layer.Wq.detach(),
-                                 layer.bq.detach(), h, Wq, bq, passes)
+    slope, flips = branch_slopes(torch, agg, mode, table, ids, wts,
+                                 layer.Wq.detach(), layer.bq.detach(), h,
+                                 Wq, bq, passes)
     ref = torch.autograd.grad(
         agg.conv_aggregate_plain(h, ids, wts.double(), Wq, bq, passes)
         if slope is None else
@@ -1375,42 +1446,147 @@ def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh,
 
     err, plain_err = error(got), error(want)
     del ref, got, want
-    ms = cuda_ms(torch, lambda: torch.autograd.grad(
-        out, inputs, cot, retain_graph=True), reps=5)
-    plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+    timing = {"err": err, "plain_err": plain_err, "flips": flips}
+    timing.update(hold_backward_twin(torch, agg, mode, layer, table, ids,
+                                     wts, cot, passes))
+
+    def grad():
+        return torch.autograd.grad(out, inputs, cot, retain_graph=True)
+
+    timing["ms"] = cuda_ms(torch, grad, reps=5)
+    timing["host_ms"] = cuda_ms(torch, grad, reps=5, queued=False)
+    timing["plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
         plain, inputs, cot, retain_graph=True), reps=3)
-    return err, plain_err, ms, plain_ms, flips
+    return timing
+
+
+def hold_backward_twin(torch, agg, mode, layer, table, ids, wts, dagg,
+                       passes=None) -> dict:
+    """The backward's kernel (``agg.agg_bwd_rows``, csrc/agg_bwd.cu)
+    against its plain twin (``agg.agg_bwd_rows_plain``) on the inputs
+    ``ConvAggregate.backward`` gives it at this shape (the CSR of the
+    ids, equal to ``agg.backward_csr_plain``'s, the weights, the residual
+    of the forward of ``mode``, the incoming gradient ``dagg``): S's
+    parts equal bit for bit (the twin sums each row's entries in the
+    kernel's order), so within 1e-6 of max |S|; dbq (the kernel's
+    per-block partials, then one sum) within 1e-6 of each column's sum
+    of |S| (of its parts' in bf16 passes).  Returns ``twin_err`` (max
+    |kernel - twin| over S), ``twin_dbq_err`` (the largest such share of
+    dbq), ``kernel_ms`` (the row kernel alone) and ``csr_ms`` (the CSR
+    kernels)."""
+    Wq, bq = layer.Wq.detach(), layer.bq.detach()
+    n = table.shape[0]
+    with torch.no_grad():
+        _, res = agg.conv_aggregate_cuda(table, ids, wts, Wq, bq, mode, None,
+                                         passes, residual=True)
+        offsets, entries = agg.backward_csr(ids, n)
+        csr_same = all(torch.equal(a, b) for a, b in zip(
+            (offsets, entries), agg.backward_csr_plain(ids, n)))
+        args = (offsets, entries, wts, dagg.contiguous(), res, passes)
+        parts, dbq = agg.agg_bwd_rows(*args)
+        want, want_dbq = agg.agg_bwd_rows_plain(*args)
+        same = all(torch.equal(g, r) for g, r in zip(parts, want))
+        err = max(float((g - r).abs().max()) for g, r in zip(parts, want))
+        scale = max(float(r.abs().max()) for r in want)
+        sums = sum(r.abs().sum(dim=0) for r in want)
+        dbq_err = float(((dbq - want_dbq).abs()
+                         / sums.clamp_min(1e-30)).max())
+        del want, sums
+    log(f"{agg.MODES[mode]} backward kernel vs its twin at B={ids.shape[0]}"
+        f" T={ids.shape[1]} H={Wq.shape[0]} (table {n} rows"
+        f"{f', {passes} bf16 passes' if passes else ''}): CSR equal "
+        f"{csr_same}, S bit-equal {same}, max |diff| {err:.3g} (max |S| "
+        f"{scale:.3g}); dbq {dbq_err:.3g} of its column sums of |S|")
+    if not (csr_same and same and err <= 1e-6 * scale and dbq_err <= 1e-6):
+        raise AssertionError(f"the backward kernels differ from their "
+                             f"twins: CSR equal {csr_same}, S equal {same}, "
+                             f"{err} (max |S| {scale}), dbq {dbq_err}")
+    out = {"twin_err": err, "twin_dbq_err": dbq_err,
+           "kernel_ms": cuda_ms(torch, lambda: agg.agg_bwd_rows(*args),
+                                reps=5),
+           "csr_ms": cuda_ms(torch, lambda: agg.backward_csr(ids, n),
+                             reps=5)}
+    del parts, dbq, res, args
+    return out
+
+
+# rows named this many times in ``hub_timing``'s ids: hubs of a power-law
+# catalog's walks, the first past the order kernel's RANK_MAX of 128 and
+# its sort's tiles of 2048 (csrc/agg_bwd.cu)
+HUB_RUNS = (100_000, 10_000, 3000, 300)
+
+
+def hub_timing(torch, agg, n: int, t: int, hdim: int) -> dict:
+    """The backward's CSR and row kernel on the full-graph step's n x t
+    ids (every node's t neighbors) with rows named HUB_RUNS times at
+    random places (the rest uniform over the other rows), beside the same
+    on uniform ids: the CSR held equal to the stable sort's
+    (``backward_csr_plain``), each timed back to back (``csr_ms``, and
+    ``kernel_ms`` of ``agg_bwd_rows`` over a random K2 residual, f32
+    weights and incoming gradient [n, hdim])."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    flat = rng.integers(len(HUB_RUNS), n, n * t)
+    places = rng.permutation(n * t)
+    at = 0
+    for row, k in enumerate(HUB_RUNS):
+        flat[places[at:at + k]] = row
+        at += k
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    wts = torch.rand((n, t), device=dev, generator=gen)
+    dagg = torch.randn((n, hdim), device=dev, generator=gen)
+    res = torch.randn((-(-hdim // agg.SLAB), n, agg.SLAB), device=dev,
+                      generator=gen)
+    out = {"hub_runs": list(HUB_RUNS)}
+    for name, ids in (("hubs", flat),
+                      ("uniform", rng.integers(0, n, n * t))):
+        ids = torch.as_tensor(ids.reshape(n, t).astype(np.int32), device=dev)
+        csr = agg.backward_csr(ids, n)
+        if not all(torch.equal(a, b) for a, b in zip(
+                csr, agg.backward_csr_plain(ids, n))):
+            raise AssertionError(f"the backward's CSR on the {name} ids "
+                                 f"differs from the stable sort's")
+        out[f"csr_{name}_ms"] = cuda_ms(
+            torch, lambda: agg.backward_csr(ids, n), reps=5)
+        out[f"kernel_{name}_ms"] = cuda_ms(
+            torch, lambda: agg.agg_bwd_rows(*csr, wts, dagg, res), reps=5)
+    log(f"the backward at the full graph's {n} x {t} ids with rows named "
+        f"{list(HUB_RUNS)} times: CSR (equal to the stable sort's) "
+        f"{out['csr_hubs_ms']:.4f} ms (uniform ids "
+        f"{out['csr_uniform_ms']:.4f}), row kernel "
+        f"{out['kernel_hubs_ms']:.4f} ms (uniform "
+        f"{out['kernel_uniform_ms']:.4f})")
+    return out
 
 
 def recomputed_pre(torch, agg, h, Wq, bq, passes=None):
-    """h Wq^T + bq as the aggregation's backward recomputes it: one
-    ``addmm``, or in ``passes`` bf16 passes."""
+    """h Wq^T + bq as one ``addmm``, or in ``passes`` bf16 passes."""
     if passes is None:
         return torch.addmm(bq, h, Wq.t())
     return agg._passes_product(h, Wq.t(), passes) + bq
 
 
-def branch_slopes(torch, table, ids, Wq32, bq32, h64, Wq64, bq64,
-                  passes=None):
+def branch_slopes(torch, agg, mode, table, ids, wts, Wq32, bq32, h64, Wq64,
+                  bq64, passes=None):
     """([B*T, H] float64 leaky_relu slopes of the gathered entries as the
-    aggregation's backward takes them, from its f32 projection (in
-    ``passes`` bf16 passes where given), or None where every slope is
-    float64's; the number of entries whose slope differs from
-    float64's).  Fails unless each such entry lies within BRANCH_ATOL of
-    0."""
-    from gcn_song_embeddings_tpu_torch.ops import agg
-
+    aggregation's backward takes them, from the residual of the forward
+    of ``mode`` (``agg.conv_aggregate_slopes``; in ``passes`` bf16 passes
+    where given), or None where every slope is float64's; the number of
+    entries whose slope differs from float64's).  Fails unless each such
+    entry lies within BRANCH_ATOL of 0."""
     flat = ids.reshape(-1).long()
     with torch.no_grad():
-        pre32 = recomputed_pre(torch, agg, table.float(), Wq32.float(),
-                               bq32.float(), passes)[flat]
+        kept = agg.conv_aggregate_slopes(table, ids, wts, Wq32.float(),
+                                         bq32.float(), mode, passes)
         pre64 = recomputed_pre(torch, agg, h64, Wq64, bq64, passes)[flat]
-        differ = (pre32 >= 0) != (pre64 >= 0)
+        differ = kept != (pre64 >= 0)
         flips = int(differ.sum())
         worst = float(pre64[differ].abs().max()) if flips else 0.0
         del pre64, differ
-        slope = (torch.where(pre32 >= 0, 1.0, 0.01).double() if flips
-                 else None)
+        slope = torch.where(kept, 1.0, 0.01).double() if flips else None
     if not worst <= BRANCH_ATOL:
         raise AssertionError(f"{flips} entries take another leaky_relu "
                              f"slope in f32 than in float64, one at |pre| "
@@ -1429,6 +1605,36 @@ def plain_at_slopes(torch, agg, h, ids, wts, Wq, bq, slope, passes=None):
     return (wts[:, :, None] * q).sum(dim=1) / agg._denominator(wts)
 
 
+# the backward's keys of ``measure_aggregation``'s dict, summed over its
+# shapes (``*_err`` the largest, ``bwd_branch_flips`` a count)
+BWD_KEYS = ("bwd_ms", "bwd_host_ms", "bwd_plain_ms", "bwd_kernel_ms",
+            "bwd_csr_ms", "bwd_flops", "bwd_bytes", "bwd_kernel_flops",
+            "bwd_kernel_bytes", "bwd_err", "bwd_plain_err", "bwd_twin_err",
+            "bwd_twin_dbq_err", "bwd_branch_flips")
+
+
+def add_backward(torch, out, bw, ids, wts, din, hdim, n, need_dh, mode,
+                 passes=None, elem=4) -> None:
+    """Add one shape's ``backward_timing`` ``bw`` and the work the
+    backward and its row kernel need there to ``out``'s BWD_KEYS."""
+    for key in ("ms", "host_ms", "plain_ms", "kernel_ms", "csr_ms"):
+        out[f"bwd_{key}"] += bw[key]
+    out["bwd_err"] = max(out["bwd_err"], *bw["err"])
+    out["bwd_plain_err"] = max(out["bwd_plain_err"], *bw["plain_err"])
+    out["bwd_twin_err"] = max(out["bwd_twin_err"], bw["twin_err"])
+    out["bwd_twin_dbq_err"] = max(out["bwd_twin_dbq_err"],
+                                  bw["twin_dbq_err"])
+    out["bwd_branch_flips"] += bw["flips"]
+    flops, nbytes, _, _ = agg_work(torch, ids, wts, din, hdim, n,
+                                   backward=True, need_dh=need_dh, elem=elem,
+                                   mode=mode)
+    out["bwd_flops"] += flops
+    out["bwd_bytes"] += nbytes
+    flops, nbytes = bwd_rows_work(torch, ids, wts, hdim, n, mode, passes)
+    out["bwd_kernel_flops"] += flops
+    out["bwd_kernel_bytes"] += nbytes
+
+
 def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
     """Hold the aggregation of ``mode`` against its plain version at each
     (layer, table, ids, weights, need_dh) of ``shapes`` and time it:
@@ -1441,11 +1647,9 @@ def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
     (``parts``)."""
     import torch.nn.functional as F
 
-    out = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
-           "products": 0.0, "bytes": 0.0, "err": 0.0, "err64": 0.0,
-           "plain_err64": 0.0, "bwd_ms": 0.0, "bwd_plain_ms": 0.0,
-           "bwd_flops": 0.0, "bwd_bytes": 0.0, "bwd_err": 0.0,
-           "bwd_plain_err": 0.0, "bwd_branch_flips": 0}
+    out = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "flops": 0.0, "products": 0.0, "bytes": 0.0, "err": 0.0,
+           "err64": 0.0, "plain_err64": 0.0, **dict.fromkeys(BWD_KEYS, 0.0)}
     if mode == "stream":
         out["library_project_once_ms"] = 0.0
         out["parts"] = {}
@@ -1471,6 +1675,8 @@ def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
             out["err64"] = max(out["err64"], err64)
             out["plain_err64"] = max(out["plain_err64"], plain_err64)
             del got, want
+            out["slopes_ms"] = out.get("slopes_ms", 0.0) + slopes_ms(
+                torch, agg, mode, h, ids, wts, Wq, bq)
             out["ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
                 h, ids, wts, Wq, bq, mode=mode), reps=5)
             out["host_ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
@@ -1502,8 +1708,8 @@ def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
             f"{ids.numel()} entries ({entries} weighted)")
         if not with_backward:
             continue
-        errs, plain_errs, ms, plain_ms, flips = backward_timing(
-            torch, agg, mode, layer, h, ids, wts, need_dh)
+        bw = backward_timing(torch, agg, mode, layer, h, ids, wts, need_dh)
+        errs, plain_errs, flips = bw["err"], bw["plain_err"], bw["flips"]
         names = ("dh", "dWq", "dbq") if need_dh else ("dWq", "dbq")
         log(f"{kernel} backward vs float64 autograd"
             + (f" at the f32 slopes ({flips} entries within {BRANCH_ATOL} "
@@ -1511,19 +1717,31 @@ def measure_aggregation(torch, agg, mode, shapes, with_backward=True):
             + ", relative Frobenius error: " + ", ".join(
                 f"{g} {e:.3g} (f32 plain {p:.3g})"
                 for g, e, p in zip(names, errs, plain_errs)))
-        out["bwd_branch_flips"] += flips
         if not max(errs) <= GRAD_RTOL:
             raise AssertionError(f"{kernel} backward error {max(errs)} > "
                                  f"{GRAD_RTOL}")
-        out["bwd_err"] = max(out["bwd_err"], *errs)
-        out["bwd_plain_err"] = max(out["bwd_plain_err"], *plain_errs)
-        out["bwd_ms"] += ms
-        out["bwd_plain_ms"] += plain_ms
-        flops, nbytes, _, _ = agg_work(torch, ids, wts, din, hdim, n,
-                                       backward=True, need_dh=need_dh)
-        out["bwd_flops"] += flops
-        out["bwd_bytes"] += nbytes
+        add_backward(torch, out, bw, ids, wts, din, hdim, n, need_dh, mode)
     return out
+
+
+def slopes_ms(torch, agg, mode, h, ids, wts, Wq, bq, passes=None) -> float:
+    """K3's forward with its slope residual on (``conv_aggregate_cuda(...,
+    residual=True)``, what a train step's forward runs): its ms, after
+    holding its output equal bit for bit to the flag-off forward's.  0.0
+    for K2 (mode "stream"), whose residual is the table it projects
+    anyway."""
+    if mode != "dma":
+        return 0.0
+
+    def on():
+        return agg.conv_aggregate_cuda(h, ids, wts, Wq, bq, mode, None,
+                                       passes, residual=True)
+
+    if not torch.equal(on()[0], agg.conv_aggregate_cuda(
+            h, ids, wts, Wq, bq, mode, None, passes)):
+        raise AssertionError("K3 with its slope residual differs from K3 "
+                             "without it")
+    return cuda_ms(torch, on, reps=5)
 
 
 def project_once_library(torch, F, h, ids, wts, Wq, bq):
@@ -1538,13 +1756,13 @@ def project_once_library(torch, F, h, ids, wts, Wq, bq):
 
 def kernel_row(name, source, replaces, launches_by_path, bwd_launches, m,
                shape) -> dict:
-    """One entry of the ``kernels`` line, with the backward's numbers
-    under ``backward``.  ``bound_ms`` counts the products on the TF32
-    tensor cores in three passes; ``bound_f32_simt_ms`` is the bound
-    with every operation as f32 outside them."""
+    """One entry of the ``kernels`` line, with the backward's row
+    (``backward_row``) under ``backward``.  ``bound_ms`` counts the
+    products on the TF32 tensor cores in three passes;
+    ``bound_f32_simt_ms`` is the bound with every operation as f32
+    outside them."""
     bound_ms, bound_by = bound(m["flops"], m["bytes"], m["products"])
     simt_ms, _ = bound(m["flops"], m["bytes"])
-    bwd_bound_ms, bwd_bound_by = bound(m["bwd_flops"], m["bwd_bytes"])
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": sum(launches_by_path.values()),
@@ -1552,23 +1770,64 @@ def kernel_row(name, source, replaces, launches_by_path, bwd_launches, m,
         "ms": m["ms"], "host_ms": m["host_ms"], "plain_ms": m["plain_ms"],
         "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": m["library_ms"],
+        **({"ms_with_slopes": m["slopes_ms"]} if m.get("slopes_ms") else {}),
         "bound_f32_simt_ms": simt_ms,
         **({"library_project_once_ms": m["library_project_once_ms"]}
            if "library_project_once_ms" in m else {}),
         "max_abs_err_vs_float64": m["err64"],
         "plain_max_abs_err_vs_float64": m["plain_err64"],
-        "backward": {
-            "route": "plain PyTorch (agg.ConvAggregate.backward)",
-            "launches_on_train_path": bwd_launches,
-            "rel_err_vs_float64": m["bwd_err"],
-            "plain_rel_err_vs_float64": m["bwd_plain_err"],
-            "entries_at_another_slope_in_float64": m["bwd_branch_flips"],
-            "ms": m["bwd_ms"],
-            "plain_ms": m["bwd_plain_ms"], "bound_ms": bwd_bound_ms,
-            "bound_by": bwd_bound_by, "library_ms": None},
+        "backward": backward_row(name, bwd_launches, m, shape),
         "shape": shape,
         **({"parts": m["parts"]} if "parts" in m else {}),
     }
+
+
+def backward_row(name, launches, m, shape) -> dict:
+    """The ``kernels`` line's row of the aggregation's backward at the
+    shapes of ``m`` (``measure_aggregation``'s BWD_KEYS): ``ms`` and
+    ``host_ms`` the whole of ``ConvAggregate.backward`` (the CSR, the
+    row kernel of csrc/agg_bwd.cu, the products), ``plain_ms`` autograd
+    through the plain version, ``bound_ms`` the gradient's work at f32
+    outside the tensor cores (its products run in true f32),
+    ``max_abs_err`` the kernel against its twin; ``kernel_ms`` the row
+    kernel alone beside its own bound."""
+    from gcn_song_embeddings_tpu_torch.ops import agg
+
+    bound_ms, bound_by = bound(m["bwd_flops"], m["bwd_bytes"])
+    kernel_bound_ms, kernel_bound_by = bound(m["bwd_kernel_flops"],
+                                             m["bwd_kernel_bytes"])
+    return {
+        "name": f"aggregation backward (agg.ConvAggregate.backward) at "
+                f"the shapes of: {name}",
+        "route": "cuda", "source": agg.BWD_SOURCE,
+        "replaces": agg.BWD_REPLACES, "launches": launches,
+        "max_abs_err": m["bwd_twin_err"],
+        "twin_dbq_share_err": m["bwd_twin_dbq_err"],
+        "ms": m["bwd_ms"], "host_ms": m["bwd_host_ms"],
+        "plain_ms": m["bwd_plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "kernel_ms": m["bwd_kernel_ms"], "kernel_bound_ms": kernel_bound_ms,
+        "kernel_bound_by": kernel_bound_by, "csr_ms": m["bwd_csr_ms"],
+        "rel_err_vs_float64": m["bwd_err"],
+        "plain_rel_err_vs_float64": m["bwd_plain_err"],
+        "entries_at_another_slope_in_float64": m["bwd_branch_flips"],
+        "shape": shape}
+
+
+def backward_rows(results) -> list:
+    """The backward rows nested in ``results``' rows, as rows of their
+    own (each forward row keeps the name of its backward's); a backward
+    that was not timed is dropped."""
+    rows = []
+    for row in results:
+        bwd = row.get("backward")
+        if isinstance(bwd, dict) and "source" in bwd:
+            if bwd["ms"]:
+                rows.append(bwd)
+                row["backward"] = bwd["name"]
+            else:
+                row.pop("backward")
+    return rows
 
 
 def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5,
@@ -1882,7 +2141,82 @@ def k2_parts16(torch, agg, h, ids, wts, Wq, bq, got) -> dict:
     }
 
 
-def measure_aggregation16(torch, agg, mode, shapes) -> dict:
+def backward_timing16(torch, agg, mode, h, ids, wts, Wq, bq,
+                      need_dh) -> dict:
+    """The aggregation's backward at one 16-bit shape (16-bit h and Wq, f32
+    bq): ``hold_backward_twin``'s keys (the kernel against its twin on
+    the 16-bit forward's residual and weights); ``err`` and ``plain_err``,
+    each gradient's relative Frobenius error, of ConvAggregate's and of
+    autograd through the plain version on the same 16-bit inputs, against
+    float64 autograd of the plain version on their exact upcasts at the
+    slopes of the forward's residual, ConvAggregate's held within the
+    larger of 4x the plain version's and GRAD_RTOL (its dh and dWq are
+    rounded to 16 bits once, the plain version's at every step); ``ms``,
+    ``host_ms`` and ``plain_ms`` as ``backward_timing``'s."""
+    from types import SimpleNamespace
+
+    gen = torch.Generator(device=h.device)
+    gen.manual_seed(7)
+    cot = torch.randn((ids.shape[0], Wq.shape[0]), device=h.device,
+                      generator=gen)
+    timing = hold_backward_twin(torch, agg, mode,
+                                SimpleNamespace(Wq=Wq, bq=bq), h, ids, wts,
+                                cot)
+
+    def leaves(dtype=None):
+        hh, wq, b = (x.detach().to(dtype or x.dtype, copy=True)
+                     for x in (h, Wq, bq))
+        hh.requires_grad_(need_dh)
+        wq.requires_grad_()
+        b.requires_grad_()
+        return hh, wq, b, ((hh, wq, b) if need_dh else (wq, b))
+
+    with torch.no_grad():
+        slope = torch.where(agg.conv_aggregate_slopes(h, ids, wts, Wq, bq,
+                                                      mode), 1.0,
+                            0.01).double()
+    hh, wq, b, inputs = leaves(torch.float64)
+    ref = torch.autograd.grad(
+        plain_at_slopes(torch, agg, hh, ids, wts.double(), wq, b, slope),
+        inputs, cot.double())
+    del slope
+    hh, wq, b, inputs = leaves()
+    out = agg.conv_aggregate(hh, ids, wts, wq, b, mode=mode)
+    plain = agg.conv_aggregate_plain(hh, ids, wts, wq, b)
+
+    def error(grads):
+        return [float(torch.linalg.vector_norm(g.double() - r)
+                      / torch.linalg.vector_norm(r))
+                for g, r in zip(grads, ref)]
+
+    err = error(torch.autograd.grad(out, inputs, cot, retain_graph=True))
+    plain_err = error(torch.autograd.grad(plain, inputs, cot,
+                                          retain_graph=True))
+    del ref
+    names = ("dh", "dWq", "dbq") if need_dh else ("dWq", "dbq")
+    log(f"{agg.MODES[mode]} {agg._form(h.dtype)} backward vs float64 "
+        f"autograd at the residual's slopes, relative Frobenius error: "
+        + ", ".join(f"{g} {e:.3g} (plain {p:.3g})"
+                    for g, e, p in zip(names, err, plain_err)))
+    for g, e, p in zip(names, err, plain_err):
+        if not e <= max(4 * p, GRAD_RTOL):
+            raise AssertionError(f"{agg.MODES[mode]} "
+                                 f"{agg._form(h.dtype)} backward {g} errs "
+                                 f"{e} against float64, > 4x the plain "
+                                 f"version's {p} and > {GRAD_RTOL}")
+
+    def grad():
+        return torch.autograd.grad(out, inputs, cot, retain_graph=True)
+
+    timing.update(err=err, plain_err=plain_err, flips=0,
+                  ms=cuda_ms(torch, grad, reps=5),
+                  host_ms=cuda_ms(torch, grad, reps=5, queued=False),
+                  plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                      plain, inputs, cot, retain_graph=True), reps=3))
+    return timing
+
+
+def measure_aggregation16(torch, agg, mode, shapes, need_dh=None) -> dict:
     """Hold a 16-bit form of the aggregation of ``mode`` against its plain
     version at each (table, ids, weights, Wq, bq) of ``shapes`` (max
     |diff| within K2_ATOL; 16-bit products are exact in f32, so only the
@@ -1894,13 +2228,17 @@ def measure_aggregation16(torch, agg, mode, shapes) -> dict:
     with the work each needs on this data (16-bit rows and Wq of 2
     bytes).  Mode "stream" also holds K2's 16-bit kernels to their plain
     versions one by one and times them (``parts``, with the gather's L2
-    read rates)."""
+    read rates).  With ``need_dh`` (whether each shape's dh is taken, as
+    in the train step) the backward is held and timed at each shape too
+    (``backward_timing16``), into ``measure_aggregation``'s BWD_KEYS."""
     out = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "flops": 0.0, "products": 0.0, "bytes": 0.0, "err": 0.0,
            "err64": 0.0, "plain_err64": 0.0}
+    if need_dh is not None:
+        out.update(dict.fromkeys(BWD_KEYS, 0.0))
     if mode == "stream":
         out["parts"] = {}
-    for h, ids, wts, Wq, bq in shapes:
+    for i, (h, ids, wts, Wq, bq) in enumerate(shapes):
         kernel = f"{agg.MODES[mode]} {agg._form(h.dtype)}"
         n, din = h.shape
         hdim = Wq.shape[0]
@@ -1934,6 +2272,8 @@ def measure_aggregation16(torch, agg, mode, shapes) -> dict:
                                     if key == "max_abs_err"
                                     else acc.get(key, 0.0) + value)
             del got, want
+            out["slopes_ms"] = out.get("slopes_ms", 0.0) + slopes_ms(
+                torch, agg, mode, h, ids, wts, Wq, bq)
             out["ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
                 h, ids, wts, Wq, bq, mode=mode), reps=5)
             out["host_ms"] += cuda_ms(torch, lambda: agg.conv_aggregate(
@@ -1948,6 +2288,11 @@ def measure_aggregation16(torch, agg, mode, shapes) -> dict:
         out["flops"] += flops
         out["products"] += 2.0 * distinct * din * hdim
         out["bytes"] += nbytes
+        if need_dh is not None:
+            bw = backward_timing16(torch, agg, mode, h, ids, wts, Wq, bq,
+                                   need_dh[i])
+            add_backward(torch, out, bw, ids, wts, din, hdim, n, need_dh[i],
+                         mode, elem=2)
     if mode == "stream":
         g = out["parts"]["gather_mean"]
         g["read_TBps"] = g["bytes_read"] / (g["ms"] * 1e9)
@@ -1962,7 +2307,7 @@ def kernel_row16(name, source, replaces, launches_by_path, bwd_launches,
                  m, shape) -> dict:
     """One 16-bit entry of the ``kernels`` line: its products bound on the
     16-bit tensor cores (one pass each, 989 TFLOP/s for bf16 and f16
-    alike)."""
+    alike); its backward's row (``backward_row``) where ``m`` timed it."""
     bound_ms, bound_by = bound(m["flops"], m["bytes"], m["products"],
                                H100_BF16_FLOPS, passes=1)
     return {
@@ -1972,11 +2317,17 @@ def kernel_row16(name, source, replaces, launches_by_path, bwd_launches,
         "ms": m["ms"], "host_ms": m["host_ms"], "plain_ms": m["plain_ms"],
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": m["library_ms"],
+        **({"ms_with_slopes": m["slopes_ms"]} if m.get("slopes_ms") else {}),
         "max_abs_err_vs_float64": m["err64"],
         "plain_max_abs_err_vs_float64": m["plain_err64"],
-        "backward": {"route": "plain PyTorch (agg.ConvAggregate.backward, "
-                              "pre recomputed in f32)",
-                     "launches_on_16bit_paths": bwd_launches},
+        "backward": (backward_row(name, bwd_launches, m, shape)
+                     if "bwd_ms" in m else
+                     {"route": "cuda, csrc/agg_bwd.cu (the slopes of the "
+                               "forward's f32 sums; held on the card by "
+                               "tests/test_torch_agg_backward_gpu.py and "
+                               "at the 16-bit train steps' shapes, not "
+                               "timed at these)",
+                      "launches_on_16bit_paths": bwd_launches}),
         "shape": shape,
         **({"parts": m["parts"]} if "parts" in m else {}),
     }
@@ -2716,6 +3067,7 @@ def reset_kernel_counts() -> None:
     agg.launches_f16 = dma_agg.launches_f16 = 0
     agg.launches_bf16x1 = dma_agg.launches_bf16x1 = 0
     agg.launches_bf16x3 = dma_agg.launches_bf16x3 = 0
+    agg.bwd_launches = agg.csr_launches = 0
     for counts in (agg.backward_launches, agg.kernel_launches,
                    agg.kernel_launches_bf16, agg.kernel_launches_f16,
                    agg.kernel_launches_bf16x1, agg.kernel_launches_bf16x3,
@@ -2737,6 +3089,8 @@ def kernel_counts() -> dict:
                    for mode, n in agg.backward_launches.items()})
     counts.update({f"agg_{name}": n
                    for name, n in agg.kernel_launches.items()})
+    counts["agg_bwd_rows"] = agg.bwd_launches
+    counts["agg_bwd_csr"] = agg.csr_launches
     counts.update({f"probe_{name}": n
                    for name, n in agg.probe_launches.items()})
     return counts
@@ -4424,9 +4778,7 @@ def measure_aggregation_bf16x(torch, agg, mode, shapes, passes) -> dict:
     value = {1: "default", 3: "high"}[passes]
     out = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "flops": 0.0, "products": 0.0, "bytes": 0.0, "err": 0.0,
-           "err64": 0.0, "plain_err64": 0.0, "bwd_ms": 0.0,
-           "bwd_plain_ms": 0.0, "bwd_flops": 0.0, "bwd_bytes": 0.0,
-           "bwd_err": 0.0, "bwd_plain_err": 0.0, "bwd_branch_flips": 0}
+           "err64": 0.0, "plain_err64": 0.0, **dict.fromkeys(BWD_KEYS, 0.0)}
     if mode == "stream":
         out["parts"] = {"tile": {"max_abs_err": 0.0, "ms": 0.0},
                         "project": {"max_abs_err": 0.0, "ms": 0.0,
@@ -4499,6 +4851,8 @@ def measure_aggregation_bf16x(torch, agg, mode, shapes, passes) -> dict:
                                                            passes), reps=3)
                 del rows, hi, lo
             del got, want
+            out["slopes_ms"] = out.get("slopes_ms", 0.0) + slopes_ms(
+                torch, agg, mode, h, ids, wts, Wq, bq, passes)
             out["ms"] += cuda_ms(torch, lambda: run(h, ids, wts, Wq, bq),
                                  reps=5)
             out["host_ms"] += cuda_ms(torch, lambda: run(h, ids, wts, Wq,
@@ -4514,8 +4868,9 @@ def measure_aggregation_bf16x(torch, agg, mode, shapes, passes) -> dict:
         out["flops"] += flops
         out["products"] += 2.0 * distinct * din * hdim
         out["bytes"] += nbytes
-        errs, plain_errs, ms, plain_ms, flips = backward_timing(
-            torch, agg, mode, layer, h, ids, wts, need_dh, passes)
+        bw = backward_timing(torch, agg, mode, layer, h, ids, wts, need_dh,
+                             passes)
+        errs, plain_errs, flips = bw["err"], bw["plain_err"], bw["flips"]
         log(f"{kernel} backward vs float64 autograd of the rounded "
             f"function: relative Frobenius {errs} (f32 plain {plain_errs}; "
             f"{flips} entries at another slope)")
@@ -4524,29 +4879,21 @@ def measure_aggregation_bf16x(torch, agg, mode, shapes, passes) -> dict:
             raise AssertionError(f"{kernel} backward errors {errs} against "
                                  f"float64, the plain version's "
                                  f"{plain_errs} (bar {GRAD_RTOL})")
-        out["bwd_err"] = max(out["bwd_err"], *errs)
-        out["bwd_plain_err"] = max(out["bwd_plain_err"], *plain_errs)
-        out["bwd_branch_flips"] += flips
-        out["bwd_ms"] += ms
-        out["bwd_plain_ms"] += plain_ms
-        flops, nbytes, _, _ = agg_work(torch, ids, wts, din, hdim, n,
-                                       backward=True, need_dh=need_dh)
-        out["bwd_flops"] += flops
-        out["bwd_bytes"] += nbytes
+        add_backward(torch, out, bw, ids, wts, din, hdim, n, need_dh, mode,
+                     passes)
     return out
 
 
 def kernel_row_bf16x(name, source, replaces, launches_by_path, bwd_launches,
                      m, shape, passes) -> dict:
     """One bf16x entry of the ``kernels`` line: its products bound on the
-    bf16 tensor cores at ``passes`` passes each; the backward (plain
-    PyTorch in the same passes) bound as the f32 one."""
+    bf16 tensor cores at ``passes`` passes each; the backward (its row
+    sums rounded in the same passes) bound as the f32 one."""
     row = kernel_row(name, source, replaces, launches_by_path, bwd_launches,
                      m, shape)
     row["bound_ms"], row["bound_by"] = bound(
         m["flops"], m["bytes"], m["products"], H100_BF16_FLOPS, passes)
-    row["backward"]["route"] = (f"plain PyTorch (agg.ConvAggregate."
-                                f"backward, {passes} bf16 passes)")
+    row["backward"]["bf16_passes"] = passes
     row["bf16_passes"] = passes
     row.pop("bound_f32_simt_ms")
     return row
@@ -5723,9 +6070,7 @@ def measure_k2_blocked(torch, agg, layers, ids, wts, block_rows) -> dict:
 
     out = dict.fromkeys(("ms", "host_ms", "plain_ms", "library_ms", "flops",
                          "products", "bytes", "err", "err64", "plain_err64",
-                         "bwd_ms", "bwd_plain_ms", "bwd_flops", "bwd_bytes",
-                         "bwd_err", "bwd_plain_err", "bwd_branch_flips"),
-                        0.0)
+                         *BWD_KEYS), 0.0)
     n = ids.shape[0]
     for layer, h in layers:
         Wq, bq = layer.Wq.detach(), layer.bq.detach()
@@ -5867,7 +6212,7 @@ def main() -> int:
     reset_counts()
     tr_st = run_train_path(dev, st, work)
     train_launches = read_counts(("agg", "dma_agg", "agg_backward_dma",
-                                  "agg_split"))
+                                  "agg_split", "agg_bwd_rows"))
     log(f"launches on the training path: {train_launches}")
     check_training_run(tr_st)
     graph, cfg, mcfg = st.graph, st.cfg, st.cfg.model
@@ -5912,7 +6257,7 @@ def main() -> int:
         run16 = run_train_path16(dev, st, work, dtype)
         launches16[form] = read_counts((f"dma_agg_{form}",
                                         f"agg_backward_dma_{form}",
-                                        f"agg_{form}_tile"))
+                                        f"agg_{form}_tile", "agg_bwd_rows"))
         log(f"launches on the {form} training path: {launches16[form]}")
         checks16[form] = check_run16(torch, st, run16)
         trainer16 = PinSageTrainer(
@@ -5929,7 +6274,8 @@ def main() -> int:
                                                             trainer16)
         full_launches16[form] = read_counts((
             f"agg_{form}", f"agg_{form}_project",
-            f"agg_backward_stream_{form}", f"dma_agg_{form}"))
+            f"agg_backward_stream_{form}", f"dma_agg_{form}",
+            "agg_bwd_rows"))
         log(f"launches on the {form} three-step checks (frontier card and "
             f"CPU, full graph card): {full_launches16[form]}")
         step_ms[f"{form}_frontier"], step_profile[f"{form}_frontier"] = (
@@ -6216,6 +6562,8 @@ def main() -> int:
         f"full-graph train step), launched "
         f"{steps['k2_backward_launches']} times by the three-step check")
     row["header"] = agg.HEADER
+    row["backward"]["hubs"] = hub_timing(torch, agg, graph.n_items, mcfg.T,
+                                         mcfg.hidden_dim)
     for name, part in row["parts"].items():
         # the split also runs for every K3 call of the training path
         part["launches_by_path"] = {
@@ -6265,8 +6613,9 @@ def main() -> int:
     for form, dtype in (("bf16", torch.bfloat16), ("f16", torch.float16)):
         k3_shapes, k2_shapes = step_shapes16(torch, trainers16[form], st,
                                              dtype)
-        k3_16 = measure_aggregation16(torch, agg, "dma", k3_shapes)
-        k2_16 = measure_aggregation16(torch, agg, "stream", k2_shapes)
+        k3_16 = measure_aggregation16(torch, agg, "dma", k3_shapes, [False])
+        k2_16 = measure_aggregation16(torch, agg, "stream", k2_shapes,
+                                      [False, True])
         results.append(kernel_row16(
             f"K3 {form} fused gather + Q-MLP + weighted mean "
             f"(agg.conv_aggregate on a {form} table, mode dma)",
@@ -6278,7 +6627,8 @@ def main() -> int:
             + full_launches16[form][f"agg_backward_dma_{form}"], k3_16,
             f"the deepest conv of a {form} frontier step at B=128: "
             f"{k3_shapes[0][1].shape[0]} nodes x T={mcfg.T}, Din=512, "
-            f"H={mcfg.hidden_dim}; {form} rows and Wq, f32 weights"))
+            f"H={mcfg.hidden_dim}; {form} rows and Wq, f32 weights; "
+            f"backward at the same shape (no dh)"))
         results[-1]["header"] = agg.HEADER
         results.append(kernel_row16(
             f"K2 {form} Q-MLP of every table row, then gather + weighted "
@@ -6290,7 +6640,8 @@ def main() -> int:
             f"both full-graph layers, N={graph.n_items} T={mcfg.T}: "
             f"Din=512 and Din=128 (the first layer's output stored in "
             f"{form}), H={mcfg.hidden_dim}; {form} rows, Wq and weights "
-            f"(the {form}-rounded denominator)"))
+            f"(the {form}-rounded denominator); backward at the same "
+            f"shapes (dh after the first layer)"))
         results[-1]["header"] = agg.HEADER
         results[-1]["ms_over_f32_k2_ms"] = k2_16["ms"] / k2["ms"]
     results.extend(rows_colisten)
@@ -6298,6 +6649,7 @@ def main() -> int:
     results.extend(rows_tools)
     results.extend(rows_bench)
     results.extend(rows_1m)
+    results.extend(backward_rows(results))
     shutil.rmtree(work, ignore_errors=True)
     log(card_line())
     log(json.dumps({"kernels": results}))

@@ -71,6 +71,19 @@
 // one-pass form at the wide step on the H100 is the epilogue beside the
 // tensor cores (PERF.md): its shared-memory traffic competes with their
 // operand reads.
+//
+// The slope residual (template flag SLOPES, set where the aggregation's
+// backward will run: ops/agg.py ConvAggregate): the epilogue also stores
+// q >= 0 of each gathered entry and column as bits, which csrc/agg_bwd.cu
+// reads as the leaky_relu's slopes (B*T*H / 8 bytes, 2.7 MB at the
+// frontier step's layer 0).  A thread's fragment holds, of each of its
+// two rows, columns 8 i + 2 (t % 4) and + 1 of the tile's 128 for i < 16:
+// 32 columns, which it packs as the epilogue computes their q (bit 2 i +
+// j for column 8 i + 2 (t % 4) + j) and stores as one word, word 4 ct +
+// t % 4 of the entry's row of 4 ceil(H / 128) words (ct the column
+// tile): the fragment's own layout, no shuffles and two stores a thread
+// a tile.  With the flag off the kernels compile to what they were
+// without it.
 
 #include "agg_tc.cuh"
 
@@ -82,6 +95,28 @@ constexpr int MAX_T16 = 64;
 
 static_assert(BM * QS_LD * 4 <= RING_BYTES, "epilogue tile must fit the ring");
 
+// The slope bit of fragment column i, half j (the (j + 1)-th column of
+// the pair): where it sits in the thread's word of its row
+__device__ __forceinline__ uint32_t slope_bit(float q, int i, int j) {
+  return (q >= 0.f ? 1u : 0u) << (2 * i + j);
+}
+
+// A thread's two words of slope bits (rows frag_row(t, half)) into
+// `slopes` [B*T][4 n_col_tiles], for the tile's rows below `tile_rows`
+// (of entries g0..) and its column tile ct
+__device__ __forceinline__ void store_slopes(const uint32_t* bits, int t,
+                                             uint32_t* __restrict__ slopes,
+                                             size_t g0, int tile_rows,
+                                             int ct, int n_col_tiles) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = frag_row(t, half);
+    if (r < tile_rows)
+      slopes[(g0 + r) * 4 * n_col_tiles + 4 * ct + t % 4] = bits[half];
+  }
+}
+
+template <bool SLOPES>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 dma_agg_kernel(const float* __restrict__ h,      // [N, Din]
                const int* __restrict__ nb,       // [B, T]
@@ -90,6 +125,7 @@ dma_agg_kernel(const float* __restrict__ h,      // [N, Din]
                const float* __restrict__ small_t,
                const float* __restrict__ bq,     // [H]
                float* __restrict__ out,          // [B, H]
+               uint32_t* __restrict__ slopes,    // SLOPES: [B*T][4 col tiles]
                int n_nodes, int T, int din, int hdim, int nodes_per_tile,
                int n_col_tiles) {
   extern __shared__ unsigned char smem_raw[];
@@ -123,6 +159,7 @@ dma_agg_kernel(const float* __restrict__ h,      // [N, Din]
   // epilogue 1: weighted activations of every row into Qs (the ring is
   // free: tile_product ended on a barrier after its last product)
   float* Qs = ring;
+  uint32_t bits[2] = {0u, 0u};
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = frag_row(tid, half);
@@ -134,12 +171,16 @@ dma_agg_kernel(const float* __restrict__ h,      // [N, Din]
       const float b1v = (n0 + c + 1 < hdim) ? bq[n0 + c + 1] : 0.f;
       float q0 = acc[4 * i + 2 * half] + b0v;
       float q1 = acc[4 * i + 2 * half + 1] + b1v;
+      if constexpr (SLOPES)
+        bits[half] |= slope_bit(q0, i, 0) | slope_bit(q1, i, 1);
       q0 = (q0 >= 0.f) ? q0 : 0.01f * q0;
       q1 = (q1 >= 0.f) ? q1 : 0.01f * q1;
       *reinterpret_cast<float2*>(Qs + r * QS_LD + c) =
           make_float2(wr * q0, wr * q1);
     }
   }
+  if constexpr (SLOPES)
+    store_slopes(bits, tid, slopes, g0, tile_rows, col_tile, n_col_tiles);
   __syncthreads();
 
   // epilogue 2: sum each node's T rows, guarded divide, coalesced store
@@ -170,10 +211,12 @@ struct NodeTileRows {
 // WG_BYTES16): + bq, leaky_relu, x w, the sum over each node's T rows,
 // the guarded divide.  The tile's weights and bq are prefetched while it
 // multiplies.
+template <bool SLOPES>
 struct NodeMeanEpilogue {
   const float* w;
   const float* bq;
   float* out;
+  uint32_t* slopes;                 // SLOPES: [B*T][4 col tiles]
   unsigned char* wg_smem;
   int n_nodes, T, hdim, nodes_per_tile, n_col_tiles;
   __device__ __forceinline__ void prefetch(int tile, int wg) const {
@@ -209,6 +252,7 @@ struct NodeMeanEpilogue {
       den_s[t] = (s == 0.f) ? 1.f : s;
     }
     const float wr[2] = {w_s[frag_row(t, 0)], w_s[frag_row(t, 1)]};
+    uint32_t bits[2] = {0u, 0u};
 #pragma unroll
     for (int pass = 0; pass < BN16 / EPI_COLS16; ++pass) {
       if (n0 + pass * EPI_COLS16 >= hdim) break;    // the same for all
@@ -222,6 +266,8 @@ struct NodeMeanEpilogue {
         for (int half = 0; half < 2; ++half) {
           float q0 = acc[4 * i + 2 * half] + b.x;
           float q1 = acc[4 * i + 2 * half + 1] + b.y;
+          if constexpr (SLOPES)
+            bits[half] |= slope_bit(q0, i, 0) | slope_bit(q1, i, 1);
           q0 = (q0 >= 0.f) ? q0 : 0.01f * q0;
           q1 = (q1 >= 0.f) ? q1 : 0.01f * q1;
           *reinterpret_cast<float2*>(epi + frag_row(t, half) * EPI_LD16 +
@@ -264,13 +310,16 @@ struct NodeMeanEpilogue {
       }
       consumer_sync(wg);
     }
+    if constexpr (SLOPES)
+      store_slopes(bits, t, slopes, (size_t)b0 * T, tile_nodes * T,
+                   tile % n_col_tiles, n_col_tiles);
   }
 };
 
 // The 16-bit forms: SRC TABLE16 (h bf16 / f16, F16), F32_X1 / F32_X3 (h
 // f32, rounded to bf16 or split into hi and lo as it is staged; wq_lo_t:
 // Wq's lo tiles for three passes)
-template <bool F16, int SRC>
+template <bool F16, int SRC, bool SLOPES>
 __global__ void __launch_bounds__(THREADS16, 1) __cluster_dims__(CLUSTER16, 1, 1)
 dma_agg16_kernel(const void* __restrict__ h,       // [N, Din]
                  const int* __restrict__ nb,       // [B, T]
@@ -279,6 +328,7 @@ dma_agg16_kernel(const void* __restrict__ h,       // [N, Din]
                  const uint16_t* __restrict__ wq_lo_t,
                  const float* __restrict__ bq,     // [H]
                  float* __restrict__ out,          // [B, H]
+                 uint32_t* __restrict__ slopes,    // SLOPES: [B*T][4 col tiles]
                  int n_nodes, int T, int din, int hdim, int nodes_per_tile,
                  int n_col_tiles, int n_row_tiles, int groups,
                  int resident) {
@@ -286,8 +336,9 @@ dma_agg16_kernel(const void* __restrict__ h,       // [N, Din]
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       aligned_ring(smem_raw));
   const NodeTileRows rows{nb, n_nodes, T, nodes_per_tile, n_col_tiles};
-  const NodeMeanEpilogue epilogue{w, bq, out, smem + WG_OFF16, n_nodes, T,
-                                  hdim, nodes_per_tile, n_col_tiles};
+  const NodeMeanEpilogue<SLOPES> epilogue{
+      w, bq, out, slopes, smem + WG_OFF16, n_nodes, T, hdim, nodes_per_tile,
+      n_col_tiles};
   run16<F16, SRC>(smem, h, din, wq_t, wq_lo_t, n_col_tiles, n_row_tiles,
                   groups, resident, rows, epilogue);
 }
@@ -298,68 +349,101 @@ static long long node_row_tiles(int n_nodes, int T) {
 }
 
 // One 16-bit form of K3 on a checked problem: the persistent grid of
-// block pairs over `schedule16`'s items
-template <bool F16, int SRC>
+// block pairs over `schedule16`'s items (SLOPES: the slope bits too)
+template <bool F16, int SRC, bool SLOPES>
 static cudaError_t launch_core16(const void* h, const void* nb,
                                  const void* w, const void* tiles,
                                  const void* lo_tiles, const void* bq,
-                                 void* out, int n_nodes, int T, int din,
-                                 int hdim, cudaStream_t stream) {
+                                 void* out, void* slopes, int n_nodes, int T,
+                                 int din, int hdim, cudaStream_t stream) {
   const long long n_row_tiles = node_row_tiles(n_nodes, T);
   Schedule16 sc;
   const cudaError_t err =
-      schedule16(dma_agg16_kernel<F16, SRC>, din, hdim, SRC == F32_X3 ? 2 : 1,
-                 n_row_tiles, &sc);
+      schedule16(dma_agg16_kernel<F16, SRC, SLOPES>, din, hdim,
+                 SRC == F32_X3 ? 2 : 1, n_row_tiles, &sc);
   if (err != cudaSuccess) return err;
-  dma_agg16_kernel<F16, SRC><<<sc.blocks, THREADS16, SMEM16, stream>>>(
-      h, (const int*)nb, (const float*)w, (const uint16_t*)tiles,
-      (const uint16_t*)lo_tiles, (const float*)bq, (float*)out, n_nodes, T,
-      din, hdim, BM16 / T, (hdim + BN16 - 1) / BN16, (int)n_row_tiles,
-      sc.groups, sc.resident);
+  dma_agg16_kernel<F16, SRC, SLOPES>
+      <<<sc.blocks, THREADS16, SMEM16, stream>>>(
+          h, (const int*)nb, (const float*)w, (const uint16_t*)tiles,
+          (const uint16_t*)lo_tiles, (const float*)bq, (float*)out,
+          (uint32_t*)slopes, n_nodes, T, din, hdim, BM16 / T,
+          (hdim + BN16 - 1) / BN16, (int)n_row_tiles, sc.groups,
+          sc.resident);
   return cudaGetLastError();
 }
 
-extern "C" int dma_agg_launch(const void* h, const void* nb, const void* w,
+template <bool F16, int SRC>
+static cudaError_t launch_form16(const void* h, const void* nb,
+                                 const void* w, const void* tiles,
+                                 const void* lo_tiles, const void* bq,
+                                 void* out, void* slopes, int n_nodes, int T,
+                                 int din, int hdim, cudaStream_t stream) {
+  return slopes ? launch_core16<F16, SRC, true>(h, nb, w, tiles, lo_tiles, bq,
+                                                out, slopes, n_nodes, T, din,
+                                                hdim, stream)
+                : launch_core16<F16, SRC, false>(h, nb, w, tiles, lo_tiles,
+                                                 bq, out, slopes, n_nodes, T,
+                                                 din, hdim, stream);
+}
+
+template <bool SLOPES>
+static cudaError_t launch_f32(const void* h, const void* nb, const void* w,
                               const void* big_t, const void* small_t,
-                              const void* bq, void* out, int n_nodes, int T,
-                              int din, int hdim, void* stream) {
-  if (T < 1 || T > BM || din < 1 || hdim < 1 || din % 4 != 0 ||
-      hdim % 4 != 0 || (uintptr_t)h % 16 != 0 || (uintptr_t)big_t % 16 != 0 ||
-      (uintptr_t)small_t % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (n_nodes < 1) return (int)cudaSuccess;
+                              const void* bq, void* out, void* slopes,
+                              int n_nodes, int T, int din, int hdim,
+                              cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      dma_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dma_agg_kernel<SLOPES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const int nodes_per_tile = BM / T;
   const int n_col_tiles = (hdim + BN - 1) / BN;
   const long long n_node_tiles =
       (n_nodes + nodes_per_tile - 1) / nodes_per_tile;
   const unsigned blocks = (unsigned)(n_node_tiles * n_col_tiles);
-  dma_agg_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+  dma_agg_kernel<SLOPES><<<blocks, THREADS, SMEM_BYTES, stream>>>(
       (const float*)h, (const int*)nb, (const float*)w, (const float*)big_t,
-      (const float*)small_t, (const float*)bq, (float*)out, n_nodes, T, din,
-      hdim, nodes_per_tile, n_col_tiles);
-  return (int)cudaGetLastError();
+      (const float*)small_t, (const float*)bq, (float*)out,
+      (uint32_t*)slopes, n_nodes, T, din, hdim, nodes_per_tile, n_col_tiles);
+  return cudaGetLastError();
+}
+
+// `slopes` (nullptr: none) takes the slope bits [B*T][4 ceil(H/128)] of
+// each entry (4-byte aligned), in every form below
+
+extern "C" int dma_agg_launch(const void* h, const void* nb, const void* w,
+                              const void* big_t, const void* small_t,
+                              const void* bq, void* out, void* slopes,
+                              int n_nodes, int T, int din, int hdim,
+                              void* stream) {
+  if (T < 1 || T > BM || din < 1 || hdim < 1 || din % 4 != 0 ||
+      hdim % 4 != 0 || (uintptr_t)h % 16 != 0 || (uintptr_t)big_t % 16 != 0 ||
+      (uintptr_t)small_t % 16 != 0 || (uintptr_t)slopes % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_nodes < 1) return (int)cudaSuccess;
+  const auto st = (cudaStream_t)stream;
+  return (int)(slopes ? launch_f32<true>(h, nb, w, big_t, small_t, bq, out,
+                                         slopes, n_nodes, T, din, hdim, st)
+                      : launch_f32<false>(h, nb, w, big_t, small_t, bq, out,
+                                          slopes, n_nodes, T, din, hdim, st));
 }
 
 // f16 != 0: h and the tiles are f16, else bf16
 extern "C" int dma_agg_launch16(const void* h, const void* nb, const void* w,
                                 const void* tiles, const void* bq, void* out,
-                                int n_nodes, int T, int din, int hdim,
-                                int f16, void* stream) {
+                                void* slopes, int n_nodes, int T, int din,
+                                int hdim, int f16, void* stream) {
   if (T < 1 || T > MAX_T16 || din < 1 || hdim < 1 || din % 8 != 0 ||
       hdim % 4 != 0 || (uintptr_t)h % 16 != 0 || (uintptr_t)tiles % 16 != 0 ||
-      (uintptr_t)out % 8 != 0)
+      (uintptr_t)out % 8 != 0 || (uintptr_t)slopes % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (n_nodes < 1) return (int)cudaSuccess;
-  return (int)(f16 ? launch_core16<true, TABLE16>(
-                         h, nb, w, tiles, nullptr, bq, out, n_nodes, T, din,
-                         hdim, (cudaStream_t)stream)
-                   : launch_core16<false, TABLE16>(
-                         h, nb, w, tiles, nullptr, bq, out, n_nodes, T, din,
-                         hdim, (cudaStream_t)stream));
+  return (int)(f16 ? launch_form16<true, TABLE16>(
+                         h, nb, w, tiles, nullptr, bq, out, slopes, n_nodes,
+                         T, din, hdim, (cudaStream_t)stream)
+                   : launch_form16<false, TABLE16>(
+                         h, nb, w, tiles, nullptr, bq, out, slopes, n_nodes,
+                         T, din, hdim, (cudaStream_t)stream));
 }
 
 // h f32, rounded to bf16 as it is staged: passes 1 (hi tiles only) or 3
@@ -367,21 +451,21 @@ extern "C" int dma_agg_launch16(const void* h, const void* nb, const void* w,
 extern "C" int dma_agg_launch_bf16x(const void* h, const void* nb,
                                     const void* w, const void* hi,
                                     const void* lo, const void* bq, void* out,
-                                    int n_nodes, int T, int din, int hdim,
-                                    int passes, void* stream) {
+                                    void* slopes, int n_nodes, int T, int din,
+                                    int hdim, int passes, void* stream) {
   if (T < 1 || T > MAX_T16 || din < 1 || hdim < 1 || din % 8 != 0 ||
       hdim % 4 != 0 || (passes != 1 && passes != 3) ||
       (passes == 3) != (lo != nullptr) || (uintptr_t)h % 16 != 0 ||
       (uintptr_t)hi % 16 != 0 || (uintptr_t)lo % 16 != 0 ||
-      (uintptr_t)out % 8 != 0)
+      (uintptr_t)out % 8 != 0 || (uintptr_t)slopes % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (n_nodes < 1) return (int)cudaSuccess;
-  return (int)(passes == 1 ? launch_core16<false, F32_X1>(
-                                 h, nb, w, hi, nullptr, bq, out, n_nodes, T,
-                                 din, hdim, (cudaStream_t)stream)
-                           : launch_core16<false, F32_X3>(
-                                 h, nb, w, hi, lo, bq, out, n_nodes, T, din,
-                                 hdim, (cudaStream_t)stream));
+  return (int)(passes == 1 ? launch_form16<false, F32_X1>(
+                                 h, nb, w, hi, nullptr, bq, out, slopes,
+                                 n_nodes, T, din, hdim, (cudaStream_t)stream)
+                           : launch_form16<false, F32_X3>(
+                                 h, nb, w, hi, lo, bq, out, slopes, n_nodes,
+                                 T, din, hdim, (cudaStream_t)stream));
 }
 
 // The grid the 16-bit core takes for a problem (n_nodes >= 1) of
@@ -395,11 +479,11 @@ extern "C" int dma_agg_schedule(int n_nodes, int T, int din, int hdim,
   Schedule16 x;
   const long long rows = node_row_tiles(n_nodes, T);
   const cudaError_t err =
-      passes == 0   ? schedule16(dma_agg16_kernel<false, TABLE16>, din,
+      passes == 0   ? schedule16(dma_agg16_kernel<false, TABLE16, false>, din,
                                  hdim, 1, rows, &x)
-      : passes == 1 ? schedule16(dma_agg16_kernel<false, F32_X1>, din,
+      : passes == 1 ? schedule16(dma_agg16_kernel<false, F32_X1, false>, din,
                                  hdim, 1, rows, &x)
-                    : schedule16(dma_agg16_kernel<false, F32_X3>, din,
+                    : schedule16(dma_agg16_kernel<false, F32_X3, false>, din,
                                  hdim, 2, rows, &x);
   if (err != cudaSuccess) return (int)err;
   const int v[5] = {x.resident, x.groups, x.items, x.clusters, x.blocks};

@@ -264,9 +264,11 @@ def forward_with_gather(params: PinSageParams, gather_features,
     ``gather_features(ids) -> [m, in_dim]`` and ``gather_nbhds(ids) ->
     (weights [m, T], nodes [m, T])``.  Frontier l+1 is frontier l followed
     by its neighbors (no dedup: static size B*(T+1)^l), so layer l's self
-    rows are h[:m] and its neighbor rows are h[m:].  The aggregation runs
-    K3 on the GPU: gathered row batches of this size are what it was
-    written for."""
+    rows are h[:m] and its neighbor rows are h[m:], node i's at h[m + i T
+    ..].  The aggregation runs K3 on the GPU over h[m:] (gathered row
+    batches of this size are what it was written for), so its backward's
+    products run over the m T rows that it names and not over the m self
+    rows too."""
     frontiers = [nodeset.to(torch.int32)]
     nb_per_level = []
     for _ in range(n_layers):
@@ -278,11 +280,11 @@ def forward_with_gather(params: PinSageParams, gather_features,
     h = gather_features(frontiers[n_layers])
     for l in reversed(range(n_layers)):
         m = frontiers[l].shape[0]
-        ids = m + torch.arange(m * T, dtype=torch.int32,
-                               device=h.device).reshape(m, T)
+        ids = torch.arange(m * T, dtype=torch.int32,
+                           device=h.device).reshape(m, T)
         # the deepest frontier uses layers[0]
-        h = conv_from_table(params.layers[n_layers - 1 - l], h[:m], h, ids,
-                            nb_per_level[l], mode="dma")
+        h = conv_from_table(params.layers[n_layers - 1 - l], h[:m], h[m:],
+                            ids, nb_per_level[l], mode="dma")
     return head_apply(params, h)
 
 

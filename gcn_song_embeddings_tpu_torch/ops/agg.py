@@ -50,10 +50,21 @@ forms of K2 (``project_table_bf16x``, then ``gather_mean``) and K3
 and round them as the producer stages them, and Wq is tiled once in bf16
 (``tile_wq_bf16x``: hi, and lo for three passes); Din must then be a
 multiple of 8.  The plain versions take ``passes`` and round the same
-operands; ``ConvAggregate.backward`` rounds its recomputed projection
-and its products the same way (each gathered row's gradient rounded
-before it is summed onto its table row, as the TPU's backward dots
-round their cotangent).
+operands; ``ConvAggregate.backward`` rounds its products the same way
+(each gathered row's gradient rounded before it is summed onto its table
+row, as the TPU's backward dots round their cotangent).
+
+The backward (``ConvAggregate.backward``): each table row's gradient
+``S[n] = sum over entries e naming n of slope(e) c[e] dagg[e // T]``
+(``c = w / den``) is gathered per row by ``agg_bwd_rows``, on CUDA the
+hand-written kernel of ``csrc/agg_bwd.cu`` (its plain twin
+``agg_bwd_rows_plain``), over the CSR inverse of the ids
+(``backward_csr``) in a fixed order of sums, so the gradient is
+deterministic; then ``dh = S Wq``, ``dWq = S^T h``, ``dbq = sum S``.  On
+CUDA the slopes are the forward's residual (``conv_aggregate_cuda(...,
+residual=True)``): K2 keeps its projected table P, K3 stores the sign of
+each entry's pre-activation as bits; on the CPU they come from the
+projection recomputed in f32 (as JAX's autodiff of the same function).
 """
 
 from __future__ import annotations
@@ -74,6 +85,11 @@ HEADER = "gcn_song_embeddings_tpu_torch/csrc/agg_tc.cuh"
 REPLACES = "gcn_song_embeddings_tpu/ops/pallas_agg.py:52"
 MAX_T = 64  # K3's: a tile (192 rows; 16-bit: 64) holds whole nodes
 MODES = {"stream": "K2", "dma": "K3"}
+BWD_NAME = "agg_bwd"
+BWD_SOURCE = "gcn_song_embeddings_tpu_torch/csrc/agg_bwd.cu"
+BWD_REPLACES = ("none: XLA autodiff of conv_apply, "
+                "gcn_song_embeddings_tpu/models/pinsage.py:126")
+BWD_ROWS = 64  # table rows a block of the backward kernel (agg_bwd.cu)
 BN, BK, SLAB = 128, 32, 64  # Wq tile rows and floats (agg_tc.cuh); P slab
 BK16 = 64  # 16-bit elements of a Wq tile row (agg_tc.cuh's 16-bit core)
 # the 16-bit table types, each with its form's name and the gather's
@@ -88,6 +104,10 @@ launches_f16 = 0  # K2 op calls on f16 CUDA tables since the last reset
 # launches of each K2 kernel (the split also runs for every K3 call; the
 # gather serves every form)
 kernel_launches = {"split": 0, "project": 0, "gather_mean": 0}
+# launches of the backward's row kernel and of its CSR build (csrc/
+# agg_bwd.cu: every form and mode) since the last reset
+bwd_launches = 0
+csr_launches = 0
 # launches of the 16-bit forms' own kernels (the tiling also runs for
 # every 16-bit K3 call)
 kernel_launches_bf16 = {"tile": 0, "project": 0}
@@ -117,6 +137,7 @@ _ARGTYPES = {"split": [_P] * 3 + [_I] * 2 + [_P],
              "project_bf16x": [_P] * 5 + [_I] * 4 + [_P],
              "l2_probe": [_P] + [_I] * 2 + [_P, _I, _P],
              "gather_probe": [_P, _I, _I, _P] + [_I] * 3 + [_P, _I, _P]}
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_P]
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -384,6 +405,242 @@ def slabs_to_rows(proj: torch.Tensor, hdim: int) -> torch.Tensor:
     """``project_table``'s [ceil(H/64), N, 64] slabs -> rows [N, H]."""
     s, n, _ = proj.shape
     return proj.permute(1, 0, 2).reshape(n, s * SLAB)[:, :hdim]
+
+
+def rows_to_slabs(rows: torch.Tensor) -> torch.Tensor:
+    """Rows [N, H] -> ``project_table``'s [ceil(H/64), N, 64] slabs (the
+    last slab's columns past H zero): ``slabs_to_rows``' inverse."""
+    n, hdim = rows.shape
+    s = -(-hdim // SLAB)
+    return F.pad(rows, (0, s * SLAB - hdim)).reshape(n, s, SLAB).permute(
+        1, 0, 2).contiguous()
+
+
+def slope_words(hdim: int) -> int:
+    """32-bit words a row of K3's slope residual: four a 128-column tile."""
+    return 4 * -(-hdim // BN)
+
+
+def _slope_places(hdim: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(word, bit) of each column c < H in a row of K3's slope residual,
+    the accumulator fragment's layout (``csrc/dma_agg.cu``): word
+    4 (c / 128) + (c % 8) / 2, bit 2 ((c % 128) / 8) + c % 2."""
+    c = torch.arange(hdim, device=device)
+    return 4 * (c // BN) + (c % 8) // 2, 2 * ((c % BN) // 8) + c % 2
+
+
+def unpack_slope_bits(bits: torch.Tensor, hdim: int) -> torch.Tensor:
+    """K3's slope residual int32 [E, ``slope_words(H)``] -> bool [E, H]."""
+    word, bit = _slope_places(hdim, bits.device)
+    return ((bits[:, word] >> bit) & 1).bool()
+
+
+def residual_slopes(residual: torch.Tensor, nb_nodes: torch.Tensor,
+                    hdim: int) -> torch.Tensor:
+    """bool [B*T, H]: the leaky_relu branch (True: q >= 0) of each
+    gathered entry as the forward's residual holds it: K2's projected
+    table (3-d slabs, one slope a table row) or K3's bits (2-d)."""
+    if residual.dim() == 3:
+        return slabs_to_rows(residual, hdim)[nb_nodes.reshape(-1).long()] >= 0
+    return unpack_slope_bits(residual, hdim)
+
+
+def conv_aggregate_slopes(h: torch.Tensor, nb_nodes: torch.Tensor,
+                          nb_weights: torch.Tensor, Wq: torch.Tensor,
+                          bq: torch.Tensor, mode: str = "stream",
+                          passes: int | None = None) -> torch.Tensor:
+    """bool [B*T, H]: the leaky_relu branch of each gathered entry (True:
+    q >= 0) as the CUDA forward of ``mode`` (in ``passes`` bf16 passes
+    where given) keeps it for the backward (``residual_slopes``), for
+    references that take the backward's slopes."""
+    with torch.no_grad():
+        _, res = conv_aggregate_cuda(
+            h.detach(), nb_nodes.to(torch.int32).contiguous(),
+            nb_weights.detach().contiguous(), Wq.detach().contiguous(),
+            bq.detach().contiguous(), mode, None, passes, residual=True)
+    return residual_slopes(res, nb_nodes, Wq.shape[0])
+
+
+def backward_csr_plain(nb_nodes: torch.Tensor, n_rows: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``backward_csr``'s plain version: a stable sort of the ids and the
+    first place of each row in it."""
+    ids = nb_nodes.reshape(-1).to(torch.int32)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    offsets = torch.searchsorted(
+        sorted_ids, torch.arange(n_rows + 1, dtype=torch.int32,
+                                 device=ids.device), out_int32=True)
+    return offsets, order.to(torch.int32)
+
+
+def _bwd_launch(entry: str, argtypes: list, *args) -> None:
+    lib = cuda_build.bind(BWD_NAME, argtypes, entry)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    err = getattr(lib, f"{BWD_NAME}_{entry}")(
+        *args, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib, BWD_NAME, err)
+
+
+def _backward_csr(ids: torch.Tensor, n_rows: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    global csr_launches
+    n_entries = ids.numel()
+    counts = torch.empty(n_rows + 1, dtype=torch.int32, device=ids.device)
+    offsets = torch.zeros(n_rows + 1, dtype=torch.int32, device=ids.device)
+    runs = torch.empty(n_entries, dtype=torch.int32, device=ids.device)
+    entries = torch.empty_like(runs)
+    with torch.cuda.device(ids.device):
+        _bwd_launch("csr_count_launch", [_P, _I, _I, _P, _P], ids.data_ptr(),
+                    n_entries, n_rows, counts.data_ptr())
+        torch.cumsum(counts[:n_rows], 0, dtype=torch.int32,
+                     out=offsets[1:])
+        _bwd_launch("csr_fill_launch", [_P, _I, _I] + [_P] * 5,
+                    ids.data_ptr(), n_entries, n_rows, offsets.data_ptr(),
+                    counts.data_ptr(), runs.data_ptr(), entries.data_ptr())
+    csr_launches += 1
+    return offsets, entries
+
+
+def backward_csr(nb_nodes: torch.Tensor, n_rows: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of the ids nb_nodes [B, T] (in [0, n_rows)) in CSR
+    form: ``offsets`` int32 [n_rows + 1] and ``entries`` int32 [B*T], the
+    flat entries (b T + t) that name row n at ``entries[offsets[n]:
+    offsets[n + 1]]``, ascending (a stable sort), so the same ids give the
+    same CSR on every run and device.  On CUDA the kernels of
+    ``csrc/agg_bwd.cu`` (counts, their sum, an atomic fill, each row's
+    run ranked by a warp, or sorted by a block where it is long), equal
+    to ``backward_csr_plain``; on the CPU that."""
+    if nb_nodes.device.type == "cpu":
+        return backward_csr_plain(nb_nodes, n_rows)
+    _check_tensors((("nb_nodes", nb_nodes, torch.int32, 2),))
+    if n_rows < 1:
+        raise ValueError(f"the CSR takes n_rows >= 1, got {n_rows}")
+    _check_cuda("the backward's CSR", nb_nodes.device)
+    return _backward_csr(nb_nodes, n_rows)
+
+
+def _bwd_denominators(w: torch.Tensor, sixteen: bool, dtype: torch.dtype
+                      ) -> torch.Tensor:
+    """[B]: each node's weight sum taken as the backward kernel takes it,
+    w[:, 0] + w[:, 1] + ... in that order (of 16-bit weights upcast, the
+    sum rounded to their type), 1 where it is 0."""
+    den = torch.zeros_like(w[:, 0])
+    for t in range(w.shape[1]):
+        den = den + w[:, t]
+    if sixteen:
+        den = den.to(dtype).to(w.dtype)
+    return torch.where(den == 0.0, torch.ones_like(den), den)
+
+
+def agg_bwd_rows_plain(offsets: torch.Tensor, entries: torch.Tensor,
+                       nb_weights: torch.Tensor, dagg: torch.Tensor,
+                       residual: torch.Tensor, passes: int | None = None
+                       ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """``agg_bwd_rows``' plain twin, in the kernel's order of sums: step k
+    adds each row's k-th entry's term ``c[e] dagg[e // T]`` (c = w /
+    ``_bwd_denominators``; times 0.01 on the negative slope) to its f32
+    sum, rounded to bf16 first with ``passes`` 1 or split into bf16 hi and
+    lo with 3 (two sums).  Returns (the row sums [N, H], one or two; dbq
+    [H], the sum of the unrounded terms)."""
+    n, hdim = offsets.numel() - 1, dagg.shape[1]
+    t = nb_weights.shape[1]
+    w = _f32(nb_weights)
+    c = (w / _bwd_denominators(w, nb_weights.dtype in SIXTEEN,
+                               nb_weights.dtype)[:, None]).reshape(-1)
+    offsets, entries = offsets.long(), entries.long()
+    counts = offsets[1:] - offsets[:-1]
+    row_slope = (slabs_to_rows(residual, hdim) >= 0
+                 if residual.dim() == 3 else None)
+    entry_slope = (unpack_slope_bits(residual, hdim) if row_slope is None
+                   else None)
+    sums = [dagg.new_zeros((n, hdim)) for _ in range(2 if passes == 3 else 1)]
+    full = sums[0] if passes is None else torch.zeros_like(sums[0])
+    for k in range(int(counts.max()) if n else 0):
+        rows = (counts > k).nonzero().squeeze(1)
+        e = entries[offsets[rows] + k]
+        term = c[e, None] * dagg[e // t]
+        slope = entry_slope[e] if row_slope is None else row_slope[rows]
+        term = torch.where(slope, term, 0.01 * term)
+        if passes is not None:
+            full[rows] += term
+            for acc, part in zip(sums, _parts(term, passes)):
+                acc[rows] += part
+        else:
+            sums[0][rows] += term
+    return tuple(sums), full.sum(dim=0)
+
+
+def _agg_bwd_rows(offsets: torch.Tensor, entries: torch.Tensor,
+                  nb_weights: torch.Tensor, dagg: torch.Tensor,
+                  residual: torch.Tensor, passes: int | None
+                  ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    global bwd_launches
+    n, (b, hdim) = offsets.numel() - 1, dagg.shape
+    row_form = residual.dim() == 3
+    w = _f32(nb_weights)                      # 16-bit weights upcast exactly
+    c = torch.empty(b * nb_weights.shape[1], dtype=torch.float32,
+                    device=dagg.device)
+    s_hi = torch.empty((n, hdim), dtype=torch.float32, device=dagg.device)
+    s_lo = torch.empty_like(s_hi) if passes == 3 else None
+    partial = torch.empty((-(-n // BWD_ROWS), hdim), dtype=torch.float32,
+                          device=dagg.device)
+    with torch.cuda.device(dagg.device):
+        _bwd_launch("launch", _BWD_ARGTYPES, offsets.data_ptr(),
+                    entries.data_ptr(), w.data_ptr(), c.data_ptr(),
+                    dagg.data_ptr(), residual.data_ptr() if row_form else 0,
+                    0 if row_form else residual.data_ptr(), s_hi.data_ptr(),
+                    0 if s_lo is None else s_lo.data_ptr(),
+                    partial.data_ptr(), b, n, nb_weights.shape[1], hdim,
+                    passes or 0, SIXTEEN.get(nb_weights.dtype, ("", 0))[1])
+    bwd_launches += 1
+    return (s_hi,) if s_lo is None else (s_hi, s_lo), partial.sum(dim=0)
+
+
+def agg_bwd_rows(offsets: torch.Tensor, entries: torch.Tensor,
+                 nb_weights: torch.Tensor, dagg: torch.Tensor,
+                 residual: torch.Tensor, passes: int | None = None
+                 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """The aggregation's backward over the table rows: ``S[n] = sum over
+    the entries e of row n (``backward_csr``'s offsets and entries) of
+    slope(e) c[e] dagg[e // T]``, c = w / den of nb_weights [B, T] (f32,
+    or 16-bit with the denominator rounded to their type, as the forward
+    takes it) and dagg [B, H] f32, the slopes from ``residual`` (K2's
+    projected table [ceil(H/64), N, 64] f32, or K3's bits int32 [B*T,
+    ``slope_words(H)``]); with ``passes`` each term rounded to bf16 (1),
+    or split into bf16 hi and lo (3), before it is summed.  Returns (S,
+    or its one or two part sums, each [N, H] f32; dbq [H], the sum of the
+    unrounded terms).  On CUDA it launches the kernel of ``csrc/agg_bwd.cu``, each
+    row's entries summed in the twin's order (equal bit for bit); on the
+    CPU it runs ``agg_bwd_rows_plain``."""
+    if dagg.device.type == "cpu":
+        return agg_bwd_rows_plain(offsets, entries, nb_weights, dagg,
+                                  residual, passes)
+    kernel = "the aggregation's backward"
+    if passes is not None:
+        _check_passes(passes)
+    row_form = residual.dim() == 3
+    _check_weights(kernel, nb_weights, sixteen_ok=True)
+    _check_tensors((("dagg", dagg, torch.float32, 2),
+                    ("offsets", offsets, torch.int32, 1),
+                    ("entries", entries, torch.int32, 1),
+                    ("nb_weights", nb_weights, nb_weights.dtype, 2),
+                    ("residual", residual,
+                     torch.float32 if row_form else torch.int32,
+                     residual.dim())))
+    n, (b, hdim) = offsets.numel() - 1, dagg.shape
+    t = nb_weights.shape[1]
+    if (n < 1 or t < 1 or nb_weights.shape[0] != b
+            or entries.numel() != b * t
+            or (row_form and residual.shape != (-(-hdim // SLAB), n, SLAB))
+            or (not row_form and residual.shape != (b * t,
+                                                    slope_words(hdim)))):
+        raise _mismatch(offsets=offsets, entries=entries,
+                        nb_weights=nb_weights, dagg=dagg, residual=residual)
+    _check_widths(kernel, hdim)
+    _check_aligned(dagg=dagg, residual=residual)
+    _check_cuda(kernel, dagg.device)
+    return _agg_bwd_rows(offsets, entries, nb_weights, dagg, residual, passes)
 
 
 def _launch(entry: str, *args) -> None:
@@ -787,7 +1044,8 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
                         nb_weights: torch.Tensor, Wq: torch.Tensor,
                         bq: torch.Tensor, mode: str = "stream",
                         block_rows: int | None = None,
-                        passes: int | None = None) -> torch.Tensor:
+                        passes: int | None = None, residual: bool = False
+                        ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 (mode "stream") or K3 (mode "dma") on CUDA tensors: h
     [N, Din] f32, bf16 or f16, nb_nodes [B, T] int32 (ids in [0, N)),
     nb_weights [B, T] f32 (or 16-bit in mode "stream"), Wq [H, Din] of
@@ -797,7 +1055,11 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
     the table once, then gathers all B nodes, or with ``block_rows`` one
     block of that many nodes at a time (the projection is freed on
     return).  Records no graph, so it refuses inputs that need a
-    gradient: ``conv_aggregate`` is the differentiable entry."""
+    gradient: ``conv_aggregate`` is the differentiable entry.  With
+    ``residual`` it returns (out, the backward's slope residual): K2's
+    projected table [ceil(H/64), N, 64] f32, kept instead of freed, or
+    the bits [B*T, ``slope_words(H)``] int32 that K3's epilogue stores
+    (``residual_slopes`` reads either)."""
     global launches, launches_bf16, launches_f16
     global launches_bf16x1, launches_bf16x3
     if mode not in MODES:
@@ -831,28 +1093,32 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
     _check_aligned(h=h)
     _check_cuda(kernel, h.device)
     out = torch.empty((b, hdim), dtype=torch.float32, device=h.device)
+    bits = (torch.empty((b * t, slope_words(hdim)), dtype=torch.int32,
+                        device=h.device) if residual and mode == "dma"
+            else None)
     if b == 0:
-        return out
+        return (out, bits) if residual else out
     if h.shape[0] == 0:
         raise ValueError("h has no rows for nb_nodes to name")
     if sixteen:
         tiles = _tile_wq16(Wq)
         if mode == "dma":
-            dma_agg.launch16(h, nb_nodes, nb_weights, tiles, bq, out)
-            return out
+            dma_agg.launch16(h, nb_nodes, nb_weights, tiles, bq, out, bits)
+            return (out, bits) if residual else out
         proj = _project_table16(h, tiles, bq)
     elif passes:
         hi, lo = _tile_wq_bf16x(Wq, passes)
         if mode == "dma":
             dma_agg.launch_bf16x(h, nb_nodes, nb_weights, hi, lo, bq, out,
-                                 passes)
-            return out
+                                 passes, bits)
+            return (out, bits) if residual else out
         proj = _project_table_bf16x(h, hi, lo, bq, passes)
     else:
         big, small = _split_wq(Wq)
         if mode == "dma":
-            dma_agg.launch(h, nb_nodes, nb_weights, big, small, bq, out)
-            return out
+            dma_agg.launch(h, nb_nodes, nb_weights, big, small, bq, out,
+                           bits)
+            return (out, bits) if residual else out
         proj = _project_table(h, big, small, bq)
     step = block_rows or b
     for s in range(0, b, step):
@@ -868,87 +1134,100 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
         launches_bf16x3 += 1
     else:
         launches += 1
-    return out
+    return (out, proj) if residual else out
 
 
 class ConvAggregate(torch.autograd.Function):
     """The aggregation with a gradient for h, Wq and bq.
 
     Forward: the kernel ``mode`` names on CUDA tensors, the plain version
-    on CPU tensors.  Backward, in plain PyTorch (the JAX package's gradient
-    is XLA's autodiff of the gather + einsum; no TPU kernel has a
-    backward), in table form: every table row is projected once
-    (``P = h Wq^T + bq``, N rows) and gathered (``pre = P[nb]``), the row
-    gradients ``dpre = (w / denom) * dagg * leaky_relu'(pre)`` are summed
-    onto the table rows they came from (``S = index_add_(nb, dpre)``, a
-    few terms per row), and then ``dWq = S^T h``, ``dbq = sum S`` and
-    ``dh = S Wq`` are matrix products over the N table rows, not over the
-    B*T gathered ones: the same gradient, with reductions T-fold shorter
-    where ids repeat (the full-graph forward) and about as long where
-    they do not (the frontier forward, whose table holds B*T + B rows).
-    The neighbor weights get no gradient: they are constants of the
-    neighborhood cache.  For a 16-bit (bf16 or f16) table and Wq the
-    pre-activation is recomputed from their f32 upcasts (the JAX
-    package's residual is f32: a 16-bit ``addmm`` would round it and move
-    the leaky_relu's branch), and dh and dWq are returned in the table's
-    type.  dh sums each table row's gradient in f32 and rounds once,
-    where JAX's scatter-add (and the CPU path's autograd through the
-    plain version) rounds each gathered row's gradient and accumulates
-    in 16 bits: a deliberate divergence, the once-rounded sum being the
-    more accurate (``tests/test_torch_f16_gpu.py`` pins it on the
-    card).  With ``passes`` (an f32 table under the precision policy)
-    the recomputed projection runs in the forward's bf16 passes, so the
-    leaky_relu takes the forward's branch, and each gathered row's
-    gradient is rounded (one pass) or split (three) before it is summed
-    onto its table row: ``dh`` and ``dWq`` are then the sums of the
-    TPU's backward dots, which round their cotangent, in another order;
-    ``dbq`` sums the unrounded rows."""
+    on CPU tensors.  On CUDA, with ``residual`` (``conv_aggregate``
+    passes it where a gradient will be taken), the forward keeps its
+    slope residual (``conv_aggregate_cuda``): K2's projected table, or
+    K3's bits; without it, it runs and keeps exactly what the no-grad
+    paths run.  Backward in table form (the
+    JAX package's gradient is XLA's autodiff of the gather + einsum; no
+    TPU kernel has a backward): each table row's gradient ``S[n]``, the
+    sum of ``slope * (w / denom) * dagg`` over the entries that name it,
+    is gathered row by row over ``backward_csr``'s inverse of the ids by
+    ``agg_bwd_rows`` (on CUDA the kernel of ``csrc/agg_bwd.cu``, in a
+    fixed order of sums, so two runs give the same bits), with the
+    slopes of the forward's residual on CUDA and of the projection
+    recomputed in f32 on the CPU; then ``dWq = S^T h``, ``dbq = sum S``
+    and ``dh = S Wq`` are matrix products over the N table rows, not
+    over the B*T gathered ones.  The neighbor weights get no gradient:
+    they are constants of the neighborhood cache.  For a 16-bit (bf16 or
+    f16) table and Wq the slopes are those of the f32 pre-activation
+    (the forward's f32 sums; JAX's residual is f32 too), and dh and dWq
+    are returned in the table's type.  dh sums each table row's gradient
+    in f32 and rounds once, where JAX's scatter-add (and the CPU path's
+    autograd through the plain version) rounds each gathered row's
+    gradient and accumulates in 16 bits: a deliberate divergence, the
+    once-rounded sum being the more accurate
+    (``tests/test_torch_f16_gpu.py`` pins it on the card).  With
+    ``passes`` (an f32 table under the precision policy) the slopes are
+    those of the forward's bf16 passes, and each gathered row's gradient
+    is rounded (one pass) or split (three) before it is summed onto its
+    table row: ``dh`` and ``dWq`` are then the sums of the TPU's backward
+    dots, which round their cotangent, in another order; ``dbq`` sums
+    the unrounded rows."""
 
     @staticmethod
-    def forward(ctx, h, nb_nodes, nb_weights, Wq, bq, mode, block_rows=None,
-                passes=None):
+    def forward(ctx, h, nb_nodes, nb_weights, Wq, bq, mode, block_rows,
+                passes, residual):
+        res = None
         if h.device.type == "cpu":
             out = conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq,
                                        passes)
         else:
             out = conv_aggregate_cuda(h, nb_nodes, nb_weights, Wq, bq, mode,
-                                      block_rows, passes)
-        ctx.save_for_backward(h, nb_nodes, nb_weights, Wq, bq)
+                                      block_rows, passes, residual)
+            if residual:
+                out, res = out
+        ctx.save_for_backward(h, nb_nodes, nb_weights, Wq, bq, res)
         ctx.mode, ctx.passes = mode, passes
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dagg):
-        h, nb_nodes, nb_weights, Wq, bq = ctx.saved_tensors
+        h, nb_nodes, nb_weights, Wq, bq, res = ctx.saved_tensors
         need_h, _, _, need_wq, need_bq = ctx.needs_input_grad[:5]
         passes = ctx.passes
         h32, wq32 = _f32(h), _f32(Wq)
-        ids = nb_nodes.reshape(-1).long()
-        if passes is None:
-            proj = torch.addmm(bq, h32, wq32.t())            # [N, H]
+        n = h.shape[0]
+        if nb_nodes.numel() == 0:
+            zero = h32.new_zeros((n, Wq.shape[0]))
+            parts, dbq = (zero,) * (2 if passes == 3 else 1), zero.sum(dim=0)
+        elif h.device.type == "cpu":         # the recomputed slopes
+            res = rows_to_slabs(
+                torch.addmm(bq, h32, wq32.t()) if passes is None
+                else _passes_product(h32, wq32.t(), passes) + bq)
+            offsets, entries = backward_csr_plain(nb_nodes, n)
+            parts, dbq = agg_bwd_rows_plain(offsets, entries, nb_weights,
+                                            dagg, res, passes)
+        elif res is None:
+            raise RuntimeError("this forward kept no slope residual: call "
+                               "conv_aggregate, or apply with residual "
+                               "True")
         else:
-            proj = _passes_product(h32, wq32.t(), passes) + bq
-        pre = proj[ids]                                       # [B*T, H]
-        dq = ((_f32(nb_weights) / _denominator(nb_weights))[:, :, None]
-              * dagg[:, None, :]).reshape(pre.shape)
-        dpre = torch.where(pre >= 0.0, dq, 0.01 * dq)
-        if passes is None:
-            s = torch.zeros_like(proj).index_add_(0, ids, dpre)  # [N, H]
-            dh = (s @ wq32).to(h.dtype) if need_h else None
-            dwq = (s.t() @ h32).to(Wq.dtype) if need_wq else None
-            dbq = s.sum(dim=0) if need_bq else None
-        else:
-            s = [torch.zeros_like(proj).index_add_(0, ids, d)
-                 for d in _parts(dpre, passes)]
-            dh = _passes_sum(s, _parts(wq32, passes)) if need_h else None
-            dwq = (_passes_sum([x.t() for x in s], _parts(h32, passes))
-                   if need_wq else None)
-            dbq = dpre.sum(dim=0) if need_bq else None
+            offsets, entries = _backward_csr(nb_nodes, n)
+            parts, dbq = _agg_bwd_rows(offsets, entries, nb_weights,
+                                       dagg.contiguous(), res, passes)
+        with exact_f32():
+            if passes is None:
+                dh = (parts[0] @ wq32).to(h.dtype) if need_h else None
+                dwq = (parts[0].t() @ h32).to(Wq.dtype) if need_wq else None
+            else:
+                dh = (_passes_sum(parts, _parts(wq32, passes)) if need_h
+                      else None)
+                dwq = (_passes_sum([x.t() for x in parts],
+                                   _parts(h32, passes)) if need_wq else None)
         if dagg.device.type == "cuda":
             form = _form(h.dtype) or BF16X.get(passes, "")
             backward_launches[ctx.mode + (f"_{form}" if form else "")] += 1
-        return dh, None, None, dwq, dbq, None, None, None
+        return (dh, None, None, dwq, dbq if need_bq else None, None, None,
+                None, None)
 
 
 def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
@@ -980,6 +1259,9 @@ def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
     if nb_weights.requires_grad and torch.is_grad_enabled():
         raise ValueError("nb_weights get no gradient on CUDA (constants of "
                          "the neighborhood cache): pass them detached")
+    residual = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (h, Wq, bq))
     return ConvAggregate.apply(h, nb_nodes.to(torch.int32).contiguous(),
                                nb_weights.contiguous(), Wq.contiguous(),
-                               bq.contiguous(), mode, block_rows, passes)
+                               bq.contiguous(), mode, block_rows, passes,
+                               residual)

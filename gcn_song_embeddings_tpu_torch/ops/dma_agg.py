@@ -21,6 +21,12 @@ header: a block pair gathers a pair of row tiles once into shared memory
 and sweeps a run of Wq's column tiles over them, each k chunk's partial
 sum promoted to an f32 sum; K2's projections run the same core, and
 ``card_schedule`` asks the card's launch for the grid it picks.
+
+Every launch takes ``slopes``: None, or an int32 tensor [B*T,
+``ops.agg.slope_words(H)``] that the epilogue fills with the leaky_relu's
+branch of each gathered entry and column (q >= 0, in the accumulator
+fragment's layout: ``ops.agg.unpack_slope_bits``), the residual that
+``ops.agg.ConvAggregate`` keeps for its backward (``csrc/agg_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -41,10 +47,14 @@ launches_f16 = 0  # the f16 form's launches since the last reset
 launches_bf16x1 = 0  # an f32 table's one-bf16-pass form's launches
 launches_bf16x3 = 0  # an f32 table's three-bf16-pass form's launches
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_ARGTYPES16 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_ARGTYPES_BF16X = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES16 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES_BF16X = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
+
+
+def _ptr(slopes: torch.Tensor | None) -> int:
+    return 0 if slopes is None else slopes.data_ptr()
 
 
 def card_schedule(kind: str, rows: int, din: int, hdim: int, t: int = 1,
@@ -74,7 +84,7 @@ def card_schedule(kind: str, rows: int, din: int, hdim: int, t: int = 1,
 
 def launch(h: torch.Tensor, nb_nodes: torch.Tensor, nb_weights: torch.Tensor,
            big: torch.Tensor, small: torch.Tensor, bq: torch.Tensor,
-           out: torch.Tensor) -> None:
+           out: torch.Tensor, slopes: torch.Tensor | None = None) -> None:
     """Launch K3 on checked CUDA tensors: h [N, Din], nb_nodes [B, T]
     int32, nb_weights [B, T], Wq's TF32 parts ``big`` and ``small`` from
     ``ops.agg.split_wq``, bq [H] -> out [B, H] (all f32 but the ids,
@@ -88,15 +98,15 @@ def launch(h: torch.Tensor, nb_nodes: torch.Tensor, nb_weights: torch.Tensor,
         err = lib.dma_agg_launch(h.data_ptr(), nb_nodes.data_ptr(),
                                  nb_weights.data_ptr(), big.data_ptr(),
                                  small.data_ptr(), bq.data_ptr(),
-                                 out.data_ptr(), b, t, h.shape[1],
-                                 bq.shape[0], stream)
+                                 out.data_ptr(), _ptr(slopes), b, t,
+                                 h.shape[1], bq.shape[0], stream)
     cuda_build.check(lib, NAME, err)
     launches += 1
 
 
 def launch16(h: torch.Tensor, nb_nodes: torch.Tensor,
              nb_weights: torch.Tensor, tiles: torch.Tensor, bq: torch.Tensor,
-             out: torch.Tensor) -> None:
+             out: torch.Tensor, slopes: torch.Tensor | None = None) -> None:
     """Launch K3's 16-bit form on checked CUDA tensors: h [N, Din] bf16 or
     f16 (Din a multiple of 8), nb_nodes [B, T] int32, nb_weights [B, T]
     f32, Wq's tiles (h's type) from ``ops.agg.tile_wq16``, bq [H] f32 ->
@@ -110,8 +120,9 @@ def launch16(h: torch.Tensor, nb_nodes: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dma_agg_launch16(h.data_ptr(), nb_nodes.data_ptr(),
                                    nb_weights.data_ptr(), tiles.data_ptr(),
-                                   bq.data_ptr(), out.data_ptr(), b, t,
-                                   h.shape[1], bq.shape[0], int(f16), stream)
+                                   bq.data_ptr(), out.data_ptr(),
+                                   _ptr(slopes), b, t, h.shape[1],
+                                   bq.shape[0], int(f16), stream)
     cuda_build.check(lib, NAME, err)
     if f16:
         launches_f16 += 1
@@ -122,7 +133,7 @@ def launch16(h: torch.Tensor, nb_nodes: torch.Tensor,
 def launch_bf16x(h: torch.Tensor, nb_nodes: torch.Tensor,
                  nb_weights: torch.Tensor, hi: torch.Tensor,
                  lo: torch.Tensor | None, bq: torch.Tensor, out: torch.Tensor,
-                 passes: int) -> None:
+                 passes: int, slopes: torch.Tensor | None = None) -> None:
     """Launch K3 on an f32 table in ``passes`` (1 or 3) bf16 passes, on
     checked CUDA tensors: h [N, Din] f32 (Din a multiple of 8),
     nb_nodes [B, T] int32, nb_weights [B, T] f32, Wq's bf16 tiles ``hi``
@@ -137,8 +148,8 @@ def launch_bf16x(h: torch.Tensor, nb_nodes: torch.Tensor,
         err = lib.dma_agg_launch_bf16x(
             h.data_ptr(), nb_nodes.data_ptr(), nb_weights.data_ptr(),
             hi.data_ptr(), 0 if lo is None else lo.data_ptr(),
-            bq.data_ptr(), out.data_ptr(), b, t, h.shape[1], bq.shape[0],
-            passes, stream)
+            bq.data_ptr(), out.data_ptr(), _ptr(slopes), b, t, h.shape[1],
+            bq.shape[0], passes, stream)
     cuda_build.check(lib, NAME, err)
     if passes == 1:
         launches_bf16x1 += 1

@@ -107,7 +107,7 @@ def test_backward_gradcheck_float64():
         for block_rows in (None, 2):
             assert torch.autograd.gradcheck(
                 lambda h, Wq, bq: agg.ConvAggregate.apply(
-                    h, nb, w, Wq, bq, mode, block_rows),
+                    h, nb, w, Wq, bq, mode, block_rows, None, True),
                 (h, Wq, bq))
 
 
@@ -121,7 +121,7 @@ def test_backward_matches_jax_vjp(b, t, din, hdim, zero_row):
     cot = np.random.default_rng(7).normal(size=(b, hdim)).astype(np.float32)
     h, nb, w, Wq, bq = (torch.from_numpy(a) for a in arrays)
     h, Wq, bq = (x.requires_grad_() for x in (h, Wq, bq))
-    out = agg.ConvAggregate.apply(h, nb, w, Wq, bq, "dma")
+    out = agg.ConvAggregate.apply(h, nb, w, Wq, bq, "dma", None, None, True)
     got = torch.autograd.grad(out, (h, Wq, bq), torch.from_numpy(cot))
     jh, jnb, jw, jWq, jbq = (jnp.asarray(a) for a in arrays)
     _, vjp = jax.vjp(lambda h, Wq, bq: j_conv_aggregate(h, jnb, jw, Wq, bq),

@@ -176,7 +176,8 @@ def test_bf16_backward_recomputes_pre_in_f32_and_returns_bf16():
 
     hh, nb, ww, wq, b = leaves()
     got = torch.autograd.grad(
-        agg.ConvAggregate.apply(hh, nb, ww, wq, b, "stream"), (hh, wq, b),
+        agg.ConvAggregate.apply(hh, nb, ww, wq, b, "stream", None, None,
+                                True), (hh, wq, b),
         cot)
     hh, nb, ww, wq, b = leaves()
     plain = torch.autograd.grad(agg.conv_aggregate_plain(hh, nb, ww, wq, b),

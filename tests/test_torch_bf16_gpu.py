@@ -158,7 +158,7 @@ def test_bf16_backward_on_the_card_matches_the_cpu(cuda, mode):
     def grads(dev):
         hh, wq, b = (x.to(dev).requires_grad_() for x in (h, Wq, bq))
         out = agg.ConvAggregate.apply(hh, ids.to(dev), w.to(dev), wq, b,
-                                      mode)
+                                      mode, None, None, True)
         return torch.autograd.grad(out, (hh, wq, b), cot.to(dev))
 
     before = agg.backward_launches[mode + "_bf16"]

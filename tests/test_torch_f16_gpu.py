@@ -247,20 +247,22 @@ def test_16bit_dh_is_the_once_rounded_row_sum(cuda, dtype, mode):
     row's gradient in f32 and rounds once to the table's type (JAX, and
     the CPU path, round each gathered row's gradient and accumulate in 16
     bits).  Held to an oracle that sums each table row exactly (float64)
-    on the backward's own leaky_relu branches (its f32 pre-activation)
-    and rounds once: within one 16-bit ulp (ids repeat, so each table
-    row sums several gathered rows)."""
+    on the backward's own leaky_relu branches (the f32 pre-activation of
+    the forward, whose residual the backward reads) and rounds once:
+    within one 16-bit ulp (ids repeat, so each table row sums several
+    gathered rows)."""
     h, ids, w, Wq, bq = _problem(cuda, dtype, 400, 10, 600, 128, 512,
                                  seed=3, zero_rows=(2,))
     cot = torch.randn((400, 512), device=cuda)
     hh, wq, b = (x.detach().clone().requires_grad_() for x in (h, Wq, bq))
-    out = agg.ConvAggregate.apply(hh, ids, w, wq, b, mode)
+    out = agg.ConvAggregate.apply(hh, ids, w, wq, b, mode, None, None,
+                                  True)
     dh, = torch.autograd.grad(out, (hh,), cot)
     flat = ids.reshape(-1).long()
-    pre = torch.addmm(bq, h.float(), Wq.float().t())[flat]
+    kept = agg.conv_aggregate_slopes(h, ids, w, Wq, bq, mode)
     dq = ((w / agg._denominator(w))[:, :, None]
-          * cot[:, None, :]).reshape(pre.shape).double()
-    dpre = torch.where(pre >= 0.0, dq, 0.01 * dq)
+          * cot[:, None, :]).reshape(kept.shape).double()
+    dpre = torch.where(kept, dq, 0.01 * dq)
     rows = torch.zeros((h.shape[0], 512), dtype=torch.float64,
                        device=cuda).index_add_(0, flat, dpre)
     oracle = (rows @ Wq.double()).to(dtype)

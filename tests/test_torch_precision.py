@@ -338,7 +338,7 @@ def test_aggregation_backward_matches_jax_vjp(passes, path):
         out = agg.conv_aggregate_plain(th, tnb, tw, tWq, tbq, passes)
     else:
         out = agg.ConvAggregate.apply(th, tnb, tw, tWq, tbq, "dma", None,
-                                      passes)
+                                      passes, True)
     got = torch.autograd.grad(out, (th, tWq, tbq), torch.from_numpy(dagg))
     for g, wnt in zip(got, want):
         wnt = np.asarray(wnt)

@@ -34,9 +34,9 @@ neighbours are rows ``m + i * T ..``).  The forward within 1e-4 of the
 plain version, the backward (dh where the table is an activation, dWq,
 dbq) within 1e-3 relative of float64 autograd through the plain version,
 as tests/test_torch_kernels_gpu.py holds the train step's shapes.  Where
-some gathered entry takes another leaky_relu slope in the f32 projection
-the backward recomputes than in float64, the reference takes each
-entry's slope from that f32 projection (chip_smoke.py's
+some gathered entry takes another leaky_relu slope in the forward's f32
+sums (the residual the backward reads) than in float64, the reference
+takes each entry's slope from that residual (chip_smoke.py's
 ``branch_slopes``) and every such entry must lie within 1e-5 of 0.  At
 the bench's B=128 shape one entry at |pre| = 1.6e-7 takes the other
 slope on the card, and that alone moves dWq by 1.5e-3 of its norm.
@@ -107,20 +107,21 @@ def test_k3_and_backward_at_the_tools_frontier_shapes(cuda, m, t, din, h,
         assert err <= GRAD_RTOL
 
 
-def _slopes(args) -> torch.Tensor | None:
+def _slopes(args, mode) -> torch.Tensor | None:
     """[B*T, H] float64 leaky_relu slopes of the gathered entries as the
-    backward takes them (from its f32 ``torch.addmm`` projection), or None
-    where every slope is float64's; any entry whose float64 projection
-    takes the other slope lies within BRANCH_ATOL of 0."""
+    backward takes them (the residual of the forward of ``mode``:
+    ``agg.conv_aggregate_slopes``), or None where every slope is
+    float64's; any entry whose float64 projection takes the other slope
+    lies within BRANCH_ATOL of 0."""
     tab, nb, _, Wq, bq = args
     flat = nb.reshape(-1).long()
-    pre32 = torch.addmm(bq, tab, Wq.t())[flat]
+    kept = agg.conv_aggregate_slopes(*args, mode=mode)
     pre64 = torch.addmm(bq.double(), tab.double(), Wq.double().t())[flat]
-    differ = (pre32 >= 0) != (pre64 >= 0)
+    differ = kept != (pre64 >= 0)
     if not differ.any():
         return None
     assert float(pre64[differ].abs().max()) <= BRANCH_ATOL
-    return torch.where(pre32 >= 0, 1.0, 0.01).double()
+    return torch.where(kept, 1.0, 0.01).double()
 
 
 def _backward_errors(cuda, args, mode, need_dh, seed) -> list[float]:
@@ -131,7 +132,7 @@ def _backward_errors(cuda, args, mode, need_dh, seed) -> list[float]:
     b, t = args[1].shape
     cot = torch.randn((b, args[3].shape[0]), device=cuda,
                       generator=torch.Generator(device=cuda).manual_seed(seed))
-    slope = _slopes(args)
+    slope = _slopes(args, mode)
 
     def at_slopes(tab, nb, w, Wq, bq):
         pre = torch.addmm(bq, tab, Wq.t())[nb.reshape(-1).long()]
