@@ -30,7 +30,8 @@
    the aggregation's backward), then ``emb.npy`` (K2) served through the
    cached-head hybrid.  Fails unless K2, K3 and the backward ran, the 50
    metric rows are finite, the loss fell, the rate stepped x0.95 at batch
-   25 and a second trainer resumes at epoch 2 with the same embeddings.
+   25 and a second trainer resumes at epoch 2 with the same embeddings,
+   and unless the backward took its frontier form there, without a CSR.
 5. Three-step checks from the seeded init on the same batches:
    ``fullgraph_forward`` on (K2 forward + backward at N=100k) against off
    (K3), every parameter at rtol 1e-4 / atol 1e-5; the card against the
@@ -98,7 +99,14 @@
    own plain version; the aggregation's backward within GRAD_RTOL of
    float64 autograd at its f32 leaky_relu slopes, any entry whose slope
    differs in float64 within BRANCH_ATOL of 0, beside the f32 plain
-   version's own error), logs
+   version's own error, and its kernels equal to their twins bit for
+   bit: the frontier form at the frontier steps' shapes, whose ids are
+   the identity (also equal to the table twin over the CSR of the
+   ``arange``), the table form elsewhere and on ids with rows named up
+   to 100,000 times (``hub_timing``, in 0, 1 and 3 bf16 passes), and
+   the frontier form over K2's projected table at the frontier steps'
+   shapes, the sharded full-graph step's ``conv_apply``
+   (``frontier_k2_holds``, in 0, 1 and 3 bf16 passes)), logs
    K2's and K3's max error against float64 beside the plain version's,
    and times kernel, plain version and a library yardstick with CUDA
    events, back to back on the device (K2 also against a project-once
@@ -166,9 +174,10 @@
    the train split) and the PPR controls ppr_plain and ppr_co1 (top-1000
    lists of 1000-hop walks over the plain and co-listen augmented graph,
    blocks of 2,048, K1), plain10 from the hard phase's margin-1e-5 model
-   (its config, checked) and co1_T10 cut to 10 of its 30 epochs (the
-   co-listen sweep with K1, 5,000 frontier steps at T=10 with K3 and its
-   backward, the embed with K2); fails unless co1_T10 reaches 1.5x
+   (its config, checked) and co1_T10 cut to AB_EPOCHS = 4 of its 30
+   epochs (10 until PR 23; the co-listen sweep with K1, 2,000 frontier
+   steps at T=10 with K3 and its backward, the embed with K2); fails
+   unless co1_T10 reaches 1.5x
    plain10 on hit@100, ppr_co1 2x ppr_plain on hit@10, and co1_T10 passes
    ppr_co1 and cf_als on hit@500.  Then 3 steps and the embed of the
    co1_T20 and co1_T10_d512 configs (T=20; hidden 1024, out 512), each
@@ -180,14 +189,16 @@
    counters set to 0 again, the eval path on the roster: ``SongGraph``
    through the native ``graph.json`` reader (timed beside the ``json``
    module's time for the same file), then ``hard_roster``'s ``cli eval``
-   of every row of the JAX CLI at K=1000 over the hard catalog (Random,
-   PageRank and PageRankCo with K1, JaccardFast, Node2Vec with skip-gram
-   cut to 1 epoch, the four CF rows, GraphSAGE, GAT, GCN, Features, the
+   of every row of the JAX CLI at K = ROSTER_K = 500 over the hard
+   catalog (the CLI's 1000 until PR 23; Random, PageRank and PageRankCo
+   with K1, JaccardFast, Node2Vec with skip-gram cut to 1 epoch, the four
+   CF rows, GraphSAGE, GAT and GCN cut to ROSTER_GNN_STEPS = 400 of their
+   1,500 steps (until PR 23 uncut), Features, the
    PinSage rows ``pinsage_hard`` (the margin-0.1 model) and
    ``pinsage_hard_co`` (the cut co1_T10) and ``Hybrid:pinsage_hard_co``,
    whose walk head runs K1), counting K1's launches by row.  Fails unless
-   K1 ran, both CSVs hold finite rows and every kNN cache is [N, 1000]
-   (JaccardFast's [N, 999]); then ALS on the card against the CPU,
+   K1 ran, both CSVs hold finite rows and every kNN cache is [N, K]
+   (JaccardFast's [N, K - 1]); then ALS on the card against the CPU,
    node2vec walks on the card from CPU draws against the CPU's (every
    step an edge), the BPR and LMF scatter-adds of duplicate ids against
    float64 and each GNN row's falling loss; ``rank_eval`` on the card
@@ -1300,16 +1311,29 @@ def agg_work(torch, nb_idx, nb_wt, din: int, hdim: int, n_rows: int,
 def bwd_rows_work(torch, nb_idx, nb_wt, hdim: int, n_rows: int,
                   mode: str, passes=None):
     """(operations, bytes) of the backward's row sums alone (``agg.
-    agg_bwd_rows``): each weighted entry's multiply, slope and add; the
-    incoming gradient, ids, weights, the CSR's offsets and the residual
-    read once, S (two part sums in three passes) written once."""
+    agg_bwd_rows``, or ``agg.agg_bwd_frontier`` where the ids are the
+    identity): each weighted entry's multiply, slope and add; the
+    incoming gradient, the weights, the residual and (table form) the
+    CSR's offsets and entries and the entries' c read once, S (two part
+    sums in three passes) written once."""
     b, t = nb_idx.shape
     entries = int((nb_wt != 0).sum())
     residual = (4.0 * n_rows * hdim if mode == "stream"
                 else b * t * hdim / 8)
+    index = (0 if is_identity(torch, nb_idx, n_rows)
+             else 2 * b * t + n_rows + 1)
     return (3.0 * entries * hdim,
-            4.0 * (b * hdim + 3 * b * t + n_rows + 1
+            4.0 * (b * hdim + b * t + index
                    + (2 if passes == 3 else 1) * n_rows * hdim) + residual)
+
+
+def is_identity(torch, ids, n_rows: int) -> bool:
+    """Whether entry e of ids [B, T] is table row e of the n_rows = B T
+    (the frontier forward's ids, whose backward takes the frontier
+    form)."""
+    return n_rows == ids.numel() and torch.equal(
+        ids.reshape(-1), torch.arange(ids.numel(), dtype=ids.dtype,
+                                      device=ids.device))
 
 
 def bound(flops: float, nbytes: float, products: float = 0.0,
@@ -1433,8 +1457,10 @@ def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh,
     del slope
     h, Wq, bq, inputs = leaves(torch.float32)
     value = {None: None, 1: "default", 3: "high"}[passes]
+    # the frontier forward's ids state the identity, as the model does
+    nb = None if is_identity(torch, ids, table.shape[0]) else ids
     with precision.override(value):
-        out = agg.conv_aggregate(h, ids, wts, Wq, bq, mode=mode)
+        out = agg.conv_aggregate(h, nb, wts, Wq, bq, mode=mode)
     plain = agg.conv_aggregate_plain(h, ids, wts, Wq, bq, passes)
     got = torch.autograd.grad(out, inputs, cot, retain_graph=True)
     want = torch.autograd.grad(plain, inputs, cot, retain_graph=True)
@@ -1462,29 +1488,51 @@ def backward_timing(torch, agg, mode, layer, table, ids, wts, need_dh,
 
 def hold_backward_twin(torch, agg, mode, layer, table, ids, wts, dagg,
                        passes=None) -> dict:
-    """The backward's kernel (``agg.agg_bwd_rows``, csrc/agg_bwd.cu)
-    against its plain twin (``agg.agg_bwd_rows_plain``) on the inputs
-    ``ConvAggregate.backward`` gives it at this shape (the CSR of the
-    ids, equal to ``agg.backward_csr_plain``'s, the weights, the residual
-    of the forward of ``mode``, the incoming gradient ``dagg``): S's
-    parts equal bit for bit (the twin sums each row's entries in the
-    kernel's order), so within 1e-6 of max |S|; dbq (the kernel's
-    per-block partials, then one sum) within 1e-6 of each column's sum
-    of |S| (of its parts' in bf16 passes).  Returns ``twin_err`` (max
-    |kernel - twin| over S), ``twin_dbq_err`` (the largest such share of
-    dbq), ``kernel_ms`` (the row kernel alone) and ``csr_ms`` (the CSR
-    kernels)."""
+    """The backward's kernels against their plain twins on the inputs
+    ``ConvAggregate.backward`` gives them at this shape (the weights, the
+    residual of the forward of ``mode``, the incoming gradient ``dagg``):
+    where the ids are the identity (the frontier forward's) the frontier
+    form (``agg.agg_bwd_frontier``) against ``agg_bwd_frontier_plain`` and
+    against the table twin over the CSR of the ``arange``; else the table
+    form (``agg.agg_bwd_rows`` over ``agg.backward_csr``, equal to
+    ``backward_csr_plain``'s) against ``agg_bwd_rows_plain``.  S's parts
+    equal bit for bit (the twins sum in the kernels' order), so within
+    1e-6 of max |S|; dbq (the kernel's per-block partials, then one sum)
+    within 1e-6 of each column's sum of |S| (of its parts' in bf16
+    passes).  Returns ``form``, ``twin_err`` (max |kernel - twin| over S),
+    ``twin_dbq_err`` (the largest such share of dbq), ``kernel_ms`` (the
+    form's kernels alone) and ``csr_ms`` (the CSR kernels; 0 in the
+    frontier form, which builds none)."""
     Wq, bq = layer.Wq.detach(), layer.bq.detach()
     n = table.shape[0]
+    frontier = is_identity(torch, ids, n)
     with torch.no_grad():
         _, res = agg.conv_aggregate_cuda(table, ids, wts, Wq, bq, mode, None,
                                          passes, residual=True)
-        offsets, entries = agg.backward_csr(ids, n)
-        csr_same = all(torch.equal(a, b) for a, b in zip(
-            (offsets, entries), agg.backward_csr_plain(ids, n)))
-        args = (offsets, entries, wts, dagg.contiguous(), res, passes)
-        parts, dbq = agg.agg_bwd_rows(*args)
-        want, want_dbq = agg.agg_bwd_rows_plain(*args)
+        dagg = dagg.contiguous()
+        table_twin = agg.agg_bwd_rows_plain(
+            *agg.backward_csr_plain(ids, n), wts, dagg, res, passes)
+        if frontier:
+            args = (wts, dagg, res, passes)
+            csr_same = True
+
+            def kernel():
+                return agg.agg_bwd_frontier(*args)
+            want, want_dbq = agg.agg_bwd_frontier_plain(*args)
+            same_as_table = all(torch.equal(a, b) for a, b in zip(
+                want, table_twin[0]))
+        else:
+            offsets, entries = agg.backward_csr(ids, n)
+            csr_same = all(torch.equal(a, b) for a, b in zip(
+                (offsets, entries), agg.backward_csr_plain(ids, n)))
+            args = (offsets, entries, wts, dagg, res, passes)
+
+            def kernel():
+                return agg.agg_bwd_rows(*args)
+            want, want_dbq = table_twin
+            same_as_table = True
+        del table_twin
+        parts, dbq = kernel()
         same = all(torch.equal(g, r) for g, r in zip(parts, want))
         err = max(float((g - r).abs().max()) for g, r in zip(parts, want))
         scale = max(float(r.abs().max()) for r in want)
@@ -1492,21 +1540,43 @@ def hold_backward_twin(torch, agg, mode, layer, table, ids, wts, dagg,
         dbq_err = float(((dbq - want_dbq).abs()
                          / sums.clamp_min(1e-30)).max())
         del want, sums
-    log(f"{agg.MODES[mode]} backward kernel vs its twin at B={ids.shape[0]}"
-        f" T={ids.shape[1]} H={Wq.shape[0]} (table {n} rows"
-        f"{f', {passes} bf16 passes' if passes else ''}): CSR equal "
-        f"{csr_same}, S bit-equal {same}, max |diff| {err:.3g} (max |S| "
-        f"{scale:.3g}); dbq {dbq_err:.3g} of its column sums of |S|")
-    if not (csr_same and same and err <= 1e-6 * scale and dbq_err <= 1e-6):
+    form = "frontier" if frontier else "table"
+    log(f"{agg.MODES[mode]} backward kernel ({form} form) vs its twin at "
+        f"B={ids.shape[0]} T={ids.shape[1]} H={Wq.shape[0]} (table {n} "
+        f"rows{f', {passes} bf16 passes' if passes else ''}): CSR equal "
+        f"{csr_same}, S bit-equal {same} (frontier twin = table twin "
+        f"{same_as_table}), max |diff| {err:.3g} (max |S| {scale:.3g}); "
+        f"dbq {dbq_err:.3g} of its column sums of |S|")
+    if not (csr_same and same and same_as_table and err <= 1e-6 * scale
+            and dbq_err <= 1e-6):
         raise AssertionError(f"the backward kernels differ from their "
                              f"twins: CSR equal {csr_same}, S equal {same}, "
+                             f"frontier twin = table twin {same_as_table}, "
                              f"{err} (max |S| {scale}), dbq {dbq_err}")
-    out = {"twin_err": err, "twin_dbq_err": dbq_err,
-           "kernel_ms": cuda_ms(torch, lambda: agg.agg_bwd_rows(*args),
-                                reps=5),
-           "csr_ms": cuda_ms(torch, lambda: agg.backward_csr(ids, n),
-                             reps=5)}
+    out = {"form": form, "twin_err": err, "twin_dbq_err": dbq_err,
+           "kernel_ms": cuda_ms(torch, kernel, reps=5),
+           "csr_ms": 0.0 if frontier else cuda_ms(
+               torch, lambda: agg.backward_csr(ids, n), reps=5)}
     del parts, dbq, res, args
+    return out
+
+
+def frontier_k2_holds(torch, agg, shapes) -> list:
+    """The backward of K2 over ids the caller states as the identity (the
+    sharded full-graph step's ``conv_apply``: ``agg_bwd_frontier_kernel``
+    with K2's projected table as its slopes) at each frontier step shape
+    of ``shapes`` (``step_conv_inputs``), in 0, 1 and 3 bf16 passes:
+    ``hold_backward_twin``'s keys for each, with ``B`` and ``passes``."""
+    gen = torch.Generator(device=shapes[0][1].device)
+    gen.manual_seed(7)
+    out = []
+    for layer, table, ids, wts, _ in shapes:
+        for passes in (None, 1, 3):
+            cot = torch.randn((ids.shape[0], layer.Wq.shape[0]),
+                              device=table.device, generator=gen)
+            out.append({"B": ids.shape[0], "passes": passes or 0,
+                        **hold_backward_twin(torch, agg, "stream", layer,
+                                             table, ids, wts, cot, passes)})
     return out
 
 
@@ -1517,13 +1587,15 @@ HUB_RUNS = (100_000, 10_000, 3000, 300)
 
 
 def hub_timing(torch, agg, n: int, t: int, hdim: int) -> dict:
-    """The backward's CSR and row kernel on the full-graph step's n x t
+    """The backward's CSR and table form on the full-graph step's n x t
     ids (every node's t neighbors) with rows named HUB_RUNS times at
     random places (the rest uniform over the other rows), beside the same
     on uniform ids: the CSR held equal to the stable sort's
-    (``backward_csr_plain``), each timed back to back (``csr_ms``, and
-    ``kernel_ms`` of ``agg_bwd_rows`` over a random K2 residual, f32
-    weights and incoming gradient [n, hdim])."""
+    (``backward_csr_plain``), the table form's kernels (``agg_bwd_rows``
+    over a random K2 residual, f32 weights and incoming gradient [n,
+    hdim]) equal to their chunked twin bit for bit in 0, 1 and 3 bf16
+    passes, each timed back to back (``csr_ms``, and ``kernel_ms`` at
+    f32)."""
     import numpy as np
 
     rng = np.random.default_rng(11)
@@ -1549,12 +1621,25 @@ def hub_timing(torch, agg, n: int, t: int, hdim: int) -> dict:
                 csr, agg.backward_csr_plain(ids, n))):
             raise AssertionError(f"the backward's CSR on the {name} ids "
                                  f"differs from the stable sort's")
+        for passes in (None, 1, 3):
+            parts, dbq = agg.agg_bwd_rows(*csr, wts, dagg, res, passes)
+            want, want_dbq = agg.agg_bwd_rows_plain(*csr, wts, dagg, res,
+                                                    passes)
+            same = all(torch.equal(a, b) for a, b in zip(parts, want))
+            dbq_err = float(((dbq - want_dbq).abs() / sum(
+                r.abs().sum(dim=0) for r in want).clamp_min(1e-30)).max())
+            del parts, want
+            if not (same and dbq_err <= 1e-6):
+                raise AssertionError(f"the table form on the {name} ids in "
+                                     f"{passes or 0} passes: S equal to its "
+                                     f"twin {same}, dbq {dbq_err}")
         out[f"csr_{name}_ms"] = cuda_ms(
             torch, lambda: agg.backward_csr(ids, n), reps=5)
         out[f"kernel_{name}_ms"] = cuda_ms(
             torch, lambda: agg.agg_bwd_rows(*csr, wts, dagg, res), reps=5)
     log(f"the backward at the full graph's {n} x {t} ids with rows named "
-        f"{list(HUB_RUNS)} times: CSR (equal to the stable sort's) "
+        f"{list(HUB_RUNS)} times: the table form equal to its twin in 0, 1 "
+        f"and 3 passes; CSR (equal to the stable sort's) "
         f"{out['csr_hubs_ms']:.4f} ms (uniform ids "
         f"{out['csr_uniform_ms']:.4f}), row kernel "
         f"{out['kernel_hubs_ms']:.4f} ms (uniform "
@@ -1619,6 +1704,9 @@ def add_backward(torch, out, bw, ids, wts, din, hdim, n, need_dh, mode,
     backward and its row kernel need there to ``out``'s BWD_KEYS."""
     for key in ("ms", "host_ms", "plain_ms", "kernel_ms", "csr_ms"):
         out[f"bwd_{key}"] += bw[key]
+    forms = out.setdefault("bwd_forms", [])
+    if bw["form"] not in forms:
+        forms.append(bw["form"])
     out["bwd_err"] = max(out["bwd_err"], *bw["err"])
     out["bwd_plain_err"] = max(out["bwd_plain_err"], *bw["plain_err"])
     out["bwd_twin_err"] = max(out["bwd_twin_err"], bw["twin_err"])
@@ -1782,11 +1870,18 @@ def kernel_row(name, source, replaces, launches_by_path, bwd_launches, m,
     }
 
 
+# the kernels of each form of the backward (csrc/agg_bwd.cu) that a
+# backward row's ``kernel_ms`` times
+BWD_KERNELS = {"frontier": "agg_bwd_frontier_kernel",
+               "table": "weights_kernel, agg_bwd_hub_kernel, agg_bwd_kernel"}
+
+
 def backward_row(name, launches, m, shape) -> dict:
     """The ``kernels`` line's row of the aggregation's backward at the
     shapes of ``m`` (``measure_aggregation``'s BWD_KEYS): ``ms`` and
-    ``host_ms`` the whole of ``ConvAggregate.backward`` (the CSR, the
-    row kernel of csrc/agg_bwd.cu, the products), ``plain_ms`` autograd
+    ``host_ms`` the whole of ``ConvAggregate.backward`` (the frontier
+    kernel of csrc/agg_bwd.cu, or the CSR and the table form's kernels;
+    the products), ``form`` which ran, ``plain_ms`` autograd
     through the plain version, ``bound_ms`` the gradient's work at f32
     outside the tensor cores (its products run in true f32),
     ``max_abs_err`` the kernel against its twin; ``kernel_ms`` the row
@@ -1806,6 +1901,8 @@ def backward_row(name, launches, m, shape) -> dict:
         "ms": m["bwd_ms"], "host_ms": m["bwd_host_ms"],
         "plain_ms": m["bwd_plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
+        "form": "+".join(m.get("bwd_forms", [])),
+        "kernels": "+".join(BWD_KERNELS[f] for f in m.get("bwd_forms", [])),
         "kernel_ms": m["bwd_kernel_ms"], "kernel_bound_ms": kernel_bound_ms,
         "kernel_bound_by": kernel_bound_by, "csr_ms": m["bwd_csr_ms"],
         "rel_err_vs_float64": m["bwd_err"],
@@ -1850,11 +1947,17 @@ def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5,
         train_step,
     )
 
+    from gcn_song_embeddings_tpu_torch.ops import agg
+
     tcfg, mcfg = trainer.cfg.train, trainer.cfg.model
     params = copy.deepcopy(trainer.params)
     opt = make_optimizer(params, tcfg)
     gen = block_generator(999, 0, trainer.device)
     batches = [trainer.sample(gen) for _ in range(2 + reps + profiled)]
+
+    def bwd_counts():
+        return {"frontier": agg.bwd_frontier_launches,
+                "table": agg.bwd_launches, "csr": agg.csr_launches}
 
     def run(batches) -> float:
         t = time.perf_counter()
@@ -1865,7 +1968,10 @@ def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5,
         return (time.perf_counter() - t) * 1e3 / len(batches)
 
     run(batches[:2])
+    before = bwd_counts()
     step_ms = run(batches[2:2 + reps])
+    bwd_launches = {k: (n - before[k]) / reps
+                    for k, n in bwd_counts().items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = run(batches[2 + reps:])
@@ -1881,6 +1987,7 @@ def time_train_steps(torch, trainer, reps: int = 10, profiled: int = 5,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
         "idle_share": 1.0 - busy / wall_ms,
         "device_launches_per_step": sum(e.count for e in device) / profiled,
+        "backward_launches_per_step": bwd_launches,
         "top_kernels_ms_per_step": {e.key[:80]: dev_ms(e) for e in top}}
 
 
@@ -2181,7 +2288,8 @@ def backward_timing16(torch, agg, mode, h, ids, wts, Wq, bq,
         inputs, cot.double())
     del slope
     hh, wq, b, inputs = leaves()
-    out = agg.conv_aggregate(hh, ids, wts, wq, b, mode=mode)
+    nb = None if is_identity(torch, ids, h.shape[0]) else ids
+    out = agg.conv_aggregate(hh, nb, wts, wq, b, mode=mode)
     plain = agg.conv_aggregate_plain(hh, ids, wts, wq, b)
 
     def error(grads):
@@ -2419,6 +2527,12 @@ def run_tail_path(dev, st, tr_st, bf, work: str) -> dict:
 
 EVAL_K, EVAL_QUERIES = 100, 256
 NODE2VEC_EPOCHS = 1  # cut from the default 10 (PERF.md section 4)
+# the roster eval's GNN rows (GraphSAGE, GAT, GCN) cut from 1,500 steps,
+# and its lists from the CLI's K=1000 (the roster's orderings read hr@10,
+# hr@100 and hr@500; mrr and the low-degree / low-co columns then stop
+# at rank 500), for the script's time limit (PERF.md section 4)
+ROSTER_GNN_STEPS = 400
+ROSTER_K = 500
 
 
 def count_walk_launches(walk_kernel, models) -> dict:
@@ -3067,7 +3181,7 @@ def reset_kernel_counts() -> None:
     agg.launches_f16 = dma_agg.launches_f16 = 0
     agg.launches_bf16x1 = dma_agg.launches_bf16x1 = 0
     agg.launches_bf16x3 = dma_agg.launches_bf16x3 = 0
-    agg.bwd_launches = agg.csr_launches = 0
+    agg.bwd_launches = agg.csr_launches = agg.bwd_frontier_launches = 0
     for counts in (agg.backward_launches, agg.kernel_launches,
                    agg.kernel_launches_bf16, agg.kernel_launches_f16,
                    agg.kernel_launches_bf16x1, agg.kernel_launches_bf16x3,
@@ -3091,9 +3205,30 @@ def kernel_counts() -> dict:
                    for name, n in agg.kernel_launches.items()})
     counts["agg_bwd_rows"] = agg.bwd_launches
     counts["agg_bwd_csr"] = agg.csr_launches
+    counts["agg_bwd_frontier"] = agg.bwd_frontier_launches
     counts.update({f"probe_{name}": n
                    for name, n in agg.probe_launches.items()})
     return counts
+
+
+def no_csr_on(counts: dict, path: str) -> None:
+    """A path of frontier steps only: the backward's frontier form and no
+    CSR (each conv's ids are the identity)."""
+    if counts["agg_bwd_csr"] or counts["agg_bwd_rows"]:
+        raise AssertionError(f"{path} built {counts['agg_bwd_csr']} CSRs and "
+                             f"ran the table form {counts['agg_bwd_rows']} "
+                             f"times: its frontier steps state the identity")
+
+
+def frontier_backward(profile: dict, what: str) -> None:
+    """``time_train_steps``' frontier step: one frontier-form backward a
+    conv, no CSR and no table form."""
+    per = profile["backward_launches_per_step"]
+    log(f"{what}: {profile['device_launches_per_step']} launches a step, "
+        f"the backward's {per}")
+    if per["csr"] or per["table"] or not per["frontier"]:
+        raise AssertionError(f"{what} ran the backward's CSR or table form: "
+                             f"{per}")
 
 
 def sharded_config(fullgraph: str):
@@ -4108,10 +4243,11 @@ def check_hard(hp) -> dict:
 # arm's config) and co1_T10 at AB_EPOCHS of its 30 epochs; co1_T20 and
 # co1_T10_d512 take NEW_SHAPE_STEPS steps of their configs; the roster's
 # eval scores pinsage_hard (the hard phase's margin-0.1 model, that run's
-# config) and pinsage_hard_co (the cut co1_T10, that run's config) at the
-# CLI's K=1000, with Node2Vec at NODE2VEC_EPOCHS
+# config) and pinsage_hard_co (the cut co1_T10, that run's config) at
+# ROSTER_K, with Node2Vec at NODE2VEC_EPOCHS and the GNN rows at
+# ROSTER_GNN_STEPS (AB_EPOCHS 10, K 1000 and 1,500 GNN steps until PR 23)
 AB_RUN_ARMS = ("cf_als", "cf_bpr", "ppr_plain", "ppr_co1")
-AB_EPOCHS = 10
+AB_EPOCHS = 4
 NEW_SHAPE_ARMS = ("co1_T20", "co1_T10_d512")
 NEW_SHAPE_STEPS = 3
 ROSTER_CO = "pinsage_hard_co"
@@ -5062,11 +5198,12 @@ def run_eval_path(dev, hp, ab_state, work: str):
     """The eval path, as a user runs it, on the roster: ``SongGraph`` of
     the hard dataset through the native ``graph.json`` reader (timed
     beside the ``json`` module's reading of the same file), then
-    ``hard_roster``'s ``cli eval`` of every row of the JAX CLI at K=1000
-    over ``pinsage_hard`` (the hard phase's margin-0.1 model) and
-    ``pinsage_hard_co`` (the A/B's co1_T10) with ``--hybrid-runs
+    ``hard_roster``'s ``cli eval`` of every row of the JAX CLI at
+    ROSTER_K over ``pinsage_hard`` (the hard phase's margin-0.1 model)
+    and ``pinsage_hard_co`` (the A/B's co1_T10) with ``--hybrid-runs
     pinsage_hard_co`` (its ``cmd_eval`` body: ``eval_models`` then
-    ``run_eval``, with node2vec cut to ``NODE2VEC_EPOCHS``); K1 walks for
+    ``run_eval``, with node2vec cut to ``NODE2VEC_EPOCHS`` and the GNN
+    rows to ``ROSTER_GNN_STEPS``); K1 walks for
     PageRank, PageRankCo and the Hybrid row's head; each table timed as
     the run builds it.  Then one cache's read and compressed write, timed
     again (the part of ``eval_s`` outside the rows' own times that runs on
@@ -5120,11 +5257,14 @@ def run_eval_path(dev, hp, ab_state, work: str):
     pinsage = "PinSage:pinsage_hard"
     eval_dir = os.path.join(roster, "baselines")
     args = cli.parser().parse_args(hard_roster.eval_argv(
-        ds, runs, eval_dir, list(run_embs), [ROSTER_CO], str(dev)))
+        ds, runs, eval_dir, list(run_embs), [ROSTER_CO], str(dev))
+        + ["--k", str(ROSTER_K)])
     t = time.perf_counter()
     eval_graph = cli.load_graph(args.dataset, args.features)
     models = cli.eval_models(args, eval_graph, dev)
     models["Node2Vec"].epochs = NODE2VEC_EPOCHS
+    for row in ("GraphSAGE", "GAT", "GCN"):
+        models[row].kwargs["steps"] = ROSTER_GNN_STEPS
     row_walks = count_walk_launches(walk_kernel, models)
 
     def timed(name, table):
@@ -6212,7 +6352,8 @@ def main() -> int:
     reset_counts()
     tr_st = run_train_path(dev, st, work)
     train_launches = read_counts(("agg", "dma_agg", "agg_backward_dma",
-                                  "agg_split", "agg_bwd_rows"))
+                                  "agg_split", "agg_bwd_frontier"))
+    no_csr_on(train_launches, "the training path")
     log(f"launches on the training path: {train_launches}")
     check_training_run(tr_st)
     graph, cfg, mcfg = st.graph, st.cfg, st.cfg.model
@@ -6240,6 +6381,7 @@ def main() -> int:
     st.walls.update(tr_st.walls)
     st.walls["train_step_ms"], step_profile = time_train_steps(torch,
                                                                 trainer)
+    frontier_backward(step_profile, "the f32 frontier step")
 
     # ---- 16-bit training: cli train in bf16, then in f16, each with 3 ----
     # ---- frontier steps card vs CPU and 3 full-graph steps --------------
@@ -6257,7 +6399,9 @@ def main() -> int:
         run16 = run_train_path16(dev, st, work, dtype)
         launches16[form] = read_counts((f"dma_agg_{form}",
                                         f"agg_backward_dma_{form}",
-                                        f"agg_{form}_tile", "agg_bwd_rows"))
+                                        f"agg_{form}_tile",
+                                        "agg_bwd_frontier"))
+        no_csr_on(launches16[form], f"the {form} training path")
         log(f"launches on the {form} training path: {launches16[form]}")
         checks16[form] = check_run16(torch, st, run16)
         trainer16 = PinSageTrainer(
@@ -6275,11 +6419,13 @@ def main() -> int:
         full_launches16[form] = read_counts((
             f"agg_{form}", f"agg_{form}_project",
             f"agg_backward_stream_{form}", f"dma_agg_{form}",
-            "agg_bwd_rows"))
+            "agg_bwd_rows", "agg_bwd_frontier"))
         log(f"launches on the {form} three-step checks (frontier card and "
             f"CPU, full graph card): {full_launches16[form]}")
         step_ms[f"{form}_frontier"], step_profile[f"{form}_frontier"] = (
             time_train_steps(torch, trainer16))
+        frontier_backward(step_profile[f"{form}_frontier"],
+                          f"the {form} frontier step")
         step_ms[f"{form}_fullgraph"], step_profile[f"{form}_fullgraph"] = (
             time_train_steps(torch, trainer16, fullgraph=True))
         st.walls.update(run16.walls)
@@ -6564,6 +6710,16 @@ def main() -> int:
     row["header"] = agg.HEADER
     row["backward"]["hubs"] = hub_timing(torch, agg, graph.n_items, mcfg.T,
                                          mcfg.hidden_dim)
+    row["backward"]["frontier_k2"] = frontier_k2_holds(torch, agg,
+                                                       step_shapes)
+    # each path's backward launches by form (K2's and K3's together)
+    row["backward"]["forms_by_path"] = {
+        path: {form: c.get(key, 0) for form, key in (
+            ("frontier", "agg_bwd_frontier"), ("table", "agg_bwd_rows"),
+            ("csr", "agg_bwd_csr"))}
+        for path, c in (("train", train_launches),
+                        *((f"sharded_{w}", c) for w, c in sharded.items()),
+                        *tool_counts.items(), ("bench", bench_counts))}
     for name, part in row["parts"].items():
         # the split also runs for every K3 call of the training path
         part["launches_by_path"] = {

@@ -70,6 +70,7 @@ from gcn_song_embeddings_tpu_torch.fullgraph_bench import (
     bench_data,
     chunk_difference,
     edges_per_step,
+    positive_median,
     seeded_params,
 )
 from gcn_song_embeddings_tpu_torch.ops import agg, cuda_build
@@ -325,12 +326,17 @@ def device_wall(dev):
 
 def rep_difference(wall, run, small: int, large: int, reps: int) -> float:
     """Seconds a rep of ``run(n_reps)``: the median of (large - small) /
-    (large - small) after one call of each."""
+    (large - small) after one call of each, measured again where it is
+    not positive (``fullgraph_bench.positive_median``; the root
+    ``bench.py`` returns it as it is)."""
     wall(lambda: run(small))
     wall(lambda: run(large))
-    diffs = [(wall(lambda: run(large)) - wall(lambda: run(small)))
-             / (large - small) for _ in range(reps)]
-    return float(np.median(diffs))
+
+    def measure():
+        walls = [(wall(lambda: run(large)), wall(lambda: run(small)))
+                 for _ in range(reps)]
+        return [(a - b) / (large - small) for a, b in walls], walls
+    return positive_median(measure, f"reps of {small} and {large}")
 
 
 def measure_gather_rates(dev, n_tracks: int = N_TRACKS,

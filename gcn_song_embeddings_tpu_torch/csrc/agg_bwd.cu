@@ -28,10 +28,21 @@
 // (the CSR inverse of nb, ascending within a row), in f32, with no float
 // atomics, so the gradient is the same bit for bit from run to run, and
 // the plain twin (ops/agg.py `agg_bwd_rows_plain`) sums in the same
-// order.  Every product, quotient and sum is an _rn intrinsic, which the
-// compiler never contracts into an FMA the twin does not do: a term is
-// c[e] * dagg[b], times 0.01 on the negative slope, then added.  c is
-// computed once an entry first, by a thread a node (`weights_kernel`).
+// order.  A run of at most RANK_MAX (128) entries is summed from 0 in
+// that order; a longer one (a hub) is cut at multiples of 128 from its
+// start, each chunk summed from 0 in order by a warp of its own, and the
+// chunks' sums added from 0 in chunk order.  Every product, quotient and
+// sum is an _rn intrinsic, which the compiler never contracts into an FMA
+// the twin does not do: a term is c[e] * dagg[b], times 0.01 on the
+// negative slope, then added.  c is computed once an entry first, by a
+// thread a node (`weights_kernel`).
+//
+// The frontier form (`agg_bwd_frontier_kernel`, twin
+// `agg_bwd_frontier_plain`): where the caller states that entry e is
+// table row e (the frontier forward's ids are an arange, each row named
+// once), S[e] is the one term added to 0, the table form's sum bit for
+// bit, and no CSR is built: one kernel, a warp a node, which sums the
+// node's weights, reads its gradient once and writes its T rows of S.
 //
 // The CSR (ops/agg.py `backward_csr`, plain twin `backward_csr_plain`, a
 // stable sort) is built here too, in four kernels around one scan: the
@@ -59,18 +70,21 @@
 // gradient row (H f32, from L2 where dagg fits it) and, in K3, its H / 8
 // bytes of slopes; each table row writes its S row (two in three passes).
 // At the full-graph step's layer (N = B = 100k, T = 10, H 512) the
-// entries' gradient rows are 2 GB read as gathered 512-byte pieces and S
-// is 205 MB written: 0.67 ms at 3.35 TB/s.  At the frontier step's layer
-// 0 (42,240 entries, each table row named at most once) 87 MB of rows,
-// 2.7 MB of bits and 95 MB of S.
+// entries' gradient rows are 2 GB read as gathered 2 KB rows (dagg, 205
+// MB, does not fit the 50 MB L2) and S is 205 MB written.  At the
+// frontier step's layer 0 (42,240 entries, each row named once) the
+// frontier form reads dagg once (8.6 MB) and 2.7 MB of bits and writes
+// 86.5 MB of S.
 //
-// Design: a warp per (table row, 128-column chunk), each lane a float4 of
-// 4 columns, so a gradient row is read as 16-byte loads, 512 bytes a warp
-// an entry; the entry's id and c are warp-uniform loads, and the
-// unrolled loop keeps several entries' loads in flight ahead of the adds.
-// A block is 8 warps over a run of 64 consecutive rows (blockIdx.y the
-// chunk), each warp taking every 8th row; rows that no entry names write
-// zeros.
+// Design of the table form: a warp a table row at a time over one
+// 128-column chunk of it (blockIdx.y the chunk), each lane a float4 of
+// four columns, walking the row's entries in order, four unrolled.  A
+// block is 8 warps over a run of 64 consecutive rows, each warp taking
+// every 8th row; rows that no entry names write zeros.  The long runs'
+// chunks are summed first by `agg_bwd_hub_kernel`, a warp a chunk
+// anywhere on the card, into slots the row's warp then adds in chunk
+// order, so a hub costs about what a row of uniform ids does.  S is
+// stored and K2's projected rows read evict-first (each touched once).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -87,10 +101,14 @@ constexpr int ROWS_PER_BLOCK = 64;  // ops/agg.py BWD_ROWS
 constexpr int CHUNK = 128;          // columns a warp: 32 lanes x float4
 constexpr int SLAB = 64;            // P columns a slab (csrc/agg.cu)
 constexpr int CSR_THREADS = 256;
-constexpr int RANK_MAX = 128;       // longest run a warp ranks
+constexpr int RANK_MAX = 128;       // longest run a warp ranks and sums
 constexpr int SORT_THREADS = 512;   // a block a longer run
 constexpr int SORT_TILE = 2048;     // entries sorted at once in shared memory
 constexpr int SORT_BLOCKS = 264;    // two a multiprocessor of the H100's 132
+// the hub kernel's blocks a column chunk, two a multiprocessor: its warps
+// take the long runs' chunks grid-stride, and where no run is long (the
+// usual case) each block only reads the count and exits
+constexpr int HUB_BLOCKS = 264;
 
 __global__ void __launch_bounds__(CSR_THREADS)
 csr_count_kernel(const int* __restrict__ ids, int n_entries,
@@ -224,12 +242,22 @@ csr_sort_kernel(const int* __restrict__ offsets, int* runs, int* entries,
 
 // c [B*T] = w / den, a thread a node: den its T weights summed in order
 // from 0, rounded to bf16 (den_round 1) or f16 (2) as the forward takes
-// a 16-bit weights' sum, 1 where it is 0
+// a 16-bit weights' sum, 1 where it is 0; with offsets given, a thread a
+// table row too: each row whose run is longer than RANK_MAX listed in
+// long_rows [N + 1] (their number at long_rows[N], zeroed before), in the
+// order the atomics take
 __global__ void __launch_bounds__(CSR_THREADS)
 weights_kernel(const float* __restrict__ w, int n_nodes, int T,
-               int den_round, float* __restrict__ c) {
-  for (int b = blockIdx.x * CSR_THREADS + threadIdx.x; b < n_nodes;
+               int den_round, float* __restrict__ c,
+               const int* __restrict__ offsets, int n_rows,
+               int* __restrict__ long_rows) {
+  for (int b = blockIdx.x * CSR_THREADS + threadIdx.x;
+       b < n_nodes || (offsets != nullptr && b < n_rows);
        b += gridDim.x * CSR_THREADS) {
+    if (offsets != nullptr && b < n_rows &&
+        __ldg(offsets + b + 1) - __ldg(offsets + b) > RANK_MAX)
+      long_rows[atomicAdd(long_rows + n_rows, 1)] = b;
+    if (b >= n_nodes) continue;
     const float* wb = w + (size_t)b * T;
     float s = 0.f;
     for (int t = 0; t < T; ++t) s = __fadd_rn(s, __ldg(wb + t));
@@ -266,6 +294,208 @@ __device__ __forceinline__ float slope_term(float c, float d, uint32_t bit) {
   return bit ? t : __fmul_rn(0.01f, t);
 }
 
+// a lane's four adjacent columns
+struct Frag {
+  float v[4];
+};
+
+__device__ __forceinline__ void zero(Frag& f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f.v[i] = 0.f;
+}
+
+__device__ __forceinline__ void add(Frag& a, const Frag& b) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a.v[i] = __fadd_rn(a.v[i], b.v[i]);
+}
+
+// loads and stores of a fragment: cached (ld), read once (ldcs: evict
+// first), written once (stcs) or as scratch (st)
+template <bool ONCE = false>
+__device__ __forceinline__ Frag load(const float* p) {
+  const float4 x = ONCE ? __ldcs(reinterpret_cast<const float4*>(p))
+                        : __ldg(reinterpret_cast<const float4*>(p));
+  return Frag{{x.x, x.y, x.z, x.w}};
+}
+
+template <bool ONCE = false>
+__device__ __forceinline__ void store(float* p, const Frag& f) {
+  const float4 x = make_float4(f.v[0], f.v[1], f.v[2], f.v[3]);
+  if constexpr (ONCE)
+    __stcs(reinterpret_cast<float4*>(p), x);
+  else
+    *reinterpret_cast<float4*>(p) = x;
+}
+
+// the slope bits (1 << i of column col + i) of a lane's four columns col
+// .. col + 3 (col % 4 == 0): K2's projected row n (read once), or K3's
+// bits of entry e (two bits of each of two adjacent words)
+__device__ __forceinline__ uint32_t row_slope_bits(const float* proj,
+                                                   int n_rows, int n,
+                                                   int col) {
+  const Frag p = load<true>(
+      proj + ((size_t)(col / SLAB) * n_rows + n) * SLAB + col % SLAB);
+  return (p.v[0] >= 0.f ? 1u : 0u) | (p.v[1] >= 0.f ? 2u : 0u) |
+         (p.v[2] >= 0.f ? 4u : 0u) | (p.v[3] >= 0.f ? 8u : 0u);
+}
+
+__device__ __forceinline__ uint32_t entry_slope_bits(const uint32_t* bits,
+                                                     size_t e, int words,
+                                                     int col) {
+  const uint2 ab = __ldg(reinterpret_cast<const uint2*>(
+      bits + e * words + 4 * (col / CHUNK) + (col % 8) / 2));
+  const int shift = 2 * ((col % CHUNK) / 8);
+  return ((ab.x >> shift) & 3u) | (((ab.y >> shift) & 3u) << 2);
+}
+
+// a term c * d of each of the lane's columns (slope bits s) into the sums
+template <int PASSES>
+__device__ __forceinline__ void add_terms(float ce, const Frag& d,
+                                          uint32_t s, Frag& hi,
+                                          Frag& lo, Frag& full) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    add_term<PASSES>(slope_term(ce, d.v[i], s & (1u << i)), hi.v[i],
+                     lo.v[i], full.v[i]);
+}
+
+// Entries [beg, end) of `entries` summed in that order onto hi / lo / full
+// (the lane's four columns from col): each entry's id, then its c, its
+// node's gradient fragment and (K3) its slope bits, four entries unrolled
+template <int PASSES, bool ROW_SLOPES>
+__device__ __forceinline__ void sum_run(
+    int beg, int end, const int* __restrict__ entries,
+    const float* __restrict__ c, const float* __restrict__ dagg,
+    const uint32_t* __restrict__ bits, int T, int hdim, int words, int col,
+    uint32_t row_bits, Frag& hi, Frag& lo, Frag& full) {
+#pragma unroll 4
+  for (int k = beg; k < end; ++k) {
+    const int e = __ldg(entries + k);
+    const uint32_t s =
+        ROW_SLOPES ? row_bits : entry_slope_bits(bits, e, words, col);
+    add_terms<PASSES>(__ldg(c + e), load(dagg + (size_t)(e / T) * hdim + col),
+                      s, hi, lo, full);
+  }
+}
+
+// The table form's long runs, first: each run of more than RANK_MAX
+// entries (listed by weights_kernel) cut at multiples of RANK_MAX from its
+// start, each chunk summed from 0 in entry order by a warp of its own.
+// The listed runs' chunks are numbered in list order and the grid's warps
+// take them in turn (warp v the chunks v, v + V, ...: each warp reads the
+// list 32 runs at a time and finds its chunks by a scan of their chunk
+// counts), so a hub is spread over the whole card.  A full chunk's sums
+// go to slot (its first CSR place) / RANK_MAX of chunk_* [2 n_slots][H],
+// a run's last, shorter chunk's to slot n_slots + (the run's last place)
+// / RANK_MAX: full chunks are RANK_MAX places apart and so are two long
+// runs' ends, so no two chunks share a slot, and the sums do not depend
+// on the list's order.  blockIdx.y is the 128-column chunk.
+template <int PASSES, bool ROW_SLOPES>
+__global__ void __launch_bounds__(WARPS * 32)
+agg_bwd_hub_kernel(const int* __restrict__ offsets,
+                   const int* __restrict__ entries,
+                   const float* __restrict__ c,
+                   const float* __restrict__ dagg,
+                   const float* __restrict__ proj,
+                   const uint32_t* __restrict__ bits,
+                   const int* __restrict__ long_rows,
+                   float* __restrict__ chunk_hi, float* __restrict__ chunk_lo,
+                   float* __restrict__ chunk_full, int n_rows, int n_slots,
+                   int T, int hdim) {
+  const int n_long = long_rows[n_rows];
+  if (n_long == 0) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = blockIdx.y * CHUNK + 4 * lane;
+  const int words = 4 * ((hdim + CHUNK - 1) / CHUNK);
+  const long long v = (long long)blockIdx.x * WARPS + warp;
+  const long long n_warps = (long long)gridDim.x * WARPS;
+  long long base = 0;  // chunks of the listed runs before this batch
+  for (int r0 = 0; r0 < n_long; r0 += 32) {
+    int n = 0, beg = 0, end = 0, chunks = 0;
+    if (r0 + lane < n_long) {
+      n = long_rows[r0 + lane];
+      beg = __ldg(offsets + n);
+      end = __ldg(offsets + n + 1);
+      chunks = (end - beg + RANK_MAX - 1) / RANK_MAX;
+    }
+    int upto = chunks;  // inclusive scan of the lanes' chunk counts
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int y = __shfl_up_sync(0xffffffffu, upto, d);
+      if (lane >= d) upto += y;
+    }
+    const int total = __shfl_sync(0xffffffffu, upto, 31);
+    for (long long g = base + ((v - base) % n_warps + n_warps) % n_warps;
+         g < base + total; g += n_warps) {
+      const int local = (int)(g - base);
+      const unsigned hit = __ballot_sync(
+          0xffffffffu, local >= upto - chunks && local < upto);
+      const int src = __ffs(hit) - 1;
+      const int row = __shfl_sync(0xffffffffu, n, src);
+      const int rbeg = __shfl_sync(0xffffffffu, beg, src);
+      const int rend = __shfl_sync(0xffffffffu, end, src);
+      const int j = local - __shfl_sync(0xffffffffu, upto - chunks, src);
+      const int first = rbeg + j * RANK_MAX;
+      const int last = min(first + RANK_MAX, rend);
+      if (col < hdim) {
+        const uint32_t row_bits =
+            ROW_SLOPES ? row_slope_bits(proj, n_rows, row, col) : 0u;
+        Frag hi, lo, full;
+        zero(hi);
+        zero(lo);
+        zero(full);
+        sum_run<PASSES, ROW_SLOPES>(first, last, entries, c, dagg, bits, T,
+                                    hdim, words, col, row_bits, hi, lo,
+                                    full);
+        const size_t slot = last - first == RANK_MAX
+                                ? (size_t)(first / RANK_MAX)
+                                : (size_t)n_slots + (rend - 1) / RANK_MAX;
+        const size_t at = slot * hdim + col;
+        store(chunk_hi + at, hi);
+        if constexpr (PASSES == 3) store(chunk_lo + at, lo);
+        if constexpr (PASSES != 0) store(chunk_full + at, full);
+      }
+    }
+    base += total;
+  }
+}
+
+// A row finished: its sums (hi, lo; full for dbq) stored as row n of S
+// (evict-first) and added to the lane's column sums.  A long run's row
+// (k > RANK_MAX entries from place beg) first takes the sum from 0, in
+// chunk order, of its chunks' sums (agg_bwd_hub_kernel's slots).
+template <int PASSES>
+__device__ __forceinline__ void finish_row(
+    int n, bool long_run, int beg, int end, int col, int hdim, int n_slots,
+    const float* __restrict__ chunk_hi, const float* __restrict__ chunk_lo,
+    const float* __restrict__ chunk_full, float* __restrict__ s_hi,
+    float* __restrict__ s_lo, Frag& hi, Frag& lo, Frag& full,
+    Frag& colsum) {
+  if (long_run) {
+    const int k = end - beg, chunks = (k + RANK_MAX - 1) / RANK_MAX;
+#pragma unroll 8
+    for (int j = 0; j < chunks; ++j) {
+      const size_t slot = j < k / RANK_MAX
+                              ? (size_t)((beg + j * RANK_MAX) / RANK_MAX)
+                              : (size_t)n_slots + (end - 1) / RANK_MAX;
+      const size_t at = slot * hdim + col;
+      add(hi, load(chunk_hi + at));
+      if constexpr (PASSES == 3) add(lo, load(chunk_lo + at));
+      if constexpr (PASSES != 0) add(full, load(chunk_full + at));
+    }
+  }
+  store<true>(s_hi + (size_t)n * hdim + col, hi);
+  if constexpr (PASSES == 3) store<true>(s_lo + (size_t)n * hdim + col, lo);
+  const Frag& u = PASSES == 0 ? hi : full;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) colsum.v[i] += u.v[i];
+}
+
+// The table form: a warp a table row at a time over a 128-column chunk
+// of it (blockIdx.y the chunk), each warp of the block taking every 8th
+// of its 64 rows.  A run of at most RANK_MAX entries is summed from 0 in
+// entry order (sum_run); a longer run's row takes its chunks' sums.  Rows
+// that no entry names write zeros.
 template <int PASSES, bool ROW_SLOPES>
 __global__ void __launch_bounds__(WARPS * 32)
 agg_bwd_kernel(const int* __restrict__ offsets,    // [N + 1]
@@ -274,89 +504,178 @@ agg_bwd_kernel(const int* __restrict__ offsets,    // [N + 1]
                const float* __restrict__ dagg,     // [B, H]
                const float* __restrict__ proj,     // K2: [S][N][64]
                const uint32_t* __restrict__ bits,  // K3: [B*T][words]
+               const float* __restrict__ chunk_hi,    // [2 n_slots, H]
+               const float* __restrict__ chunk_lo,    // PASSES 3
+               const float* __restrict__ chunk_full,  // PASSES 1, 3
                float* __restrict__ s_hi,           // [N, H]
                float* __restrict__ s_lo,           // [N, H], PASSES 3
                float* __restrict__ partial,        // [blocks, H]
-               int n_rows, int T, int hdim) {
-  __shared__ float4 red[WARPS][32];
+               int n_rows, int n_slots, int T, int hdim) {
+  __shared__ Frag red[WARPS][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int col = blockIdx.y * CHUNK + 4 * lane;
   const bool live = col < hdim;  // H % 4 == 0: all four columns or none
   const int words = 4 * ((hdim + CHUNK - 1) / CHUNK);
-  // K3's bits of the lane's columns: bits 2 i, 2 i + 1 of two words
-  const int word = 4 * (col / CHUNK) + (col % 8) / 2;
-  const int shift = 2 * ((col % CHUNK) / 8);
   const int first = blockIdx.x * ROWS_PER_BLOCK;
-  float4 colsum = make_float4(0.f, 0.f, 0.f, 0.f);
+  Frag colsum;
+  zero(colsum);
   for (int r = warp; r < ROWS_PER_BLOCK && live; r += WARPS) {
     const int n = first + r;
     if (n >= n_rows) break;
     const int beg = __ldg(offsets + n), end = __ldg(offsets + n + 1);
-    float4 hi = make_float4(0.f, 0.f, 0.f, 0.f), lo = hi, full = hi;
-    uint32_t row_bits = 0;
-    if (ROW_SLOPES && beg < end) {
-      const float4 p = __ldg(reinterpret_cast<const float4*>(
-          proj + ((size_t)(col / SLAB) * n_rows + n) * SLAB + col % SLAB));
-      row_bits = (p.x >= 0.f ? 1u : 0u) | (p.y >= 0.f ? 2u : 0u) |
-                 (p.z >= 0.f ? 4u : 0u) | (p.w >= 0.f ? 8u : 0u);
+    Frag hi, lo, full;
+    zero(hi);
+    zero(lo);
+    zero(full);
+    if (end - beg <= RANK_MAX) {
+      const uint32_t row_bits =
+          ROW_SLOPES && end > beg ? row_slope_bits(proj, n_rows, n, col) : 0u;
+      sum_run<PASSES, ROW_SLOPES>(beg, end, entries, c, dagg, bits, T, hdim,
+                                  words, col, row_bits, hi, lo, full);
     }
-#pragma unroll 4
-    for (int k = beg; k < end; ++k) {
-      const int e = __ldg(entries + k);
-      const float ce = __ldg(c + e);
-      const float4 d = __ldg(reinterpret_cast<const float4*>(
-          dagg + (size_t)(e / T) * hdim + col));
-      uint32_t s = row_bits;
-      if (!ROW_SLOPES) {
-        const uint2 ab = __ldg(
-            reinterpret_cast<const uint2*>(bits + (size_t)e * words + word));
-        s = ((ab.x >> shift) & 3u) | (((ab.y >> shift) & 3u) << 2);
-      }
-      add_term<PASSES>(slope_term(ce, d.x, s & 1u), hi.x, lo.x, full.x);
-      add_term<PASSES>(slope_term(ce, d.y, s & 2u), hi.y, lo.y, full.y);
-      add_term<PASSES>(slope_term(ce, d.z, s & 4u), hi.z, lo.z, full.z);
-      add_term<PASSES>(slope_term(ce, d.w, s & 8u), hi.w, lo.w, full.w);
-    }
-    *reinterpret_cast<float4*>(s_hi + (size_t)n * hdim + col) = hi;
-    if constexpr (PASSES == 3)
-      *reinterpret_cast<float4*>(s_lo + (size_t)n * hdim + col) = lo;
-    const float4 u = PASSES == 0 ? hi : full;
-    colsum.x += u.x;
-    colsum.y += u.y;
-    colsum.z += u.z;
-    colsum.w += u.w;
+    finish_row<PASSES>(n, end - beg > RANK_MAX, beg, end, col, hdim, n_slots,
+                       chunk_hi, chunk_lo, chunk_full, s_hi, s_lo, hi, lo,
+                       full, colsum);
   }
   red[warp][lane] = colsum;
   __syncthreads();
   if (warp == 0 && live) {
-    float4 s = red[0][lane];
+    Frag s = red[0][lane];
 #pragma unroll
-    for (int v = 1; v < WARPS; ++v) {
-      s.x += red[v][lane].x;
-      s.y += red[v][lane].y;
-      s.z += red[v][lane].z;
-      s.w += red[v][lane].w;
-    }
-    *reinterpret_cast<float4*>(partial + (size_t)blockIdx.x * hdim + col) = s;
+    for (int v = 1; v < WARPS; ++v)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s.v[i] += red[v][lane].v[i];
+    store(partial + (size_t)blockIdx.x * hdim + col, s);
   }
 }
 
+// The frontier form, where entry e = b T + t is table row e (each row
+// named once, so no CSR): a warp a node at a time (nodes_per_block to a
+// block, blockIdx.y the 128-column chunk).  It sums the node's T weights
+// in order from 0 (rounded as weights_kernel rounds them), reads its
+// gradient's four columns once, and writes row b T + t of S for each t:
+// the one term added to 0, bit for bit the table form's sum of a row
+// named once.  S streams out (evict-first): cuBLAS reads it once, after.
+template <int PASSES, bool ROW_SLOPES>
+__global__ void __launch_bounds__(WARPS * 32)
+agg_bwd_frontier_kernel(const float* __restrict__ w,        // [B, T]
+                        const float* __restrict__ dagg,     // [B, H]
+                        const float* __restrict__ proj,     // K2: [S][BT][64]
+                        const uint32_t* __restrict__ bits,  // K3: [BT][words]
+                        float* __restrict__ s_hi,           // [B*T, H]
+                        float* __restrict__ s_lo,           // PASSES 3
+                        float* __restrict__ partial,        // [blocks, H]
+                        int n_nodes, int T, int hdim, int den_round,
+                        int nodes_per_block) {
+  __shared__ Frag red[WARPS][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = blockIdx.y * CHUNK + 4 * lane;
+  const bool live = col < hdim;  // H % 4 == 0: all four columns or none
+  const int words = 4 * ((hdim + CHUNK - 1) / CHUNK);
+  const int n_rows = n_nodes * T;
+  Frag colsum;
+  zero(colsum);
+  for (int i = warp; i < nodes_per_block && live; i += WARPS) {
+    const int b = blockIdx.x * nodes_per_block + i;
+    if (b >= n_nodes) break;
+    const float* wb = w + (size_t)b * T;
+    float den = 0.f;
+    for (int t = 0; t < T; ++t) den = __fadd_rn(den, __ldg(wb + t));
+    if (den_round == 1) den = bf16_round(den);
+    if (den_round == 2) den = __half2float(__float2half_rn(den));
+    if (den == 0.f) den = 1.f;
+    const Frag d = load(dagg + (size_t)b * hdim + col);
+#pragma unroll 4
+    for (int t = 0; t < T; ++t) {
+      const int e = b * T + t;
+      const float ce = __fdiv_rn(__ldg(wb + t), den);
+      const uint32_t s = ROW_SLOPES
+                             ? row_slope_bits(proj, n_rows, e, col)
+                             : entry_slope_bits(bits, e, words, col);
+      Frag hi, lo, full;
+      zero(hi);
+      zero(lo);
+      zero(full);
+      add_terms<PASSES>(ce, d, s, hi, lo, full);
+      store<true>(s_hi + (size_t)e * hdim + col, hi);
+      if constexpr (PASSES == 3)
+        store<true>(s_lo + (size_t)e * hdim + col, lo);
+      const Frag& u = PASSES == 0 ? hi : full;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) colsum.v[j] += u.v[j];
+    }
+  }
+  red[warp][lane] = colsum;
+  __syncthreads();
+  if (warp == 0 && live) {
+    Frag s = red[0][lane];
+#pragma unroll
+    for (int v = 1; v < WARPS; ++v)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s.v[j] += red[v][lane].v[j];
+    store(partial + (size_t)blockIdx.x * hdim + col, s);
+  }
+}
+
+struct TableArgs {
+  const int* offsets;
+  const int* entries;
+  const float* c;
+  const float* dagg;
+  const float* proj;
+  const uint32_t* bits;
+  const int* long_rows;
+  float* chunk_hi;
+  float* chunk_lo;
+  float* chunk_full;
+  float* s_hi;
+  float* s_lo;
+  float* partial;
+  int n_rows, n_slots, T, hdim;
+};
+
+template <int PASSES, bool ROW_SLOPES>
+cudaError_t launch_table(const TableArgs& a, cudaStream_t stream) {
+  const int chunks = (a.hdim + CHUNK - 1) / CHUNK;
+  if (a.n_slots > 1) {  // else E <= RANK_MAX: no run is longer
+    const dim3 hub(std::min((a.n_slots + WARPS - 1) / WARPS, HUB_BLOCKS),
+                   chunks);
+    agg_bwd_hub_kernel<PASSES, ROW_SLOPES><<<hub, WARPS * 32, 0,
+                                                  stream>>>(
+        a.offsets, a.entries, a.c, a.dagg, a.proj, a.bits, a.long_rows,
+        a.chunk_hi, a.chunk_lo, a.chunk_full, a.n_rows, a.n_slots, a.T,
+        a.hdim);
+  }
+  const dim3 grid((a.n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, chunks);
+  agg_bwd_kernel<PASSES, ROW_SLOPES><<<grid, WARPS * 32, 0, stream>>>(
+      a.offsets, a.entries, a.c, a.dagg, a.proj, a.bits, a.chunk_hi,
+      a.chunk_lo, a.chunk_full, a.s_hi, a.s_lo, a.partial, a.n_rows,
+      a.n_slots, a.T, a.hdim);
+  return cudaGetLastError();
+}
+
 template <int PASSES>
-cudaError_t launch_passes(const int* offsets, const int* entries,
-                          const float* c, const float* dagg,
-                          const float* proj, const uint32_t* bits,
-                          float* s_hi, float* s_lo, float* partial,
-                          int n_rows, int T, int hdim, cudaStream_t stream) {
-  const dim3 grid((n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
+cudaError_t launch_passes(const TableArgs& a, cudaStream_t stream) {
+  return a.proj != nullptr ? launch_table<PASSES, true>(a, stream)
+                           : launch_table<PASSES, false>(a, stream);
+}
+
+template <int PASSES>
+cudaError_t launch_frontier(const float* w, const float* dagg,
+                            const float* proj, const uint32_t* bits,
+                            float* s_hi, float* s_lo, float* partial,
+                            int n_nodes, int T, int hdim, int den_round,
+                            int nodes_per_block, cudaStream_t stream) {
+  const dim3 grid((n_nodes + nodes_per_block - 1) / nodes_per_block,
                   (hdim + CHUNK - 1) / CHUNK);
   if (proj != nullptr)
-    agg_bwd_kernel<PASSES, true><<<grid, WARPS * 32, 0, stream>>>(
-        offsets, entries, c, dagg, proj, bits, s_hi, s_lo, partial, n_rows,
-        T, hdim);
+    agg_bwd_frontier_kernel<PASSES, true><<<grid, WARPS * 32, 0, stream>>>(
+        w, dagg, proj, bits, s_hi, s_lo, partial, n_nodes, T, hdim,
+        den_round, nodes_per_block);
   else
-    agg_bwd_kernel<PASSES, false><<<grid, WARPS * 32, 0, stream>>>(
-        offsets, entries, c, dagg, proj, bits, s_hi, s_lo, partial, n_rows,
-        T, hdim);
+    agg_bwd_frontier_kernel<PASSES, false><<<grid, WARPS * 32, 0, stream>>>(
+        w, dagg, proj, bits, s_hi, s_lo, partial, n_nodes, T, hdim,
+        den_round, nodes_per_block);
   return cudaGetLastError();
 }
 
@@ -405,20 +724,79 @@ extern "C" int agg_bwd_csr_fill_launch(const void* ids, int n_entries,
   return (int)cudaGetLastError();
 }
 
-// S (and its lo part in three passes) and the dbq partials of a checked
-// problem: w the weights [B, T] f32 (den_round 1 / 2: their denominator
-// rounded to bf16 / f16, the forward's for 16-bit weights), c [B*T] f32
-// scratch for w / den; exactly one of `proj` (K2's residual) and `bits`
-// (K3's, 8-byte aligned) is given; passes 0 (as it is), 1 or 3 (bf16
-// parts).
+// The table form: S (and its lo part in three passes) and the dbq
+// partials of a checked problem: w the weights [B, T] f32 (den_round 1 /
+// 2: their denominator rounded to bf16 / f16, the forward's for 16-bit
+// weights), c [B*T] f32 scratch for w / den; exactly one of `proj` (K2's
+// residual) and `bits` (K3's, 8-byte aligned) is given; passes 0 (as it
+// is), 1 or 3 (bf16 parts); long_rows [N + 1] int32 scratch for the list
+// of long runs; chunk_hi (and chunk_lo with three passes, chunk_full with
+// one or three) [2 n_slots][H] scratch for their chunks' sums, n_slots =
+// ceil(E / 128).
 extern "C" int agg_bwd_launch(const void* offsets, const void* entries,
                               const void* w, void* c, const void* dagg,
                               const void* proj, const void* bits,
-                              void* s_hi, void* s_lo, void* partial,
-                              int n_nodes, int n_rows, int T, int hdim,
-                              int passes, int den_round, void* stream) {
+                              void* long_rows, void* chunk_hi,
+                              void* chunk_lo, void* chunk_full, void* s_hi,
+                              void* s_lo, void* partial, int n_nodes,
+                              int n_rows, int T, int hdim, int n_slots,
+                              int passes, int den_round,
+                              void* stream) {
+  const long long n_entries = (long long)n_nodes * T;
   if (n_nodes < 1 || n_rows < 1 || T < 1 || hdim < 1 || hdim % 4 != 0 ||
+      n_entries > INT_MAX ||
+      n_slots != (int)((n_entries + RANK_MAX - 1) / RANK_MAX) ||
       den_round < 0 || den_round > 2 || (uintptr_t)bits % 8 != 0 ||
+      (passes != 0 && passes != 1 && passes != 3) ||
+      (passes == 3) != (s_lo != nullptr) || long_rows == nullptr ||
+      (n_slots > 1 && (chunk_hi == nullptr ||
+                       (passes == 3) != (chunk_lo != nullptr) ||
+                       (passes != 0) != (chunk_full != nullptr))) ||
+      (proj == nullptr) == (bits == nullptr) ||
+      (uintptr_t)dagg % 16 != 0 || (uintptr_t)proj % 16 != 0 ||
+      (uintptr_t)chunk_hi % 16 != 0 || (uintptr_t)chunk_lo % 16 != 0 ||
+      (uintptr_t)chunk_full % 16 != 0 ||
+      (uintptr_t)s_hi % 16 != 0 || (uintptr_t)s_lo % 16 != 0 ||
+      (uintptr_t)partial % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  auto* cc = (float*)c;
+  auto* longs = (int*)long_rows;
+  const auto st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(longs + n_rows, 0, 4, st);
+  if (err != cudaSuccess) return (int)err;
+  weights_kernel<<<csr_blocks(std::max(n_nodes, n_rows)), CSR_THREADS, 0,
+                   st>>>((const float*)w, n_nodes, T, den_round, cc,
+                         (const int*)offsets, n_rows, longs);
+  const TableArgs a{(const int*)offsets,  (const int*)entries,
+                    cc,                   (const float*)dagg,
+                    (const float*)proj,   (const uint32_t*)bits,
+                    longs,                (float*)chunk_hi,
+                    (float*)chunk_lo,     (float*)chunk_full,
+                    (float*)s_hi,         (float*)s_lo,
+                    (float*)partial,      n_rows,
+                    n_slots,              T,
+                    hdim};
+  err = passes == 0   ? launch_passes<0>(a, st)
+        : passes == 1 ? launch_passes<1>(a, st)
+                      : launch_passes<3>(a, st);
+  return (int)err;
+}
+
+// The frontier form, where entry e of the weights w [B, T] is table row e
+// (N = B T): S [B*T, H] (and its lo part in three passes) and the dbq
+// partials [ceil(B / nodes_per_block), H] (ops/agg.py BWD_NODES), in one
+// kernel, no CSR and no c; the rest as agg_bwd_launch's.
+extern "C" int agg_bwd_frontier_launch(const void* w, const void* dagg,
+                                       const void* proj, const void* bits,
+                                       void* s_hi, void* s_lo,
+                                       void* partial, int n_nodes, int T,
+                                       int hdim, int nodes_per_block,
+                                       int passes, int den_round,
+                                       void* stream) {
+  if (n_nodes < 1 || T < 1 || hdim < 1 || hdim % 4 != 0 ||
+      nodes_per_block < 1 ||
+      (long long)n_nodes * T > INT_MAX || den_round < 0 || den_round > 2 ||
+      (uintptr_t)bits % 8 != 0 ||
       (passes != 0 && passes != 1 && passes != 3) ||
       (passes == 3) != (s_lo != nullptr) ||
       (proj == nullptr) == (bits == nullptr) ||
@@ -426,9 +804,7 @@ extern "C" int agg_bwd_launch(const void* offsets, const void* entries,
       (uintptr_t)s_hi % 16 != 0 || (uintptr_t)s_lo % 16 != 0 ||
       (uintptr_t)partial % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const auto* o = (const int*)offsets;
-  const auto* en = (const int*)entries;
-  auto* cc = (float*)c;
+  const auto* ww = (const float*)w;
   const auto* d = (const float*)dagg;
   const auto* p = (const float*)proj;
   const auto* b = (const uint32_t*)bits;
@@ -436,15 +812,16 @@ extern "C" int agg_bwd_launch(const void* offsets, const void* entries,
   auto* lo = (float*)s_lo;
   auto* part = (float*)partial;
   const auto st = (cudaStream_t)stream;
-  weights_kernel<<<csr_blocks(n_nodes), CSR_THREADS, 0, st>>>(
-      (const float*)w, n_nodes, T, den_round, cc);
   const cudaError_t err =
-      passes == 0   ? launch_passes<0>(o, en, cc, d, p, b, hi, lo, part,
-                                       n_rows, T, hdim, st)
-      : passes == 1 ? launch_passes<1>(o, en, cc, d, p, b, hi, lo, part,
-                                       n_rows, T, hdim, st)
-                    : launch_passes<3>(o, en, cc, d, p, b, hi, lo, part,
-                                       n_rows, T, hdim, st);
+      passes == 0   ? launch_frontier<0>(ww, d, p, b, hi, lo, part, n_nodes,
+                                         T, hdim, den_round, nodes_per_block,
+                                         st)
+      : passes == 1 ? launch_frontier<1>(ww, d, p, b, hi, lo, part, n_nodes,
+                                         T, hdim, den_round, nodes_per_block,
+                                         st)
+                    : launch_frontier<3>(ww, d, p, b, hi, lo, part, n_nodes,
+                                         T, hdim, den_round, nodes_per_block,
+                                         st);
   return (int)err;
 }
 

@@ -53,6 +53,7 @@ from gcn_song_embeddings_tpu_torch.ops.agg import (
     _denominator,
     _f32,
     conv_aggregate,
+    identity_ids,
     matmul,
     policy_passes,
 )
@@ -168,7 +169,7 @@ def packed_nbhd_gather(packed: torch.Tensor, T: int):
     return gather_nbhds
 
 
-def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor,
+def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor | None,
               nb_w: torch.Tensor, Wq: torch.Tensor, bq: torch.Tensor,
               mode: str = "stream", block_rows: int | None = None
               ) -> torch.Tensor:
@@ -186,7 +187,9 @@ def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor,
     For mode "dma" past K3's T <= 64 the neighbor columns are cut into
     slices of at most 64: each slice's mean times its denominator is its
     weighted sum, and the sums over the row's whole denominator give the
-    mean (an all-zero row keeps denominator 1)."""
+    mean (an all-zero row keeps denominator 1).  ``nb_nodes`` None: node
+    b's neighbors are table rows b T .. b T + T - 1 (``conv_aggregate``'s
+    identity, whose backward needs no CSR)."""
     sixteen = table.dtype == Wq.dtype and table.dtype in SIXTEEN
     if not sixteen:
         table, Wq = _f32(table), _f32(Wq)
@@ -199,8 +202,10 @@ def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor,
         table = F.pad(table, (0, pad_d))
         Wq = F.pad(Wq, (0, pad_d, 0, pad_h))
         bq = F.pad(bq, (0, pad_h))
-    t = nb_nodes.shape[1]
+    t = nb_w.shape[1]
     if mode == "dma" and t > MAX_T:
+        if nb_nodes is None:         # a slice of the identity is not one
+            nb_nodes = identity_ids(table, nb_w)
         total = 0.0
         for s in range(0, t, MAX_T):
             w_s = nb_w[:, s:s + MAX_T]
@@ -214,12 +219,13 @@ def aggregate(table: torch.Tensor, nb_nodes: torch.Tensor,
 
 
 def conv_from_table(p: ConvParams, h_self: torch.Tensor,
-                    table: torch.Tensor, nb_nodes: torch.Tensor,
+                    table: torch.Tensor, nb_nodes: torch.Tensor | None,
                     nb_w: torch.Tensor, mode: str = "stream",
                     block_rows: int | None = None) -> torch.Tensor:
     """One conv layer whose neighbors are rows ``nb_nodes`` [B, T] of
-    ``table``: the aggregation never materializes them on the GPU (K2 for
-    mode "stream", K3 for "dma").  Returns f32 (16-bit operands of the
+    ``table`` (None: node b's are rows b T ..): the aggregation never
+    materializes them on the GPU (K2 for mode "stream", K3 for "dma").
+    Returns f32 (16-bit operands of the
     dense products upcast: products exact, sums in f32; f32 ones in the
     precision policy's bf16 passes)."""
     agg = aggregate(table, nb_nodes, nb_w, p.Wq, p.bq, mode, block_rows)
@@ -242,9 +248,7 @@ def conv_apply(p: ConvParams, h_self: torch.Tensor, h_nb: torch.Tensor,
     neighborhood aggregates with denominator 1; a zero output row is left
     unnormalized."""
     b, t, din = h_nb.shape
-    ids = torch.arange(b * t, dtype=torch.int32,
-                       device=h_nb.device).reshape(b, t)
-    return conv_from_table(p, h_self, h_nb.reshape(b * t, din), ids, nb_w)
+    return conv_from_table(p, h_self, h_nb.reshape(b * t, din), None, nb_w)
 
 
 def head_apply(params: PinSageParams, x: torch.Tensor) -> torch.Tensor:
@@ -280,11 +284,10 @@ def forward_with_gather(params: PinSageParams, gather_features,
     h = gather_features(frontiers[n_layers])
     for l in reversed(range(n_layers)):
         m = frontiers[l].shape[0]
-        ids = torch.arange(m * T, dtype=torch.int32,
-                           device=h.device).reshape(m, T)
-        # the deepest frontier uses layers[0]
+        # the deepest frontier uses layers[0]; node i's neighbors are rows
+        # i T .. of h[m:] (ids None: the identity, no CSR in the backward)
         h = conv_from_table(params.layers[n_layers - 1 - l], h[:m], h[m:],
-                            ids, nb_per_level[l], mode="dma")
+                            None, nb_per_level[l], mode="dma")
     return head_apply(params, h)
 
 

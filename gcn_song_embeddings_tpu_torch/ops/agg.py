@@ -57,10 +57,14 @@ row, as the TPU's backward dots round their cotangent).
 The backward (``ConvAggregate.backward``): each table row's gradient
 ``S[n] = sum over entries e naming n of slope(e) c[e] dagg[e // T]``
 (``c = w / den``) is gathered per row by ``agg_bwd_rows``, on CUDA the
-hand-written kernel of ``csrc/agg_bwd.cu`` (its plain twin
+hand-written kernels of ``csrc/agg_bwd.cu`` (their plain twin
 ``agg_bwd_rows_plain``), over the CSR inverse of the ids
-(``backward_csr``) in a fixed order of sums, so the gradient is
-deterministic; then ``dh = S Wq``, ``dWq = S^T h``, ``dbq = sum S``.  On
+(``backward_csr``) in a fixed order of sums (a run past ``BWD_RUN``
+entries in chunks, then the chunks' sums in order), so the gradient is
+deterministic; where the caller states that entry e is table row e (ids
+None: the frontier forward's) ``agg_bwd_frontier`` computes the same S
+in one kernel without the CSR (twin ``agg_bwd_frontier_plain``); then
+``dh = S Wq``, ``dWq = S^T h``, ``dbq = sum S``.  On
 CUDA the slopes are the forward's residual (``conv_aggregate_cuda(...,
 residual=True)``): K2 keeps its projected table P, K3 stores the sign of
 each entry's pre-activation as bits; on the CPU they come from the
@@ -89,7 +93,12 @@ BWD_NAME = "agg_bwd"
 BWD_SOURCE = "gcn_song_embeddings_tpu_torch/csrc/agg_bwd.cu"
 BWD_REPLACES = ("none: XLA autodiff of conv_apply, "
                 "gcn_song_embeddings_tpu/models/pinsage.py:126")
-BWD_ROWS = 64  # table rows a block of the backward kernel (agg_bwd.cu)
+BWD_ROWS = 64  # table rows a block of the backward's table form (agg_bwd.cu)
+BWD_NODES = 32  # nodes a block of the backward's frontier form (agg_bwd.cu)
+# the longest run of entries one warp sums in order (agg_bwd.cu RANK_MAX):
+# a longer run is summed in chunks of this many from its start, and the
+# chunks' sums added in order
+BWD_RUN = 128
 BN, BK, SLAB = 128, 32, 64  # Wq tile rows and floats (agg_tc.cuh); P slab
 BK16 = 64  # 16-bit elements of a Wq tile row (agg_tc.cuh's 16-bit core)
 # the 16-bit table types, each with its form's name and the gather's
@@ -104,10 +113,12 @@ launches_f16 = 0  # K2 op calls on f16 CUDA tables since the last reset
 # launches of each K2 kernel (the split also runs for every K3 call; the
 # gather serves every form)
 kernel_launches = {"split": 0, "project": 0, "gather_mean": 0}
-# launches of the backward's row kernel and of its CSR build (csrc/
-# agg_bwd.cu: every form and mode) since the last reset
+# launches of the backward's table form (its row kernels), of its CSR
+# build and of its frontier form (csrc/agg_bwd.cu: every form and mode)
+# since the last reset
 bwd_launches = 0
 csr_launches = 0
+bwd_frontier_launches = 0
 # launches of the 16-bit forms' own kernels (the tiling also runs for
 # every 16-bit K3 call)
 kernel_launches_bf16 = {"tile": 0, "project": 0}
@@ -137,7 +148,8 @@ _ARGTYPES = {"split": [_P] * 3 + [_I] * 2 + [_P],
              "project_bf16x": [_P] * 5 + [_I] * 4 + [_P],
              "l2_probe": [_P] + [_I] * 2 + [_P, _I, _P],
              "gather_probe": [_P, _I, _I, _P] + [_I] * 3 + [_P, _I, _P]}
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_P]
+_BWD_ARGTYPES = [_P] * 14 + [_I] * 7 + [_P]
+_BWD_FRONTIER_ARGTYPES = [_P] * 7 + [_I] * 6 + [_P]
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -533,41 +545,111 @@ def _bwd_denominators(w: torch.Tensor, sixteen: bool, dtype: torch.dtype
     return torch.where(den == 0.0, torch.ones_like(den), den)
 
 
+def _entry_terms(c: torch.Tensor, dagg: torch.Tensor, t: int,
+                 e: torch.Tensor, slope: torch.Tensor) -> torch.Tensor:
+    """The backward's terms of entries e: ``c[e] dagg[e // T]``, times
+    0.01 where the slope is the negative one."""
+    term = c[e, None] * dagg[e // t]
+    return torch.where(slope, term, 0.01 * term)
+
+
+def _bwd_weights(nb_weights: torch.Tensor) -> torch.Tensor:
+    """c [B*T] = w / ``_bwd_denominators`` (of 16-bit weights upcast)."""
+    w = _f32(nb_weights)
+    return (w / _bwd_denominators(w, nb_weights.dtype in SIXTEEN,
+                                  nb_weights.dtype)[:, None]).reshape(-1)
+
+
+def _add_terms(sums: list, full: torch.Tensor, at: torch.Tensor,
+               term: torch.Tensor, passes: int | None) -> None:
+    """Each term onto its row ``at`` of the sums (one, or two in three
+    passes: the bf16 parts), and with ``passes`` onto ``full`` too."""
+    if passes is None:
+        sums[0][at] += term
+        return
+    full[at] += term
+    for acc, part in zip(sums, _parts(term, passes)):
+        acc[at] += part
+
+
 def agg_bwd_rows_plain(offsets: torch.Tensor, entries: torch.Tensor,
                        nb_weights: torch.Tensor, dagg: torch.Tensor,
                        residual: torch.Tensor, passes: int | None = None
                        ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
-    """``agg_bwd_rows``' plain twin, in the kernel's order of sums: step k
-    adds each row's k-th entry's term ``c[e] dagg[e // T]`` (c = w /
-    ``_bwd_denominators``; times 0.01 on the negative slope) to its f32
-    sum, rounded to bf16 first with ``passes`` 1 or split into bf16 hi and
-    lo with 3 (two sums).  Returns (the row sums [N, H], one or two; dbq
-    [H], the sum of the unrounded terms)."""
+    """``agg_bwd_rows``' plain twin, in the kernel's order of sums.  Each
+    run of entries is cut into chunks: a run of at most ``BWD_RUN`` (128)
+    entries is one, a longer one is cut at multiples of 128 from its
+    start.  Step k adds each chunk's k-th entry's term ``c[e] dagg[e //
+    T]`` (c = w / ``_bwd_denominators``; times 0.01 on the negative slope)
+    to the chunk's f32 sum from 0, rounded to bf16 first with ``passes`` 1
+    or split into bf16 hi and lo with 3 (two sums); a long run's row is
+    then the sum from 0 of its chunks' sums in chunk order.  Returns (the
+    row sums [N, H], one or two; dbq [H], the sum of the unrounded
+    terms)."""
     n, hdim = offsets.numel() - 1, dagg.shape[1]
     t = nb_weights.shape[1]
-    w = _f32(nb_weights)
-    c = (w / _bwd_denominators(w, nb_weights.dtype in SIXTEEN,
-                               nb_weights.dtype)[:, None]).reshape(-1)
+    c = _bwd_weights(nb_weights)
     offsets, entries = offsets.long(), entries.long()
     counts = offsets[1:] - offsets[:-1]
     row_slope = (slabs_to_rows(residual, hdim) >= 0
                  if residual.dim() == 3 else None)
     entry_slope = (unpack_slope_bits(residual, hdim) if row_slope is None
                    else None)
-    sums = [dagg.new_zeros((n, hdim)) for _ in range(2 if passes == 3 else 1)]
+    # the chunks: row, first CSR place and length of each, a row's in order
+    n_chunks = torch.where(counts > BWD_RUN, -(-counts // BWD_RUN), 1)
+    row = torch.repeat_interleave(torch.arange(n, device=dagg.device),
+                                  n_chunks)
+    first_chunk = torch.cumsum(n_chunks, 0) - n_chunks
+    j = torch.arange(row.numel(), device=dagg.device) - first_chunk[row]
+    beg = offsets[row] + BWD_RUN * j
+    length = torch.minimum(offsets[row + 1] - beg,
+                           torch.full_like(beg, BWD_RUN))
+    parts = [dagg.new_zeros((row.numel(), hdim))
+             for _ in range(2 if passes == 3 else 1)]
+    full = parts[0] if passes is None else torch.zeros_like(parts[0])
+    for k in range(int(length.max()) if row.numel() else 0):
+        at = (length > k).nonzero().squeeze(1)
+        e = entries[beg[at] + k]
+        slope = entry_slope[e] if row_slope is None else row_slope[row[at]]
+        _add_terms(parts, full, at, _entry_terms(c, dagg, t, e, slope),
+                   passes)
+    if n == 0 or int(n_chunks.max()) == 1:   # the chunks are the rows
+        return tuple(parts), full.sum(dim=0)
+    # a row of one chunk takes its sum as it is (0 + its terms); a long
+    # run's row sums its chunks' sums from 0 in chunk order
+    one = n_chunks == 1
+    sums = [dagg.new_zeros((n, hdim)) for _ in parts]
+    pairs = list(zip(sums, parts))
+    full_rows = sums[0]
+    if passes is not None:
+        full_rows = torch.zeros_like(sums[0])
+        pairs.append((full_rows, full))
+    for acc, chunk_sums in pairs:
+        acc[one] = chunk_sums[first_chunk[one]]
+        for i in range(int(n_chunks.max())):
+            rows = ((n_chunks > i) & ~one).nonzero().squeeze(1)
+            acc[rows] += chunk_sums[first_chunk[rows] + i]
+    return tuple(sums), full_rows.sum(dim=0)
+
+
+def agg_bwd_frontier_plain(nb_weights: torch.Tensor, dagg: torch.Tensor,
+                           residual: torch.Tensor, passes: int | None = None
+                           ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """``agg_bwd_frontier``'s plain twin: ``agg_bwd_rows_plain`` where
+    entry e = b T + t is table row e (N = B T rows, each named once), so
+    each row's sum is its one term added to 0.  The residual is K2's
+    projected table of those N rows or K3's bits of the B T entries."""
+    b, t = nb_weights.shape
+    hdim = dagg.shape[1]
+    c = _bwd_weights(nb_weights)
+    e = torch.arange(b * t, device=dagg.device)
+    slope = (slabs_to_rows(residual, hdim) >= 0 if residual.dim() == 3
+             else unpack_slope_bits(residual, hdim))
+    term = _entry_terms(c, dagg, t, e, slope)
+    sums = [dagg.new_zeros((b * t, hdim)) for _ in range(2 if passes == 3
+                                                         else 1)]
     full = sums[0] if passes is None else torch.zeros_like(sums[0])
-    for k in range(int(counts.max()) if n else 0):
-        rows = (counts > k).nonzero().squeeze(1)
-        e = entries[offsets[rows] + k]
-        term = c[e, None] * dagg[e // t]
-        slope = entry_slope[e] if row_slope is None else row_slope[rows]
-        term = torch.where(slope, term, 0.01 * term)
-        if passes is not None:
-            full[rows] += term
-            for acc, part in zip(sums, _parts(term, passes)):
-                acc[rows] += part
-        else:
-            sums[0][rows] += term
+    _add_terms(sums, full, e, term, passes)
     return tuple(sums), full.sum(dim=0)
 
 
@@ -578,22 +660,54 @@ def _agg_bwd_rows(offsets: torch.Tensor, entries: torch.Tensor,
     global bwd_launches
     n, (b, hdim) = offsets.numel() - 1, dagg.shape
     row_form = residual.dim() == 3
+    t = nb_weights.shape[1]
     w = _f32(nb_weights)                      # 16-bit weights upcast exactly
-    c = torch.empty(b * nb_weights.shape[1], dtype=torch.float32,
-                    device=dagg.device)
+    c = torch.empty(b * t, dtype=torch.float32, device=dagg.device)
     s_hi = torch.empty((n, hdim), dtype=torch.float32, device=dagg.device)
     s_lo = torch.empty_like(s_hi) if passes == 3 else None
     partial = torch.empty((-(-n // BWD_ROWS), hdim), dtype=torch.float32,
                           device=dagg.device)
+    # the list of runs past BWD_RUN entries, and their chunks' sums: two
+    # slots of ceil(E / BWD_RUN) each (agg_bwd.cu)
+    long_rows = torch.empty(n + 1, dtype=torch.int32, device=dagg.device)
+    slots = -(-b * t // BWD_RUN)
+    chunks = [torch.empty((2 * slots, hdim), dtype=torch.float32,
+                          device=dagg.device) if slots > 1 and need else None
+              for need in (True, passes == 3, passes is not None)]
     with torch.cuda.device(dagg.device):
         _bwd_launch("launch", _BWD_ARGTYPES, offsets.data_ptr(),
                     entries.data_ptr(), w.data_ptr(), c.data_ptr(),
                     dagg.data_ptr(), residual.data_ptr() if row_form else 0,
-                    0 if row_form else residual.data_ptr(), s_hi.data_ptr(),
-                    0 if s_lo is None else s_lo.data_ptr(),
-                    partial.data_ptr(), b, n, nb_weights.shape[1], hdim,
+                    0 if row_form else residual.data_ptr(),
+                    long_rows.data_ptr(),
+                    *(0 if x is None else x.data_ptr() for x in chunks),
+                    s_hi.data_ptr(), 0 if s_lo is None else s_lo.data_ptr(),
+                    partial.data_ptr(), b, n, t, hdim, slots,
                     passes or 0, SIXTEEN.get(nb_weights.dtype, ("", 0))[1])
     bwd_launches += 1
+    return (s_hi,) if s_lo is None else (s_hi, s_lo), partial.sum(dim=0)
+
+
+def _agg_bwd_frontier(nb_weights: torch.Tensor, dagg: torch.Tensor,
+                      residual: torch.Tensor, passes: int | None
+                      ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    global bwd_frontier_launches
+    (b, t), hdim = nb_weights.shape, dagg.shape[1]
+    row_form = residual.dim() == 3
+    w = _f32(nb_weights)                      # 16-bit weights upcast exactly
+    s_hi = torch.empty((b * t, hdim), dtype=torch.float32,
+                       device=dagg.device)
+    s_lo = torch.empty_like(s_hi) if passes == 3 else None
+    partial = torch.empty((-(-b // BWD_NODES), hdim), dtype=torch.float32,
+                          device=dagg.device)
+    with torch.cuda.device(dagg.device):
+        _bwd_launch("frontier_launch", _BWD_FRONTIER_ARGTYPES, w.data_ptr(),
+                    dagg.data_ptr(), residual.data_ptr() if row_form else 0,
+                    0 if row_form else residual.data_ptr(), s_hi.data_ptr(),
+                    0 if s_lo is None else s_lo.data_ptr(),
+                    partial.data_ptr(), b, t, hdim, BWD_NODES, passes or 0,
+                    SIXTEEN.get(nb_weights.dtype, ("", 0))[1])
+    bwd_frontier_launches += 1
     return (s_hi,) if s_lo is None else (s_hi, s_lo), partial.sum(dim=0)
 
 
@@ -610,9 +724,12 @@ def agg_bwd_rows(offsets: torch.Tensor, entries: torch.Tensor,
     ``slope_words(H)``]); with ``passes`` each term rounded to bf16 (1),
     or split into bf16 hi and lo (3), before it is summed.  Returns (S,
     or its one or two part sums, each [N, H] f32; dbq [H], the sum of the
-    unrounded terms).  On CUDA it launches the kernel of ``csrc/agg_bwd.cu``, each
-    row's entries summed in the twin's order (equal bit for bit); on the
-    CPU it runs ``agg_bwd_rows_plain``."""
+    unrounded terms).  A row's run of at most ``BWD_RUN`` (128) entries is
+    summed in order from 0; a longer one in chunks of 128 from its start,
+    each in order from 0, then the chunks' sums from 0 in chunk order.  On
+    CUDA it launches the kernels of ``csrc/agg_bwd.cu`` (the long runs'
+    chunks on warps of their own, then a warp a row), in the twin's order
+    (equal bit for bit); on the CPU it runs ``agg_bwd_rows_plain``."""
     if dagg.device.type == "cpu":
         return agg_bwd_rows_plain(offsets, entries, nb_weights, dagg,
                                   residual, passes)
@@ -641,6 +758,42 @@ def agg_bwd_rows(offsets: torch.Tensor, entries: torch.Tensor,
     _check_aligned(dagg=dagg, residual=residual)
     _check_cuda(kernel, dagg.device)
     return _agg_bwd_rows(offsets, entries, nb_weights, dagg, residual, passes)
+
+
+def agg_bwd_frontier(nb_weights: torch.Tensor, dagg: torch.Tensor,
+                     residual: torch.Tensor, passes: int | None = None
+                     ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """``agg_bwd_rows`` where entry e = b T + t of nb_weights [B, T] is
+    table row e (the frontier forward's ids, an ``arange(B T)``): the
+    same S [B*T, H] (and dbq) without the CSR, each row its one term
+    added to 0.  ``residual`` is K2's projected table [ceil(H/64), B*T,
+    64] or K3's bits [B*T, ``slope_words(H)``].  On CUDA one launch of
+    the frontier kernel of ``csrc/agg_bwd.cu`` (equal bit for bit to
+    ``agg_bwd_rows`` over the CSR of the ``arange``); on the CPU
+    ``agg_bwd_frontier_plain``."""
+    if dagg.device.type == "cpu":
+        return agg_bwd_frontier_plain(nb_weights, dagg, residual, passes)
+    kernel = "the aggregation's backward (frontier form)"
+    if passes is not None:
+        _check_passes(passes)
+    row_form = residual.dim() == 3
+    _check_weights(kernel, nb_weights, sixteen_ok=True)
+    _check_tensors((("dagg", dagg, torch.float32, 2),
+                    ("nb_weights", nb_weights, nb_weights.dtype, 2),
+                    ("residual", residual,
+                     torch.float32 if row_form else torch.int32,
+                     residual.dim())))
+    (b, t), hdim = nb_weights.shape, dagg.shape[1]
+    if (b < 1 or t < 1 or dagg.shape[0] != b
+            or (row_form and residual.shape != (-(-hdim // SLAB), b * t,
+                                                SLAB))
+            or (not row_form and residual.shape != (b * t,
+                                                    slope_words(hdim)))):
+        raise _mismatch(nb_weights=nb_weights, dagg=dagg, residual=residual)
+    _check_widths(kernel, hdim)
+    _check_aligned(dagg=dagg, residual=residual)
+    _check_cuda(kernel, dagg.device)
+    return _agg_bwd_frontier(nb_weights, dagg, residual, passes)
 
 
 def _launch(entry: str, *args) -> None:
@@ -1137,6 +1290,17 @@ def conv_aggregate_cuda(h: torch.Tensor, nb_nodes: torch.Tensor,
     return (out, proj) if residual else out
 
 
+def identity_ids(h: torch.Tensor, nb_weights: torch.Tensor) -> torch.Tensor:
+    """The ids [B, T] int32 ``arange(B T)`` of an aggregation whose entry
+    e = b T + t is table row e (h [B T, Din], nb_weights [B, T])."""
+    b, t = nb_weights.shape
+    if h.shape[0] != b * t:
+        raise ValueError(f"entry e is row e of h: h must have B T = {b * t} "
+                         f"rows, got {h.shape[0]}")
+    return torch.arange(b * t, dtype=torch.int32,
+                        device=h.device).reshape(b, t)
+
+
 class ConvAggregate(torch.autograd.Function):
     """The aggregation with a gradient for h, Wq and bq.
 
@@ -1155,7 +1319,11 @@ class ConvAggregate(torch.autograd.Function):
     slopes of the forward's residual on CUDA and of the projection
     recomputed in f32 on the CPU; then ``dWq = S^T h``, ``dbq = sum S``
     and ``dh = S Wq`` are matrix products over the N table rows, not
-    over the B*T gathered ones.  The neighbor weights get no gradient:
+    over the B*T gathered ones.  Where the caller states that entry e is
+    table row e (``nb_nodes`` None: the frontier forward's ids, an
+    ``arange(B T)`` that the forward builds for its kernel) the backward
+    takes the frontier form instead (``agg_bwd_frontier``, its twin on
+    the CPU): the same sums without the CSR.  The neighbor weights get no gradient:
     they are constants of the neighborhood cache.  For a 16-bit (bf16 or
     f16) table and Wq the slopes are those of the f32 pre-activation
     (the forward's f32 sums; JAX's residual is f32 too), and dh and dWq
@@ -1176,6 +1344,9 @@ class ConvAggregate(torch.autograd.Function):
     def forward(ctx, h, nb_nodes, nb_weights, Wq, bq, mode, block_rows,
                 passes, residual):
         res = None
+        ctx.identity = nb_nodes is None
+        if ctx.identity:
+            nb_nodes = identity_ids(h, nb_weights)
         if h.device.type == "cpu":
             out = conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq,
                                        passes)
@@ -1203,13 +1374,20 @@ class ConvAggregate(torch.autograd.Function):
             res = rows_to_slabs(
                 torch.addmm(bq, h32, wq32.t()) if passes is None
                 else _passes_product(h32, wq32.t(), passes) + bq)
-            offsets, entries = backward_csr_plain(nb_nodes, n)
-            parts, dbq = agg_bwd_rows_plain(offsets, entries, nb_weights,
-                                            dagg, res, passes)
+            if ctx.identity:
+                parts, dbq = agg_bwd_frontier_plain(nb_weights, dagg, res,
+                                                    passes)
+            else:
+                offsets, entries = backward_csr_plain(nb_nodes, n)
+                parts, dbq = agg_bwd_rows_plain(offsets, entries, nb_weights,
+                                                dagg, res, passes)
         elif res is None:
             raise RuntimeError("this forward kept no slope residual: call "
                                "conv_aggregate, or apply with residual "
                                "True")
+        elif ctx.identity:                   # the frontier form: no CSR
+            parts, dbq = _agg_bwd_frontier(nb_weights, dagg.contiguous(),
+                                           res, passes)
         else:
             offsets, entries = _backward_csr(nb_nodes, n)
             parts, dbq = _agg_bwd_rows(offsets, entries, nb_weights,
@@ -1230,7 +1408,7 @@ class ConvAggregate(torch.autograd.Function):
                 None, None)
 
 
-def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
+def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor | None,
                    nb_weights: torch.Tensor, Wq: torch.Tensor,
                    bq: torch.Tensor, mode: str = "stream",
                    block_rows: int | None = None) -> torch.Tensor:
@@ -1240,11 +1418,16 @@ def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
     ``block_rows`` bounds the nodes aggregated at once: K2 still projects
     the table once; the plain version gathers one block at a time.  An
     f32 h and Wq take the precision policy's bf16 passes
-    (``policy_passes``)."""
+    (``policy_passes``).  ``nb_nodes`` None states that node b's
+    neighbors are table rows b T .. b T + T - 1 (h has B T rows, T =
+    nb_weights' width), so the backward needs no CSR
+    (``identity_ids``)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
     passes = policy_passes(h, Wq)
     if h.device.type == "cpu":
+        if nb_nodes is None:
+            nb_nodes = identity_ids(h, nb_weights)
         if not block_rows or block_rows >= nb_nodes.shape[0]:
             return conv_aggregate_plain(h, nb_nodes, nb_weights, Wq, bq,
                                         passes)
@@ -1261,7 +1444,9 @@ def conv_aggregate(h: torch.Tensor, nb_nodes: torch.Tensor,
                          "the neighborhood cache): pass them detached")
     residual = torch.is_grad_enabled() and any(
         t.requires_grad for t in (h, Wq, bq))
-    return ConvAggregate.apply(h, nb_nodes.to(torch.int32).contiguous(),
+    if nb_nodes is not None:
+        nb_nodes = nb_nodes.to(torch.int32).contiguous()
+    return ConvAggregate.apply(h, nb_nodes,
                                nb_weights.contiguous(), Wq.contiguous(),
                                bq.contiguous(), mode, block_rows, passes,
                                residual)
